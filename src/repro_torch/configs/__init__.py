@@ -1,0 +1,7 @@
+from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
+from repro_torch.configs.registry import ARCH_IDS, get_config, reduced_config
+
+__all__ = [
+    "ModelConfig", "MoEConfig", "SSMConfig",
+    "ARCH_IDS", "get_config", "reduced_config",
+]

@@ -1,0 +1,90 @@
+"""Model configuration for the PyTorch port: a copy of
+``repro.configs.base`` (the model dataclasses only; the dry-run shape
+and training configs come with later slices).  Configs are frozen
+dataclasses so they hash and can key caches.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+# ---------------------------------------------------------------------------
+# Model configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0          # routed experts
+    top_k: int = 0
+    num_shared: int = 0           # shared (always-on) experts (DeepSeek-MoE)
+    d_ff: int = 0                 # per-expert hidden size (fine-grained)
+    first_k_dense: int = 0        # first K layers use a dense FFN instead
+    dense_d_ff: int = 0           # hidden size of those dense layers
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 0              # Mamba2 SSM state size
+    d_conv: int = 4               # depthwise causal conv width
+    head_dim: int = 64            # SSD head dim (P)
+    expand: int = 2               # d_inner = expand * d_model
+    chunk: int = 256              # SSD chunk length
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense | moe | ssm | hybrid | vlm | audio | xlstm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    sliding_window: Optional[int] = None   # SWA window (h2o-danube)
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+    # hybrid (zamba2): one weight-shared attention block applied every
+    # `attn_every` mamba blocks.
+    attn_every: int = 0
+    # xlstm: block kinds, cycled over layers ('m' = mLSTM, 's' = sLSTM)
+    xlstm_pattern: Tuple[str, ...] = ()
+    # encoder-decoder (whisper)
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_ctx: int = 1500       # whisper: 30s of audio at 50 fps
+    # vlm: number of prepended patch-embedding tokens provided by the
+    # (stubbed) vision frontend.
+    num_patch_tokens: int = 0
+    dtype: str = "bfloat16"
+
+    # ---- derived ---------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.num_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe.num_experts > 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "xlstm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode path exists (SSM state, recurrence, or SWA)."""
+        return (self.family in ("ssm", "hybrid", "xlstm")
+                or self.sliding_window is not None)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
