@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
 A copy of ``repro.configs.registry`` that lists only the architectures
-whose family the port runs (dense decoders, in this slice).
+whose family the port runs (the dense, MoE and hybrid-SSM families).
 """
 from __future__ import annotations
 
@@ -13,6 +13,9 @@ from repro_torch.configs.base import ModelConfig
 # arch id -> module name (one file per architecture the port runs)
 _ARCH_MODULES = {
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini_3_8b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -18,8 +18,11 @@
 // owns 8 query rows; lane j scores key j of the tile for all 8 rows at
 // once (one K load feeds 8 independent FMA chains; q is a broadcast
 // float4), the row max and sum are warp shuffles, and each lane
-// accumulates D/32 output columns of P @ V, loading each V element once
-// for all 8 rows.  m, l and acc stay in registers across the kv loop.
+// accumulates ceil(D/32) output columns of P @ V, loading each V element
+// once for all 8 rows.  m, l and acc stay in registers across the kv
+// loop.  D is any multiple of 16 up to 128 (a bf16 row is whole 16-byte
+// words); where 32 does not divide D (zamba2's 112) the upper lanes'
+// last column and the last round of tile loads are guarded.
 //
 // Inputs are read through their strides in the model's [B, S, H, D]
 // layout, so no transposes are made (the JAX ops.py transposes to
@@ -27,7 +30,7 @@
 // output is written contiguous [B, S, H, D].
 //
 // What bounds it on this card: at the prefill shapes of the main path
-// (S <= 256, D = 96) the kernel does 4 * S^2 * D / 2 flops per head on
+// (S <= 256, D = 96, 112, 128) the kernel does 4 * S^2 * D / 2 flops per head on
 // 4 * S * D input/output elements, i.e. about S / 4 flops per byte in
 // bf16: below the H100's ~295 flops/byte ridge, so the bound is bytes.
 // This first kernel computes with plain fp32 FMAs from shared memory
@@ -99,15 +102,19 @@ __device__ __forceinline__ void load_tile(float* dst, int pitch,
                                           long long stride, int r0, int n,
                                           int tid) {
   constexpr int VEC = 16 / sizeof(T);          // elements per 16 bytes
+  static_assert(D % VEC == 0, "a row is whole 16-byte words");
   constexpr int PER_ROW = D / VEC;
-  constexpr int PER_THREAD = ROWS * PER_ROW / (kWarps * 32);
-  static_assert(ROWS * PER_ROW % (kWarps * 32) == 0, "tile split");
+  constexpr int TOTAL = ROWS * PER_ROW;
+  constexpr int PER_THREAD = (TOTAL + kWarps * 32 - 1) / (kWarps * 32);
+  // when the words do not split evenly over the threads (D = 112 in
+  // bf16: 448 words over 128 threads), the last round is guarded
+  constexpr bool kEven = TOTAL % (kWarps * 32) == 0;
   uint4 raw[PER_THREAD];
 #pragma unroll
   for (int i = 0; i < PER_THREAD; ++i) {
     const int idx = tid + i * kWarps * 32;
     const int r = idx / PER_ROW, c = (idx % PER_ROW) * VEC;
-    raw[i] = r0 + r < n
+    raw[i] = (kEven || idx < TOTAL) && r0 + r < n
                  ? __ldg(reinterpret_cast<const uint4*>(
                        src + (r0 + r) * stride + c))
                  : make_uint4(0, 0, 0, 0);
@@ -115,6 +122,7 @@ __device__ __forceinline__ void load_tile(float* dst, int pitch,
 #pragma unroll
   for (int i = 0; i < PER_THREAD; ++i) {
     const int idx = tid + i * kWarps * 32;
+    if (!kEven && idx >= TOTAL) continue;
     const int r = idx / PER_ROW, c = (idx % PER_ROW) * VEC;
     const T* e = reinterpret_cast<const T*>(&raw[i]);
 #pragma unroll
@@ -124,7 +132,10 @@ __device__ __forceinline__ void load_tile(float* dst, int pitch,
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(Args a) {
-  constexpr int NV = D / 32;  // output columns per lane
+  // output columns per lane; when 32 does not divide D (D = 112) the
+  // last column of the upper lanes is past D and is guarded
+  constexpr int NV = (D + 31) / 32;
+  constexpr bool kFull = D % 32 == 0;
   constexpr int KP = D + 1;   // padded K row stride (bank-conflict free)
   extern __shared__ float smem[];
   float* qs = smem;              // [BQ][D]
@@ -204,7 +215,8 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(Args a) {
     for (int j = 0; j < BK; ++j) {
       float vj[NV];
 #pragma unroll
-      for (int i = 0; i < NV; ++i) vj[i] = vs[j * D + lane + 32 * i];
+      for (int i = 0; i < NV; ++i)
+        vj[i] = kFull || lane + 32 * i < D ? vs[j * D + lane + 32 * i] : 0.f;
 #pragma unroll
       for (int rr = 0; rr < kRows; ++rr) {
         const float pj = __shfl_sync(0xffffffffu, p[rr], j);
@@ -221,7 +233,9 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(Args a) {
     const float denom = fmaxf(l[rr], 1e-30f);
     T* orow = o + (((size_t)b * a.S + qp) * a.H + h) * D;
 #pragma unroll
-    for (int i = 0; i < NV; ++i) orow[lane + 32 * i] = from_f<T>(acc[rr][i] / denom);
+    for (int i = 0; i < NV; ++i)
+      if (kFull || lane + 32 * i < D)
+        orow[lane + 32 * i] = from_f<T>(acc[rr][i] / denom);
   }
 }
 
@@ -244,9 +258,13 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 template <typename T>
 int dispatch_d(const Args& a, int B, int D, cudaStream_t s) {
   switch (D) {
+    case 16: return launch<T, 16>(a, B, s);
     case 32: return launch<T, 32>(a, B, s);
+    case 48: return launch<T, 48>(a, B, s);
     case 64: return launch<T, 64>(a, B, s);
+    case 80: return launch<T, 80>(a, B, s);
     case 96: return launch<T, 96>(a, B, s);
+    case 112: return launch<T, 112>(a, B, s);
     case 128: return launch<T, 128>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
@@ -257,7 +275,7 @@ int dispatch_d(const Args& a, int B, int D, cudaStream_t s) {
 // q: [B, S, H, D], k/v: [B, Sk, KV, D], each with unit stride on D and
 // the given element strides on (B, seq, head), 16-byte aligned base
 // pointers and strides; o: contiguous
-// [B, S, H, D].  D in {32, 64, 96, 128}; H % KV == 0.  dtype: 0 fp32,
+// [B, S, H, D].  D a multiple of 16 up to 128; H % KV == 0.  dtype: 0 fp32,
 // 1 bf16.  window <= 0 means no window.  Returns cudaGetLastError().
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int S,

@@ -22,7 +22,8 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS: Tuple[str, ...] = ("rmsnorm", "flash_attention")
+KERNELS: Tuple[str, ...] = ("rmsnorm", "flash_attention", "moe_dispatch",
+                            "ssm_scan")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -17,7 +17,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
-HEAD_DIMS = (32, 64, 96, 128)
+HEAD_DIMS = tuple(range(16, 129, 16))    # bf16 rows of 16-byte words
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _ARGTYPES = ([_P] * 4 + [_I] * 6 + [_L] * 9

@@ -4,8 +4,11 @@ The twin of ``repro.launch.serve``.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch phi3-mini-3.8b --requests 3 --max-new 8
 
-Runs on the GPU (``--device cuda``, the default) at the config's full
-width, or on the CPU with ``--device cpu`` (use ``--reduced`` there).
+``--arch`` takes the architectures the port runs: ``phi3-mini-3.8b``
+(dense), ``olmoe-1b-7b`` and ``deepseek-moe-16b`` (MoE), ``zamba2-7b``
+(hybrid SSM, legacy prefill only).  Runs on the GPU (``--device
+cuda``, the default) at the config's full width, or on the CPU with
+``--device cpu`` (use ``--reduced`` there).
 Without a GPU and without ``--device cpu`` it raises.  Weights are
 random, from ``--seed``.  Each request prints ``max_new + 1`` tokens
 (the prefill token plus the decodes).
@@ -23,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.serving.engine import Engine
@@ -36,7 +39,7 @@ _LATER = {"trace": "the tracing plane", "chaos_seed": "fault injection",
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--requests", type=int, default=8)

@@ -11,6 +11,13 @@ tensors, which may be views of a layer slice of a stacked cache.  An
 optional ``rows`` index tensor (slot ids) limits the writes to those
 slots, so the other slots of a serving pool stay bit-identical.
 
+``attn_forward`` in the 'chunk' and 'decode' modes writes every slot,
+attends, and then puts back the old contents of the slots in `keep`:
+each slot attends over its own new keys, as in the JAX engine, which
+computes every lane and discards the unselected lanes' caches
+afterwards (its masked merge).  That matters for MoE models, whose
+capacity drops couple a token's output to every token in the batch.
+
 The prefill branch of ``attn_forward`` goes through the flash-attention
 kernel wrapper: the CUDA kernel for CUDA tensors, the plain version for
 CPU tensors.  The int8 decode path (``decode_attention_q8``) and the
@@ -162,21 +169,36 @@ def _write_rows(rows: Optional[torch.Tensor], B: int,
     return rows.to(device=device, dtype=torch.long)
 
 
+def _write_positions(lens: torch.Tensor, new: int, smax: int,
+                     ring: bool) -> torch.Tensor:
+    """[B, new] cache positions a write of `new` tokens at `lens` lands
+    on: a ring write wraps; otherwise the start is clamped to
+    smax - new, as the JAX ``dynamic_update_slice`` clamps it."""
+    if ring:
+        return (lens % smax)[:, None]
+    start = torch.clamp(lens, max=smax - new)
+    return start[:, None] + torch.arange(new, device=lens.device)[None]
+
+
+def _write(k_cache, v_cache, k_new, v_new, pos, rows):
+    b = _write_rows(rows, k_new.shape[0], k_cache.device)
+    k_cache[b[:, None], pos[b]] = k_new[b].to(k_cache.dtype)
+    v_cache[b[:, None], pos[b]] = v_new[b].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
 def chunk_cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
                        k_new: torch.Tensor, v_new: torch.Tensor, cache_len,
                        rows: Optional[torch.Tensor] = None):
     """Write a C-token chunk [B,C,...] at per-slot offset `cache_len`, in
-    place, for the slots in `rows` (all when None).  The caller
-    guarantees cache_len + C <= Smax for those slots (the JAX
-    ``dynamic_update_slice`` would clamp the start; torch indexing would
-    write elsewhere or fail): see ``check_cache_bounds``."""
+    place, for the slots in `rows` (all when None).  Callers keep
+    cache_len + C <= Smax for the slots whose writes count (see
+    ``check_cache_bounds``); past it the start is clamped as the JAX
+    ``dynamic_update_slice`` clamps it."""
     B, C = k_new.shape[0], k_new.shape[1]
     lens = _lens(cache_len, B, k_cache.device)
-    b = _write_rows(rows, B, k_cache.device)
-    pos = lens[b][:, None] + torch.arange(C, device=k_cache.device)[None]
-    k_cache[b[:, None], pos] = k_new[b].to(k_cache.dtype)
-    v_cache[b[:, None], pos] = v_new[b].to(v_cache.dtype)
-    return k_cache, v_cache
+    pos = _write_positions(lens, C, k_cache.shape[1], ring=False)
+    return _write(k_cache, v_cache, k_new, v_new, pos, rows)
 
 
 def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -187,11 +209,21 @@ def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
     windowed), in place, for the slots in `rows` (all when None)."""
     B, Smax = k_cache.shape[0], k_cache.shape[1]
     lens = _lens(cache_len, B, k_cache.device)
-    idx = lens % Smax if (window is not None and Smax == window) else lens
-    b = _write_rows(rows, B, k_cache.device)
-    k_cache[b, idx[b]] = k_new[b, 0].to(k_cache.dtype)
-    v_cache[b, idx[b]] = v_new[b, 0].to(v_cache.dtype)
-    return k_cache, v_cache
+    ring = window is not None and Smax == window
+    pos = _write_positions(lens, 1, Smax, ring)
+    return _write(k_cache, v_cache, k_new, v_new, pos, rows)
+
+
+def other_rows(rows: Optional[torch.Tensor], B: int,
+               device: torch.device) -> Optional[torch.Tensor]:
+    """The slot ids of a [B] pool that are NOT in `rows` (None when
+    `rows` is None or holds every slot).  One host sync."""
+    if rows is None:
+        return None
+    keep = torch.ones(B, dtype=torch.bool, device=device)
+    keep[rows.to(device=device, dtype=torch.long)] = False
+    idx = torch.nonzero(keep).flatten()
+    return idx if idx.numel() else None
 
 
 def check_cache_bounds(lens: torch.Tensor, new: int, smax: int,
@@ -213,16 +245,19 @@ def check_cache_bounds(lens: torch.Tensor, new: int, smax: int,
 def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                  positions: torch.Tensor, *, cfg: ModelConfig, mode: str,
                  cache: Optional[Dict[str, Any]] = None,
-                 rows: Optional[torch.Tensor] = None):
+                 keep: Optional[torch.Tensor] = None,
+                 window: Optional[int] = None):
     """Returns (out [B,S,d], new_cache).
 
     mode: 'train' | 'prefill' | 'chunk' | 'decode'.  'chunk' and
-    'decode' write the cache in place (for the slot ids in `rows`, all
-    when None); 'prefill' returns a new cache holding this call's k, v.
+    'decode' write the cache in place, except for the slot ids in
+    `keep`, whose caches come out unchanged; 'prefill' returns a new
+    cache holding this call's k, v.  `window` overrides the config's
+    sliding window (zamba's shared block passes it).
     """
     B, S, _ = x.shape
     hq, kvh, hd = attn_dims(cfg)
-    wdw = cfg.sliding_window
+    wdw = window if window is not None else cfg.sliding_window
 
     q = x @ p["wq"]
     k = x @ p["wk"]
@@ -235,18 +270,25 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     v = v.reshape(B, S, kvh, hd)
 
     new_cache = cache
-    if mode == "chunk":
+    if mode in ("chunk", "decode"):
         assert cache is not None
-        kc, vc = chunk_cache_update(cache["k"], cache["v"], k, v,
-                                    cache["len"], rows=rows)
-        out = chunk_attention(q, kc, vc, cache["len"], window=wdw)
+        kc, vc = cache["k"], cache["v"]
+        lens = _lens(cache["len"], B, kc.device)
+        ring = mode == "decode" and wdw is not None and kc.shape[1] == wdw
+        pos = _write_positions(lens, S, kc.shape[1], ring)
+        saved = None
+        if keep is not None:
+            saved = (kc[keep[:, None], pos[keep]].clone(),
+                     vc[keep[:, None], pos[keep]].clone())
+        _write(kc, vc, k, v, pos, None)
+        if mode == "chunk":
+            out = chunk_attention(q, kc, vc, cache["len"], window=wdw)
+        else:
+            out = decode_attention(q, kc, vc, cache["len"] + 1, window=wdw)
+        if saved is not None:
+            kc[keep[:, None], pos[keep]] = saved[0]
+            vc[keep[:, None], pos[keep]] = saved[1]
         new_cache = {"k": kc, "v": vc, "len": cache["len"] + S}
-    elif mode == "decode":
-        assert cache is not None
-        kc, vc = cache_update(cache["k"], cache["v"], k, v, cache["len"],
-                              window=wdw, rows=rows)
-        out = decode_attention(q, kc, vc, cache["len"] + 1, window=wdw)
-        new_cache = {"k": kc, "v": vc, "len": cache["len"] + 1}
     elif mode in ("prefill", "train"):
         out = flash_attention(q, k, v, causal=True, window=wdw)
         if mode == "prefill":

@@ -1,0 +1,177 @@
+"""Zamba2 hybrid: a Mamba2 backbone with ONE weight-shared attention
+block applied every `attn_every` Mamba blocks.  The twin of
+``repro.models.zamba``.
+
+81 Mamba blocks, attn_every=6 -> 13 groups of (6 mamba + shared attn)
+plus a 3-block Mamba tail.  The shared block has a single parameter set
+but 13 distinct KV caches: same weights, different activations.
+
+The JAX scans over groups and blocks become Python loops.  'decode'
+writes the SSM, conv and KV caches IN PLACE for the slot ids in `rows`
+(all when None); 'prefill' returns new caches.  The windowed shared
+attention of the long-context cell (``long_context``) is not ported.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, ssm
+from repro_torch.models import params as P
+from repro_torch.models.common import padded_vocab, rmsnorm
+from repro_torch.models.mlp import mlp_forward
+from repro_torch.models.transformer import attention_spec
+
+
+def plan(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(groups, group_size, tail), as ``_plan``."""
+    g = cfg.attn_every
+    n_groups = cfg.num_layers // g
+    return n_groups, g, cfg.num_layers - n_groups * g
+
+
+def zamba_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """``init_zamba``."""
+    n_groups, g, tail = plan(cfg)
+    d = cfg.d_model
+    block = {"norm": P.ones(d), "mixer": ssm.mamba2_spec(cfg)}
+    spec: Dict[str, Any] = {
+        "embed": P.Leaf((padded_vocab(cfg.vocab_size), d), "embed"),
+        "blocks": P.Stack(n_groups * g, block),
+        "shared": {"norm1": P.ones(d), "norm2": P.ones(d),
+                   "attn": attention_spec(cfg),
+                   "mlp": P.mlp_spec(d, cfg.d_ff)},
+        "final_norm": P.ones(d),
+        "lm_head": P.dense(d, padded_vocab(cfg.vocab_size), fan_in=d),
+    }
+    if tail:
+        spec["tail"] = P.Stack(tail, block)
+    return spec
+
+
+class ZambaLM(P.Model):
+    """The hybrid family's model (the tree of ``zamba.init_zamba``)."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype,
+                 device: torch.device):
+        if cfg.family != "hybrid":
+            raise ValueError(f"ZambaLM runs the hybrid family, not "
+                             f"{cfg.family!r}")
+        super().__init__(zamba_spec(cfg), cfg, dtype=dtype, device=device)
+
+
+def _layer_cache(caches: Optional[Dict[str, Any]], part: str, i: int):
+    """Layer i of the stacked cache tree `caches[part]` (views)."""
+    if caches is None:
+        return None
+    return {name: leaf[i] for name, leaf in caches[part].items()}
+
+
+def _mamba_block(bp: Mapping[str, Any], x, cfg, mode, cache, rows):
+    h, new_cache = ssm.mamba2_forward(
+        bp["mixer"], rmsnorm(x, bp["norm"], cfg.norm_eps), cfg, mode=mode,
+        cache=cache, rows=rows)
+    return x + h, new_cache
+
+
+def _shared_block(sp, x, positions, cfg, mode, kv_cache, keep):
+    h, new_kv = attention.attn_forward(
+        sp["attn"], rmsnorm(x, sp["norm1"], cfg.norm_eps), positions,
+        cfg=cfg, mode=mode, cache=kv_cache, keep=keep)
+    x = x + h
+    x = x + mlp_forward(sp["mlp"], rmsnorm(x, sp["norm2"], cfg.norm_eps))
+    return x, new_kv
+
+
+def _stack(trees):
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
+                  *, mode: str = "train",
+                  caches: Optional[Dict[str, Any]] = None,
+                  rows: Optional[torch.Tensor] = None):
+    """Returns (logits, aux=0, new_caches).
+
+    caches: {"mamba": stacked [G*g] tree, "tail": stacked [tail] tree,
+             "kv": stacked [G] {"k", "v"}, "len": int32 (scalar or [B])}
+    """
+    n_groups, g, tail = plan(cfg)
+    tokens = batch["tokens"].to(params.device).long()
+    B, S = tokens.shape
+    x = params.embed[tokens]
+    dev = x.device
+    keep = None
+    if mode == "decode":
+        if caches is None:
+            raise ValueError("mode 'decode' needs caches")
+        lens = torch.as_tensor(caches["len"], device=dev).expand(B)
+        attention.check_cache_bounds(lens, 1, caches["kv"]["k"].shape[2],
+                                     rows)
+        keep = attention.other_rows(rows, B, dev)
+        positions = lens.reshape(B, 1)
+    elif mode in ("prefill", "train"):
+        positions = torch.arange(S, device=dev).expand(B, S)
+    else:
+        raise ValueError(f"unknown zamba mode {mode!r}")
+
+    new_mamba, new_kv = [], []
+    for gi in range(n_groups):
+        for j in range(g):
+            i = gi * g + j
+            cache = _layer_cache(caches, "mamba", i)
+            x, nc = _mamba_block(params.blocks.layer(i), x, cfg, mode,
+                                 cache, rows)
+            new_mamba.append(nc)
+        kv = None
+        if caches is not None:
+            kv = {"k": caches["kv"]["k"][gi], "v": caches["kv"]["v"][gi],
+                  "len": caches["len"]}
+        x, nkv = _shared_block(params.shared, x, positions, cfg, mode, kv,
+                               keep)
+        new_kv.append(nkv)
+    new_tail = []
+    for i in range(tail):
+        cache = _layer_cache(caches, "tail", i)
+        x, nc = _mamba_block(params.tail.layer(i), x, cfg, mode, cache, rows)
+        new_tail.append(nc)
+
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    logits = x @ params.lm_head
+
+    new_caches = None
+    if mode == "prefill":
+        prev = 0 if caches is None else caches["len"]
+        new_caches = {
+            "mamba": _stack(new_mamba),
+            "kv": {"k": torch.stack([c["k"] for c in new_kv]),
+                   "v": torch.stack([c["v"] for c in new_kv])},
+            "len": (torch.as_tensor(prev, device=dev) + S).to(torch.int32)}
+        if tail:
+            new_caches["tail"] = _stack(new_tail)
+    elif mode == "decode":
+        new_caches = dict(caches, len=(lens + 1).to(torch.int32))
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    return logits, aux, new_caches
+
+
+def init_zamba_caches(cfg: ModelConfig, batch: int, max_len: int, *,
+                      dtype: torch.dtype, device: torch.device
+                      ) -> Dict[str, Any]:
+    n_groups, g, tail = plan(cfg)
+
+    def stack(tree, n):
+        return {k: torch.zeros((n,) + tuple(t.shape), dtype=t.dtype,
+                               device=device) for k, t in tree.items()}
+
+    one_ssm = ssm.init_ssm_cache(cfg, batch, dtype, device)
+    one_kv = attention.init_kv_cache(cfg, batch, max_len, dtype=dtype,
+                                     device=device)
+    caches = {"mamba": stack(one_ssm, n_groups * g),
+              "kv": stack({k: one_kv[k] for k in ("k", "v")}, n_groups),
+              "len": one_kv["len"]}
+    if tail:
+        caches["tail"] = stack(one_ssm, tail)
+    return caches

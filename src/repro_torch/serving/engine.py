@@ -15,7 +15,10 @@ advancing in one batched call, and a chunk-hash prefix cache
 (``prefix_cache.py``) copies cached KV prefixes into slots instead of
 recomputing them.  ``prefill_mode="legacy"`` runs one [1, bucket]
 prefill per request through the flash-attention kernel and copies the
-result into the slot.
+result into the slot.  The hybrid family (zamba2) has recurrent state
+and takes the legacy path only; as in the JAX engine, its pad tokens
+run through the SSM and conv states (a fault of the reference that the
+port keeps, so both engines give the same tokens).
 
 Failure semantics: per-request deadlines (finish reason "timeout"), a
 bounded admission queue with a shed policy ("shed"), and a NaN/Inf
@@ -40,7 +43,7 @@ import torch
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
-from repro_torch.models.transformer import STAGE, DenseLM
+from repro_torch.models.params import Model
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampler import (SamplerConfig, logit_entropy,
                                          sample_guarded)
@@ -66,7 +69,7 @@ class Request:
 
 
 class Engine:
-    def __init__(self, cfg: ModelConfig, params: DenseLM, *,
+    def __init__(self, cfg: ModelConfig, params: Model, *,
                  n_slots: int = 8, max_len: int = 512,
                  prompt_bucket: int = 64,
                  decode_width: Optional[int] = None,
@@ -146,9 +149,11 @@ class Engine:
         self._prefill_pos: Dict[int, int] = {}
         self._chunk_hashes: Dict[int, List[str]] = {}
 
-        # the pool: stacked [L, n_slots, max_len, KV, D] k/v leaves; the
-        # host `self.lens` is authoritative and is copied into the pool's
-        # per-slot `len` before every device step
+        # the pool: a tree of stacked [L, n_slots, ...] leaves (k/v
+        # [L, n_slots, max_len, KV, D]; a hybrid model's SSM and conv
+        # states have no sequence axis); the host `self.lens` is
+        # authoritative and is copied into the pool's per-slot `len`
+        # before every device step
         self.caches = api.init_caches(cfg, n_slots, max_len,
                                       device=self.device)
         self.lens = np.zeros(n_slots, np.int32)
@@ -237,36 +242,67 @@ class Engine:
 
     # -------------------------------------------------------- cache surgery
 
+    # Every pool leaf but `len` has its slot on axis 1, behind the
+    # stacked-layer axis.  Only the k/v leaves have a sequence axis (2):
+    # it is cropped or zero-filled; recurrent leaves (ssm, conv_*) are
+    # copied whole.
+
+    def _pool_leaves(self, tree: Dict[str, Any], src: Dict[str, Any]):
+        """(name, pool leaf, source leaf) for every leaf of `src`."""
+        for name, sub in src.items():
+            if name == "len":
+                continue
+            if isinstance(sub, dict):
+                yield from self._pool_leaves(tree[name], sub)
+            else:
+                yield name, tree[name], sub
+
     def _write_slot(self, slot: int, one_caches: Dict[str, Any],
                     prompt_len: int) -> None:
-        """Copy a prefilled batch=1 cache into pool slot `slot` at offset
-        0 (cropped to max_len); positions past it keep their contents,
-        masked by the slot's len and overwritten by decode."""
-        pool = self.caches[STAGE]
-        for name, src in one_caches[STAGE].items():
-            n = min(src.shape[2], self.max_len)
-            pool[name][:, slot, :n] = src[:, 0, :n].to(pool[name].dtype)
+        """Copy a prefilled batch=1 cache into pool slot `slot` (k/v at
+        offset 0, cropped to max_len); positions past it keep their
+        contents, masked by the slot's len and overwritten by decode."""
+        for name, pool, src in self._pool_leaves(self.caches, one_caches):
+            if name in ("k", "v"):
+                n = min(src.shape[2], self.max_len)
+                pool[:, slot, :n] = src[:, 0, :n].to(pool.dtype)
+            else:
+                pool[:, slot] = src[:, 0].to(pool.dtype)
         self.lens[slot] = prompt_len
 
     def _write_slots_masked(self, one_caches: Dict[str, Any],
                             sel: np.ndarray) -> None:
         """Broadcast ONE batch=1 prefix snapshot into every slot in
-        `sel`: the snapshot zero-padded to max_len replaces the slot's
-        whole cache, as the JAX engine's masked `where` does."""
+        `sel`: the snapshot (k/v zero-padded to max_len) replaces the
+        slot's whole cache, as the JAX engine's masked `where` does."""
         slots = torch.as_tensor(np.flatnonzero(sel), device=self.device)
-        pool = self.caches[STAGE]
-        for name, src in one_caches[STAGE].items():
-            n = src.shape[2]
-            dst = pool[name]
-            dst[:, slots, :n] = src.to(dst.dtype).expand(
-                -1, len(slots), -1, -1, -1)
-            dst[:, slots, n:] = 0
+        for name, pool, src in self._pool_leaves(self.caches, one_caches):
+            src = src.to(pool.dtype)
+            shape = list(src.shape)
+            shape[1] = len(slots)
+            if name in ("k", "v"):
+                n = src.shape[2]
+                pool[:, slots, :n] = src.expand(shape)
+                pool[:, slots, n:] = 0
+            else:
+                pool[:, slots] = src.expand(shape)
 
     def _read_slot(self, slot: int, n_tokens: int) -> Dict[str, Any]:
-        """Inverse of `_write_slot`: a batch=1 copy of pool slot `slot`
-        cropped to its first `n_tokens` positions."""
-        return {STAGE: {name: leaf[:, slot:slot + 1, :n_tokens].clone()
-                        for name, leaf in self.caches[STAGE].items()}}
+        """Inverse of `_write_slot`: a batch=1 copy of pool slot `slot`,
+        k/v cropped to its first `n_tokens` positions."""
+        def take(tree):
+            out = {}
+            for name, leaf in tree.items():
+                if name == "len":
+                    continue
+                if isinstance(leaf, dict):
+                    out[name] = take(leaf)
+                elif name in ("k", "v"):
+                    out[name] = leaf[:, slot:slot + 1, :n_tokens].clone()
+                else:
+                    out[name] = leaf[:, slot:slot + 1].clone()
+            return out
+        return take(self.caches)
 
     # ----------------------------------------------------------------- tick
 

@@ -1,7 +1,8 @@
 """The port's serving stack against the JAX package: sampling, the
 scheduler's mask algebra, and the serving-contract workloads of
 tests/test_serving.py through both engines on the same fp32 weights
-(reduced phi3, 2 layers), plus the serve CLI on the CPU."""
+(reduced phi3, 2 layers; reduced deepseek-moe-16b, 2 layers, and
+zamba2-7b, 4 layers), plus the serve CLI on the CPU."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -77,6 +78,42 @@ def test_contract_workload_matches_jax_engine(weights, name):
     if name == "prefix_cache":
         assert got[2] == {"serving.prefix_cache.hits": 4,
                           "serving.prefix_cache.hit_tokens": 32}
+
+
+FAMILY_RUNS = [("deepseek-moe-16b", "chunked"), ("deepseek-moe-16b", "legacy"),
+               ("deepseek-moe-16b", "prefix_cache"), ("zamba2-7b", "legacy"),
+               ("zamba2-7b", "sequential")]
+
+
+@pytest.fixture(scope="module")
+def family_weights():
+    """{arch: (jax cfg, port cfg, jax params, port model)}, built once."""
+    out = {}
+    for arch, layers in (("deepseek-moe-16b", 2), ("zamba2-7b", 4)):
+        jcfg = jax_reduced_config(arch).replace(num_layers=layers,
+                                                dtype="float32")
+        cfg = reduced_config(arch).replace(num_layers=layers,
+                                           dtype="float32")
+        params = japi.build_params(jax.random.PRNGKey(0), jcfg)
+        out[arch] = (jcfg, cfg, params, bridge.from_numpy(
+            jax.tree.map(np.asarray, params), cfg, device="cpu"))
+    return out
+
+
+@pytest.mark.parametrize("arch,name", FAMILY_RUNS)
+def test_family_workload_matches_jax_engine(family_weights, arch, name):
+    """The MoE family (chunked and legacy prefill, prefix-cache hits)
+    and the hybrid family (legacy prefill, pads through the recurrent
+    state as in the reference) give the JAX engine's tokens, finish
+    reasons and prefix-cache counters."""
+    jcfg, cfg, jparams, model = family_weights[arch]
+    prompts, max_new, kw = WORKLOADS[name]
+    want = _run(JaxEngine, jcfg, jparams, prompts, max_new, **kw)
+    got = _run(Engine, cfg, model, prompts, max_new, **kw)
+    assert got == want
+    assert all(len(t) == max_new + 1 for t in got[0])
+    if name == "prefix_cache":
+        assert got[2]["serving.prefix_cache.hits"] == 4
 
 
 def test_max_new_contract_and_finish_reason(weights):
@@ -200,6 +237,19 @@ def test_serve_cli_on_cpu(capsys):
              if ln.startswith("req ")]
     assert len(lines) == 3
     assert all(": 5 tokens" in ln for ln in lines)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "zamba2-7b"])
+def test_serve_cli_new_families_on_cpu(capsys, arch):
+    rc = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                     "--requests", "2", "--slots", "2", "--max-new", "3",
+                     "--max-len", "64", "--shared-prefix", "32"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith("req ")]
+    assert len(lines) == 2 and all(": 4 tokens" in ln for ln in lines)
+    mode = "legacy" if arch == "zamba2-7b" else "chunked"
+    assert f"prefill={mode}" in out
 
 
 def test_serve_cli_refuses_cpu_fallback():
