@@ -11,10 +11,12 @@ of JAX and nothing of the ``repro`` package.  In order:
    gather, SSD intra-chunk) from ``src/repro_torch/csrc/``, one
    ``nvcc`` per source, in parallel;
 2. holds each kernel against its plain PyTorch version on the card at
-   the main paths' shapes (the gather bit-exact; flash also at zamba2's
-   head_dim 112), and reduced fp32 phi3, deepseek-moe-16b and zamba2-7b
-   prefills on the card (kernels) against the same models on the CPU
-   (plain versions);
+   the main paths' shapes (the gather bit-exact; flash in bf16 on its
+   wgmma/TMA route and in fp32 on its FMA route, also at zamba2's
+   head_dim 112, and in bf16 at long prefills of 4096 tokens and a
+   ragged S = 200), and reduced fp32 phi3, deepseek-moe-16b and
+   zamba2-7b prefills on the card (kernels) against the same models on
+   the CPU (plain versions);
 3. serves three models at full published width in bf16, one on the
    card at a time, with random weights from a seeded generator:
    ``phi3-mini-3.8b`` (a) chunked prefill, 4 requests on 2 slots behind
@@ -23,7 +25,8 @@ of JAX and nothing of the ``repro`` package.  In order:
    (a), (d) legacy, as (b); ``zamba2-7b`` (e) legacy, prompts of
    exactly 64 and 128 tokens, so no pad enters the recurrent state.
    Each path runs with every kernel's launch count set to 0 just before
-   it and read just after;
+   it and read just after (flash's per route too: bf16 serving must
+   run it on the wgmma route only);
 4. checks consistency: phi3's chunked and legacy first-token logits
    (cosine >= 0.99); zamba2's prefill(64) + one decode step against the
    last logits of prefill(65) (cosine >= 0.99); deepseek's chunked vs
@@ -33,7 +36,7 @@ of JAX and nothing of the ``repro`` package.  In order:
 5. times each kernel, its plain version and the PyTorch library call
    where one computes the same function, with CUDA events: device time
    per call (``ms``, from CUDA-graph replays) and time per eager call
-   (``call_ms``, host included).
+   (``call_ms``, host included); flash also at the long prefills.
 
 It prints a ``{"serve": ...}`` line, a ``{"timings": ...}`` line, one
 ``{"kernels": [...]}`` line, the card's name and power limit, and ends
@@ -55,6 +58,10 @@ BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 PHI3, DEEPSEEK, ZAMBA = "phi3-mini-3.8b", "deepseek-moe-16b", "zamba2-7b"
 KERNELS = ("rmsnorm", "flash_attention", "moe_gather", "ssd_intra")
+OUR_KERNELS = {  # kernel: its CUDA functions' names, as the profiler shows
+    "rmsnorm": ("rmsnorm_kernel",), "flash_attention": ("flash_fwd_",),
+    "moe_gather": ("moe_gather_kernel",),
+    "ssd_intra": ("ssd_y_kernel", "ssd_state_kernel")}
 SEED = 0
 
 
@@ -97,6 +104,8 @@ def _check(ok: bool, what: str) -> None:
 def _zero_counts(m) -> None:
     for mod in m["counted"].values():
         mod.launches = 0
+    for route in m["fa_ops"].launches_by_route:
+        m["fa_ops"].launches_by_route[route] = 0
 
 
 def _counts(m) -> dict:
@@ -248,6 +257,19 @@ def kernel_phase(m) -> dict:
             e = _max_err(torch, got, want, tol,
                          f"flash {dt} S={S} H={H} KV={KV} D={D} window={w}")
             errs["flash_attention"] = max(errs["flash_attention"], e)
+    # bf16 only: long prefills of phi3 and deepseek (many kv tiles through
+    # the TMA ring) and a ragged S = 200 at zamba2's head_dim
+    for S, H, KV, D, w in ((4096, 32, 32, 96, None), (4096, 16, 16, 128, None),
+                           (200, 32, 32, 112, None)):
+        q, k, v = (torch.randn(1, S, h, D, generator=g, device="cuda")
+                   .to(torch.bfloat16) for h in (H, KV, KV))
+        got = m["fa_ops"].flash_attention_cuda(q, k, v, causal=True, window=w)
+        torch.cuda.synchronize()
+        want = m["attention_ref"](q, k, v, causal=True, window=w)
+        e = _max_err(torch, got, want, 2e-2,
+                     f"flash bf16 S={S} H={H} KV={KV} D={D} window={w}")
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        del q, k, v, got, want
     for dt in (torch.bfloat16, torch.float32):
         for T, C in ((2, 8), (64, 8), (128, 16)):
             x, st = gather_inputs(torch, g, T, 2048, 64, C, dt)
@@ -313,6 +335,7 @@ def _serve(m, cfg, params, prompts, max_new, **kw) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts(m)
+    routes = dict(m["fa_ops"].launches_by_route)
     res = eng.results()
     for r in rids:
         _check(len(res[r]) == max_new + 1,
@@ -331,7 +354,7 @@ def _serve(m, cfg, params, prompts, max_new, **kw) -> dict:
             "prefills": snap["serving.prefills"]["value"],
             "decode_ticks": snap["serving.decode_ticks"]["value"],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches": launches}
+            "launches": launches, "flash_launches_by_route": routes}
 
 
 def first_token_logits(m, cfg, params, prompt):
@@ -380,8 +403,8 @@ def step_profile(m, cfg, params) -> dict:
     under ``torch.profiler``, each after a warm-up call: wall ms (host
     clock around the call, synchronised; profiler overhead included),
     device ms (sum of the kernels' self device times), the device's busy
-    share, the number of kernels, and the five kernels with the most
-    device time."""
+    share, the number of kernels, the five kernels with the most device
+    time, and the device ms and launches of each hand-written kernel."""
     torch, api = m["torch"], m["api"]
     from torch.profiler import ProfilerActivity, profile
     g = torch.Generator().manual_seed(SEED)
@@ -411,11 +434,17 @@ def step_profile(m, cfg, params) -> dict:
                 and e.self_device_time_total > 0]
         dev = sum(e.self_device_time_total for e in kern) / 1e3
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+        ours = {k: [sum(e.self_device_time_total for e in kern
+                        if any(f in e.key for f in fns)) / 1e3,
+                    sum(e.count for e in kern
+                        if any(f in e.key for f in fns))]
+                for k, fns in OUR_KERNELS.items()}
         out[name] = {"wall_ms": wall, "device_ms": dev,
                      "busy_share": dev / wall,
                      "kernels": sum(e.count for e in kern),
                      "top": [[e.key[:60], e.self_device_time_total / 1e3,
-                              e.count] for e in top]}
+                              e.count] for e in top],
+                     "ours": ours}
     return out
 
 
@@ -515,6 +544,11 @@ def serve_phase(m) -> dict:
         for name in names:
             _check(out[path]["launches"][name] > 0,
                    f"no {name} launch in {path}")
+        # bf16 serving runs flash on the tensor-core route only
+        _check(out[path]["flash_launches_by_route"]
+               == {"wgmma": out[path]["launches"]["flash_attention"],
+                   "fma": 0},
+               f"{path}: flash routes {out[path]['flash_launches_by_route']}")
     return out
 
 
@@ -536,9 +570,10 @@ def timing_phase(m) -> dict:
                      lambda: F.rms_norm(x, (d,), s, 1e-5)),
             **_bound(2 * (2 * rows * d + d), 4 * rows * d, FP32_FLOPS)})
     # flash: legacy prefill buckets of phi3 (D=96), deepseek (D=128) and
-    # zamba2 (D=112)
+    # zamba2 (D=112), then long prefills of phi3 and deepseek
     for S, H, D in ((64, 32, 96), (128, 32, 96), (128, 16, 128),
-                    (64, 32, 112), (128, 32, 112)):
+                    (64, 32, 112), (128, 32, 112), (4096, 32, 96),
+                    (4096, 16, 128)):
         q = torch.randn(1, S, H, D, generator=g, device="cuda").to(bf)
         k = torch.randn(1, S, H, D, generator=g, device="cuda").to(bf)
         v = torch.randn(1, S, H, D, generator=g, device="cuda").to(bf)
@@ -657,6 +692,13 @@ def main() -> int:
             "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "call_ms": t["call_ms"]})
+        if name == "flash_attention":
+            routes = m["fa_ops"].ROUTES
+            kernels[-1]["routes"] = {str(dt).replace("torch.", ""): r
+                                     for dt, r in routes.items()}
+            kernels[-1]["launches_by_route"] = {
+                r: sum(serve[p]["flash_launches_by_route"][r] for p in paths)
+                for r in routes.values()}
         _check(kernels[-1]["launches"] > 0, f"{name}: no launch on a path")
     print(f"[done] {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

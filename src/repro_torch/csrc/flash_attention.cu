@@ -2,41 +2,68 @@
 // ctypes.
 //
 // Replaces the Pallas TPU kernel
-// src/repro/kernels/flash_attention/kernel.py (_fwd_kernel /
+// src/repro/kernels/flash_attention/kernel.py:101 (_fwd_kernel /
 // flash_attention_fwd): FlashAttention-2 forward, causal and/or
-// sliding-window, GQA (query head h reads kv head h / G), online softmax
-// with fp32 running max m, denominator l and accumulator.
+// sliding-window, GQA (query head h reads kv head h / G), scale
+// 1/sqrt(D), online softmax with fp32 running max m, denominator l
+// (clamped at 1e-30) and accumulator.  The TPU grid (B, H, nq, nk) runs
+// its last axis in order and carries m, l and acc across it in VMEM
+// scratch; CUDA blocks run in no order, so here one block owns one
+// (b, h, query tile) and walks its kv tiles itself, in a loop bounded by
+// the causal and window limits (masked tiles are never loaded).  Inputs
+// are read through their strides in the model's [B, S, H, D] layout (no
+// transposes); the output is contiguous [B, S, H, D].
 //
-// The TPU grid (B, H, nq, nk) runs its last axis in order on one core
-// and carries m, l and acc across it in VMEM scratch.  CUDA blocks run
-// in no order, so here one block owns one (b, h, 32-query tile) and
-// walks the kv tiles itself, in a loop bounded by the causal and window
-// limits: masked kv tiles are never loaded (the Pallas kernel still
-// DMAs them and only skips their compute).  Each kv tile (32 keys) is
-// staged in shared memory as fp32, K with a padded row stride so the 32
-// lanes reading 32 different keys hit 32 different banks.  Each warp
-// owns 8 query rows; lane j scores key j of the tile for all 8 rows at
-// once (one K load feeds 8 independent FMA chains; q is a broadcast
-// float4), the row max and sum are warp shuffles, and each lane
-// accumulates ceil(D/32) output columns of P @ V, loading each V element
-// once for all 8 rows.  m, l and acc stay in registers across the kv
-// loop.  D is any multiple of 16 up to 128 (a bf16 row is whole 16-byte
-// words); where 32 does not divide D (zamba2's 112) the upper lanes'
-// last column and the last round of tile loads are guarded.
+// What bounds it on this card: per head the kernel does 4 * S^2 * D / 2
+// flops (causal) on 4 * S * D input/output elements, about S / 4 flops
+// per byte in bf16.  The H100's ridge is ~295 flops/byte, so at the
+// prefill buckets of the main path (S <= 256) the bound is bytes (and,
+// at ~1 us of work, launch latency), and from S ~ 1200 up it is
+// operations: 0.104 ms of tensor-core work for phi3's [1, 4096, 32, 96].
 //
-// Inputs are read through their strides in the model's [B, S, H, D]
-// layout, so no transposes are made (the JAX ops.py transposes to
-// [B, H, S, D]), with 16-byte loads (the wrapper checks alignment); the
-// output is written contiguous [B, S, H, D].
+// Two routes, chosen by dtype:
 //
-// What bounds it on this card: at the prefill shapes of the main path
-// (S <= 256, D = 96, 112, 128) the kernel does 4 * S^2 * D / 2 flops per head on
-// 4 * S * D input/output elements, i.e. about S / 4 flops per byte in
-// bf16: below the H100's ~295 flops/byte ridge, so the bound is bytes.
-// This first kernel computes with plain fp32 FMAs from shared memory
-// (no tensor cores, no cp.async/TMA, no warp specialisation); it is
-// bounded in practice by shared-memory bandwidth and launch latency.
-// mma.sync/wgmma tiles are the later, faster design.
+// bf16: tensor cores, loads overlapped with compute.  A block holds one
+// or two consumer warpgroups (128 threads each; wgmma's M is 64, so each
+// owns 64 query rows) and a producer that only issues TMA loads: 64 x 64
+// tiles (one warpgroup, one producer warp) for short prompts, 128 x 128
+// tiles (two warpgroups, a producer warpgroup that gives its registers
+// to them with setmaxnreg) where those fill every SM.  Q, K and V are
+// read through one 4-D tensor map each over the strided layout (dims D,
+// heads, seq, B; a box of 64 columns x 64 or 128 rows, 128-byte swizzle),
+// so no consumer spends registers or instructions on addresses.  D is
+// padded to 64 or 128 in shared memory only: the map's dim-0 extent
+// stays D and TMA writes zeros past it (and past seq, so ragged query
+// and key tiles need no guards on the loads).  Q is loaded once; K and
+// V go through 2-stage rings with full/empty mbarriers per stage
+// (expect-tx bytes): the producer refills a stage as soon as every
+// consumer warp has read it, so the next tiles load while this one
+// computes.  S = Q K^T is wgmma m64n{64,128}k16 with both operands
+// K-major in shared memory, over D / 16 k-steps (the zero padding is
+// skipped).  The online softmax runs on the accumulator fragments in
+// registers (a row lives in the 4 threads of a quad: max by two
+// shuffles; l is summed per thread and reduced once at the end); scores
+// are masked with -1e30 before exp on the tiles that hold a masked pair
+// only (the diagonal tile, the first tiles of a window, keys past Sk).
+// P is rounded to bf16 in registers and is wgmma's A operand from
+// registers (the score fragment is the A fragment, no shuffles); O += P V
+// is wgmma m64n{64,96,112,128}k16 (D rounded up to a width) with V read
+// MN-major (transpose bit set on B).  What keeps the tensor cores busy:
+// each warpgroup issues P_{j-1} V_{j-1} right behind S_j = Q K_j^T and
+// runs the softmax of tile j while that product runs, and the two
+// warpgroups take turns on the tensor cores (named barriers), so one's
+// softmax overlaps the other's products.  The epilogue divides by l and
+// stores 16-byte words of the rows < S and columns < D through shared
+// memory.
+//
+// fp32: the first kernel of the port (no tensor cores: TF32 would break
+// the 2e-5 tolerance of the fp32 route).  One block per (b, h, 32-query
+// tile); each kv tile (32 keys) staged in shared memory as fp32; each
+// warp owns 8 query rows, lane j scores key j, row max and sum by warp
+// shuffles, P @ V with each V element loaded once for all 8 rows.  It is
+// bounded by shared-memory bandwidth and launch latency.
+#include <cuda.h>   // CUtensorMap types only; the driver is reached
+                    // through the runtime, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,16 +77,9 @@ constexpr int kRows = BQ / kWarps;  // query rows per warp
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -106,8 +126,8 @@ __device__ __forceinline__ void load_tile(float* dst, int pitch,
   constexpr int PER_ROW = D / VEC;
   constexpr int TOTAL = ROWS * PER_ROW;
   constexpr int PER_THREAD = (TOTAL + kWarps * 32 - 1) / (kWarps * 32);
-  // when the words do not split evenly over the threads (D = 112 in
-  // bf16: 448 words over 128 threads), the last round is guarded
+  // when the words do not split evenly over the threads the last round
+  // is guarded (never in fp32, where a tile is D / 16 rounds)
   constexpr bool kEven = TOTAL % (kWarps * 32) == 0;
   uint4 raw[PER_THREAD];
 #pragma unroll
@@ -255,8 +275,8 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(const Args& a, int B, int D, cudaStream_t s) {
+int dispatch_fp32(const Args& a, int B, int D, cudaStream_t s) {
+  using T = float;
   switch (D) {
     case 16: return launch<T, 16>(a, B, s);
     case 32: return launch<T, 32>(a, B, s);
@@ -270,13 +290,695 @@ int dispatch_d(const Args& a, int B, int D, cudaStream_t s) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route: wgmma tiles fed by TMA
+// ---------------------------------------------------------------------------
+
+// A block holds WG consumer warpgroups of 64 query rows each and walks
+// kv tiles of 64 * WG keys: WG = 2 (128 x 128 tiles) where that fills the
+// card, WG = 1 (64 x 64) for short prompts.  TMA boxes are 64 head-dim
+// columns (128 bytes, the swizzle span) by 64 * WG rows.
+constexpr int kStages = 2;     // K/V ring depth
+constexpr int kBox = 64;       // head-dim columns per TMA box
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 4-D tensor map (dims D, heads, seq, batch) into shared
+// memory; completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(head), "r"(row),
+      "r"(batch), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: rows of
+// 128 bytes, 8-row groups 1024 bytes apart (SBO); `lbo` is the distance
+// between 64-column boxes, read only for an MN-major operand wider than
+// one box
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// waits until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// pins the accumulator registers at this point of the program, so the
+// compiler moves no read or write of them across a wgmma fence or wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define ACC16(i) ACC4(i), ACC4(i + 4), ACC4(i + 8), ACC4(i + 12)
+#define ACC32(i) ACC16(i), ACC16(i + 16)
+#define REGS32                                                           \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31"
+#define REGS64                                                              \
+  REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+         "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+         "%57, %58, %59, %60, %61, %62, %63"
+
+// d[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major in shared
+// memory (S = Q K^T: rows of Q and of K are contiguous along D)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// as wgmma_ss_n64 with N = 128 (S over a kv tile of 128 keys)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(0), ACC32(32)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] * B[16 x 64], A (P) from registers, B (V)
+// MN-major in shared memory: its rows (keys) are contiguous along D, so
+// the transpose bit is set
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// as wgmma_rs_n64 with N = 128: two 64-column boxes of V, LBO apart
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC32(0), ACC32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// as wgmma_rs_n64 with N = 96: the first 96 columns of two boxes
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : ACC16(0), ACC16(16), ACC16(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// as wgmma_rs_n64 with N = 112: the first 112 columns of two boxes
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : ACC16(0), ACC16(16), ACC16(32), ACC4(48), ACC4(52)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef REGS64
+#undef REGS32
+#undef ACC32
+#undef ACC16
+#undef ACC4
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// barrier of the consumer warpgroups alone (the producer has left)
+template <int THREADS>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(THREADS) : "memory");
+}
+
+// Turns of the two consumer warpgroups on the tensor cores (WG = 2):
+// warpgroup w waits for its turn (named barrier 2 + w) before it issues
+// its wgmma, and passes the turn on once they are issued, so one
+// warpgroup's softmax runs while the other's products do
+template <int WG>
+__device__ __forceinline__ void turn_wait(int wg) {
+  if constexpr (WG == 2)
+    asm volatile("bar.sync %0, 256;" ::"r"(2 + wg) : "memory");
+}
+template <int WG>
+__device__ __forceinline__ void turn_pass(int wg) {
+  if constexpr (WG == 2)
+    asm volatile("bar.arrive %0, 256;" ::"r"(3 - wg) : "memory");
+}
+
+// per-warpgroup register budget (Hopper): a warpgroup that only issues
+// loads gives registers back, one that runs wgmma takes them
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// threads of a block: WG consumer warpgroups and a producer warp (WG = 1)
+// or warpgroup (WG = 2)
+template <int WG>
+constexpr int kThreads = 128 * WG + (WG == 2 ? 128 : 32);
+
+struct TileArgs {
+  __nv_bfloat16* o;
+  int S, Sk, H, KV, D, causal, window;
+  float scale_log2;   // 1/sqrt(D) * log2(e): softmax in base 2
+};
+
+// the block's mbarriers: Q, and per stage of the rings K and V full
+// (TMA bytes landed) and empty (every consumer warp done reading)
+struct Barriers {
+  uint64_t q;
+  uint64_t k_full[kStages], v_full[kStages];
+  uint64_t k_empty[kStages], v_empty[kStages];
+};
+
+// S = Q K^T for one kv tile of N keys: KD k-steps of 16 head-dim columns
+// (D / 16: the zero columns of the padding are skipped); a step inside
+// a swizzled 128-byte row moves the start address by 32 bytes.  q_rows
+// is this warpgroup's first row of the Q tile, `box` the bytes of one
+// 64-column box
+template <int KD, int N>
+__device__ __forceinline__ void issue_qk(float (&sc)[N / 2], uint32_t q_rows,
+                                         uint32_t k_tile, int box) {
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    const uint32_t off = (kk / 4) * box + (kk % 4) * 32;
+    const uint64_t qd = sw128_desc(q_rows + off, 16);
+    const uint64_t kd = sw128_desc(k_tile + off, 16);
+    if constexpr (N == 64)
+      wgmma_ss_n64(sc, qd, kd, kk > 0);
+    else
+      wgmma_ss_n128(sc, qd, kd, kk > 0);
+  }
+}
+
+// O += P V for one kv tile of N keys: N / 16 k-steps, P from registers;
+// a step moves 16 rows of V (2048 bytes), the boxes of V are `box` apart.
+// DN output columns: D rounded up to 64, 96, 112 or 128
+template <int DN, int N>
+__device__ __forceinline__ void issue_pv(float (&acc)[DN / 2],
+                                         const uint32_t (&pa)[N / 4],
+                                         uint32_t v_tile, int box) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const uint32_t frag[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                              pa[4 * kk + 3]};
+    const uint64_t vd = sw128_desc(v_tile + kk * 16 * 128, box);
+    if constexpr (DN == 64)
+      wgmma_rs_n64(acc, frag, vd);
+    else if constexpr (DN == 96)
+      wgmma_rs_n96(acc, frag, vd);
+    else if constexpr (DN == 112)
+      wgmma_rs_n112(acc, frag, vd);
+    else
+      wgmma_rs_n128(acc, frag, vd);
+  }
+}
+
+// Online softmax of one [64 x N] score tile in registers.  Masks with
+// -1e30 before exp, only on tiles that hold a masked pair (the diagonal
+// tile, the first tiles of a window, keys past Sk); each row lives in
+// the 4 threads of a quad (max by two shuffles; l stays per thread and
+// is reduced once at the end).  Leaves P (fp32) in sc and the factor
+// that rescales the accumulator in alpha.  q0: the warpgroup's first
+// query row.
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&sc)[N / 2],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2],
+                                               const TileArgs& a, int q0,
+                                               int kt, int r0, int c0) {
+  const bool masked = kt + N > a.Sk || (a.causal && kt + N - 1 > q0) ||
+                      (a.window > 0 && q0 + 63 - kt >= a.window);
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int qp = q0 + r0 + 8 * ((i / 2) % 2);
+      const int kp = kt + 8 * (i / 4) + c0 + i % 2;
+      bool ok = kp < a.Sk;
+      if (a.causal) ok = ok && kp <= qp;
+      if (a.window > 0) ok = ok && qp - kp < a.window;
+      if (!ok) sc[i] = kNegInf;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+  float mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = fast_exp2((m[r] - mx[r]) * a.scale_log2);
+    m[r] = mx[r];
+    mb[r] = mx[r] * a.scale_log2;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    sc[i] = fast_exp2(fmaf(sc[i], a.scale_log2, -mb[(i / 2) % 2]));
+    l[(i / 2) % 2] += sc[i];
+  }
+}
+
+// P (fp32, score layout) -> bf16 pairs in wgmma's A-fragment order: for
+// k-step kk the pairs (i, i + 1), i = 8 kk, 8 kk + 2, 8 kk + 4, 8 kk + 6
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&sc)[N / 2],
+                                       uint32_t (&pa)[N / 4]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) pa[i / 2] = pack_bf16(sc[i], sc[i + 1]);
+}
+
+// The producer: Q once, then K and V of every kv tile, each into its
+// ring stage as soon as the consumers have released it.  One thread.
+template <int NB, int WG>
+__device__ __forceinline__ void produce(
+    const CUtensorMap* qmap, const CUtensorMap* kmap, const CUtensorMap* vmap,
+    Barriers& bars, uint32_t qs, uint32_t ks, uint32_t vs, int q0, int h,
+    int kvh, int b, int k_lo, int n) {
+  constexpr int kTile = 64 * WG;
+  constexpr int kBoxBytes = kTile * kBox * 2;
+  constexpr int kTileBytes = NB * kBoxBytes;
+  const uint32_t qbar = smem_addr(&bars.q);
+  mbar_expect_tx(qbar, kTileBytes);
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+    tma_load(qs + c * kBoxBytes, qmap, qbar, c * kBox, h, q0, b);
+  for (int t = 0; t < n; ++t) {
+    const int s = t % kStages, u = t / kStages, kt = k_lo + t * kTile;
+    const uint32_t kf = smem_addr(&bars.k_full[s]);
+    const uint32_t vf = smem_addr(&bars.v_full[s]);
+    if (u > 0) mbar_wait(smem_addr(&bars.k_empty[s]), (u - 1) & 1);
+    mbar_expect_tx(kf, kTileBytes);
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+      tma_load(ks + s * kTileBytes + c * kBoxBytes, kmap, kf, c * kBox,
+               kvh, kt, b);
+    if (u > 0) mbar_wait(smem_addr(&bars.v_empty[s]), (u - 1) & 1);
+    mbar_expect_tx(vf, kTileBytes);
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+      tma_load(vs + s * kTileBytes + c * kBoxBytes, vmap, vf, c * kBox,
+               kvh, kt, b);
+  }
+}
+
+// A consumer warpgroup: S = Q K^T, softmax and O += P V over the kv
+// tiles, then the epilogue, for query rows 64 wg .. 64 wg + 63 of the
+// block's tile.  `tile_mem` is the generic address of the Q tile.
+template <int NB, int KD, int WG>
+__device__ __forceinline__ void consume(const TileArgs& a, Barriers& bars,
+                                        uint8_t* tile_mem, uint32_t qs,
+                                        uint32_t ks, uint32_t vs, int q0,
+                                        int h, int b, int k_lo, int n,
+                                        int tid) {
+  constexpr int kTile = 64 * WG;
+  constexpr int kBoxBytes = kTile * kBox * 2;
+  constexpr int kTileBytes = NB * kBoxBytes;
+  // output columns of P V: D rounded up to a wgmma width (80 -> 96)
+  constexpr int DN = KD <= 4 ? 64 : KD <= 6 ? 96 : 16 * KD;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4;               // this consumer's query rows:
+  const int qw = q0 + 64 * wg;           // qw .. qw + 63, in the Q tile
+  const uint32_t q_rows = qs + 64 * wg * 128;   // from row 64 wg on
+  const int r0 = 16 * (warp % 4) + lane / 4;    // this thread's rows: r0,
+  const int c0 = 2 * (lane % 4);         // r0 + 8; first column in 8
+  float acc[DN / 2];
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};   // running max of raw scores
+  float l[2] = {0.f, 0.f};           // this thread's part of the row sum
+  float sc[kTile / 2], alpha[2];
+  uint32_t pa[kTile / 4];            // P of the previous tile, bf16 pairs
+
+  if (n > 0) {
+    if (wg == 1) turn_pass<WG>(1);   // warpgroup 0 goes first
+    mbar_wait(smem_addr(&bars.q), 0);
+    mbar_wait(smem_addr(&bars.k_full[0]), 0);
+    fence_regs(sc);
+    turn_wait<WG>(wg);
+    wgmma_fence();
+    issue_qk<KD, kTile>(sc, q_rows, ks, kBoxBytes);
+    wgmma_commit();
+    turn_pass<WG>(wg);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(smem_addr(&bars.k_empty[0]));
+    online_softmax<kTile>(sc, m, l, alpha, a, qw, k_lo, r0, c0);
+    pack_p<kTile>(sc, pa);
+  }
+  for (int j = 1; j < n; ++j) {
+    const int s = j % kStages, sp = (j - 1) % kStages;
+    mbar_wait(smem_addr(&bars.k_full[s]), (j / kStages) & 1);
+    mbar_wait(smem_addr(&bars.v_full[sp]), ((j - 1) / kStages) & 1);
+    fence_regs(sc);
+    fence_regs(acc);
+    turn_wait<WG>(wg);
+    wgmma_fence();
+    issue_qk<KD, kTile>(sc, q_rows, ks + s * kTileBytes, kBoxBytes);
+    wgmma_commit();
+    issue_pv<DN, kTile>(acc, pa, vs + sp * kTileBytes, kBoxBytes);
+    wgmma_commit();
+    turn_pass<WG>(wg);
+    wgmma_wait<1>();   // S_j is done; P_{j-1} V_{j-1} may still run
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(smem_addr(&bars.k_empty[s]));
+    online_softmax<kTile>(sc, m, l, alpha, a, qw, k_lo + j * kTile, r0, c0);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(smem_addr(&bars.v_empty[sp]));
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+    pack_p<kTile>(sc, pa);
+  }
+  if (n > 0) {   // P V of the last tile
+    const int sp = (n - 1) % kStages;
+    mbar_wait(smem_addr(&bars.v_full[sp]), ((n - 1) / kStages) & 1);
+    fence_regs(acc);
+    turn_wait<WG>(wg);
+    wgmma_fence();
+    issue_pv<DN, kTile>(acc, pa, vs + sp * kTileBytes, kBoxBytes);
+    wgmma_commit();
+    if (wg == 0) turn_pass<WG>(0);   // 1 passes its last turn to no one
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  // epilogue: divide by l, stage the bf16 tile in shared memory (the K
+  // ring is free now), store whole 16-byte words of the rows < S and
+  // the columns < D into contiguous [B, S, H, D]
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  constexpr int kPitch = NB * kBox + 8;   // elements; against conflicts
+  static_assert(kTile * kPitch * 2 <= kStages * kTileBytes,
+                "the output tile fits in the K ring");
+  __nv_bfloat16* ot = reinterpret_cast<__nv_bfloat16*>(
+      tile_mem + kTileBytes);
+  consumer_sync<128 * WG>();   // every warp is done with the rings
+#pragma unroll
+  for (int i = 0; i < DN / 2; i += 2) {
+    const int r = 64 * wg + r0 + 8 * ((i / 2) % 2);
+    *reinterpret_cast<__nv_bfloat162*>(ot + r * kPitch + 8 * (i / 4) + c0) =
+        __floats2bfloat162_rn(acc[i] * inv[(i / 2) % 2],
+                              acc[i + 1] * inv[(i / 2) % 2]);
+  }
+  consumer_sync<128 * WG>();
+  const int words = a.D / 8;
+  for (int idx = tid; idx < kTile * words; idx += 128 * WG) {
+    const int row = idx / words, w = idx % words, qp = q0 + row;
+    if (qp < a.S)
+      *reinterpret_cast<uint4*>(
+          a.o + ((static_cast<size_t>(b) * a.S + qp) * a.H + h) * a.D +
+          8 * w) = *reinterpret_cast<const uint4*>(ot + row * kPitch + 8 * w);
+  }
+}
+
+// One block per (b, h, tile of 64 * WG queries): WG consumer warpgroups
+// (warps 0 .. 4 WG - 1: wgmma, softmax, epilogue), each owning 64 query
+// rows, and a producer (warps from 4 WG on; one thread issues TMA) that
+// feeds them all the same kv tiles of 64 * WG keys.  NB is the number of
+// 64-column boxes D is padded to in shared memory (1: D <= 64, 2: D <=
+// 128; TMA fills the columns past D with zeros); KD = D / 16 is the
+// k-steps of Q K^T.
+//
+// Each consumer's loop is software-pipelined, so the tensor cores work
+// while the warpgroup runs the softmax: in iteration j it issues
+// S_j = Q K_j^T and then O += P_{j-1} V_{j-1}, waits for S_j only, runs
+// the softmax of tile j while the P V product runs, then waits for it,
+// rescales O and packs P_j.  Each finished read releases its ring
+// stage to the producer through that stage's empty barrier.
+//
+// Accumulator layout of wgmma m64nN (fp32): thread t of a warpgroup
+// holds rows r0 = 16 * (t / 32) + (t % 32) / 4 and r0 + 8; register i
+// sits at row r0 + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (t % 4) +
+// i % 2.  That is also the A-fragment layout of wgmma's register
+// operand, so P never leaves the registers.
+template <int NB, int KD, int WG>
+__global__ void __launch_bounds__(kThreads<WG>, 1) flash_fwd_wgmma(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const TileArgs a) {
+  static_assert(KD <= 4 * NB, "Q K^T stays inside the padded head dim");
+  constexpr int kTile = 64 * WG;                   // query rows = keys
+  constexpr int kTileBytes = NB * kTile * kBox * 2;  // one Q, K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ Barriers bars;
+  // 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  const uint32_t qs = raw + pad;                   // Q tile
+  const uint32_t ks = qs + kTileBytes;             // K ring
+  const uint32_t vs = ks + kStages * kTileBytes;   // V ring
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  // blocks start in order of x fastest: every head's query tiles with
+  // the most keys (causal) go first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+
+  // kv tiles this block needs: [k_lo, k_hi), n tiles
+  const int q_last = min(q0 + kTile, a.S) - 1;
+  const int k_hi = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
+  int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  k_lo = k_lo / kTile * kTile;
+  const int n = k_hi > k_lo ? (k_hi - k_lo + kTile - 1) / kTile : 0;
+
+  if (tid == 0) {
+    mbar_init(smem_addr(&bars.q), 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_addr(&bars.k_full[s]), 1);
+      mbar_init(smem_addr(&bars.v_full[s]), 1);
+      mbar_init(smem_addr(&bars.k_empty[s]), 4 * WG);
+      mbar_init(smem_addr(&bars.v_empty[s]), 4 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * WG) {
+    // the producer: one thread issues every load.  With two consumer
+    // warpgroups the producer is a whole warpgroup, so that it can hand
+    // its registers to them (an SM sub-partition holds one producer warp
+    // and two consumer warps: 24 + 2 x 240 registers a lane)
+    if constexpr (WG == 2) setmaxnreg_dec<24>();
+    if (tid == 128 * WG && n > 0)
+      produce<NB, WG>(&qmap, &kmap, &vmap, bars, qs, ks, vs, q0, h, kvh, b,
+                      k_lo, n);
+  } else {
+    if constexpr (WG == 2) setmaxnreg_inc<240>();
+    consume<NB, KD, WG>(a, bars, smem_raw + pad, qs, ks, vs, q0, h, b, k_lo,
+                        n, tid);
+  }
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library links no libcuda
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the model's strided [B, seq, heads, D] bf16 layout as it is: dims (D,
+// heads, seq, B) with byte strides, a box of 64 columns x 64 rows,
+// 128-byte swizzle; reads past D or seq are zeros
+bool encode(CUtensorMap* map, const void* ptr, int D, int heads, int seq,
+            int B, long long sh, long long ss, long long sb, int rows) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {kBox, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NB, int KD, int WG>
+int launch_wgmma(const CUtensorMap& qm, const CUtensorMap& km,
+                 const CUtensorMap& vm, const TileArgs& t, int B,
+                 cudaStream_t stream) {
+  constexpr int smem = 1024 + (1 + 2 * kStages) * NB * 64 * WG * kBox * 2;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_wgmma<NB, KD, WG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const dim3 grid(t.H, (t.S + 64 * WG - 1) / (64 * WG), B);
+  flash_fwd_wgmma<NB, KD, WG><<<grid, kThreads<WG>, smem, stream>>>(
+      qm, km, vm, t);
+  return cudaGetLastError();
+}
+
+template <int WG>
+int dispatch_bf16_tiles(const Args& a, int B, int D, cudaStream_t s) {
+  const int rows = 64 * WG;
+  CUtensorMap qm, km, vm;
+  if (!encode(&qm, a.q, D, a.H, a.S, B, a.qsh, a.qss, a.qsb, rows) ||
+      !encode(&km, a.k, D, a.KV, a.Sk, B, a.ksh, a.kss, a.ksb, rows) ||
+      !encode(&vm, a.v, D, a.KV, a.Sk, B, a.vsh, a.vss, a.vsb, rows))
+    return cudaErrorInvalidValue;
+  const TileArgs t{static_cast<__nv_bfloat16*>(a.o), a.S, a.Sk, a.H, a.KV,
+                   D, a.causal, a.window, a.scale * kLog2e};
+  switch (D) {
+    case 16: return launch_wgmma<1, 1, WG>(qm, km, vm, t, B, s);
+    case 32: return launch_wgmma<1, 2, WG>(qm, km, vm, t, B, s);
+    case 48: return launch_wgmma<1, 3, WG>(qm, km, vm, t, B, s);
+    case 64: return launch_wgmma<1, 4, WG>(qm, km, vm, t, B, s);
+    case 80: return launch_wgmma<2, 5, WG>(qm, km, vm, t, B, s);
+    case 96: return launch_wgmma<2, 6, WG>(qm, km, vm, t, B, s);
+    case 112: return launch_wgmma<2, 7, WG>(qm, km, vm, t, B, s);
+    case 128: return launch_wgmma<2, 8, WG>(qm, km, vm, t, B, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// 128 x 128 tiles where they give at least one block per SM, else 64 x 64
+int dispatch_bf16(const Args& a, int B, int D, cudaStream_t s) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+      return cudaGetLastError();
+  }
+  const long long big = (long long)((a.S + 127) / 128) * a.H * B;
+  return big >= sms ? dispatch_bf16_tiles<2>(a, B, D, s)
+                    : dispatch_bf16_tiles<1>(a, B, D, s);
+}
+
 }  // namespace
 
 // q: [B, S, H, D], k/v: [B, Sk, KV, D], each with unit stride on D and
 // the given element strides on (B, seq, head), 16-byte aligned base
-// pointers and strides; o: contiguous
-// [B, S, H, D].  D a multiple of 16 up to 128; H % KV == 0.  dtype: 0 fp32,
-// 1 bf16.  window <= 0 means no window.  Returns cudaGetLastError().
+// pointers and strides; o: contiguous [B, S, H, D].  D a multiple of 16
+// up to 128; H % KV == 0.  dtype: 0 fp32 (FMA route), 1 bf16 (wgmma/TMA
+// route).  window <= 0 means no window.  Returns cudaGetLastError(), or
+// an error without launching when the arguments (or a tensor map) are
+// refused.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int S,
     int Sk, int H, int KV, int D, long long qsb, long long qss,
@@ -288,7 +990,7 @@ extern "C" int flash_attention_fwd(
   Args a{q, k, v, o, S, Sk, H, KV, qsb, qss, qsh, ksb, kss, ksh,
          vsb, vss, vsh, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(a, B, D, s);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(a, B, D, s);
+  if (dtype == 0) return dispatch_fp32(a, B, D, s);
+  if (dtype == 1) return dispatch_bf16(a, B, D, s);
   return cudaErrorInvalidValue;
 }

@@ -4,7 +4,12 @@ the plain version for CPU tensors.
 Layout contract: [B,S,H,D] queries and [B,Sk,KV,D] keys/values, read by
 the kernel through their strides (no transposes, unlike the JAX
 ``repro.kernels.flash_attention.ops``); the output is a new contiguous
-[B,S,H,D] tensor.  ``launches`` counts kernel launches only.
+[B,S,H,D] tensor.
+
+Two routes, chosen by dtype and never swapped for one another: bf16
+runs the Hopper kernel (wgmma tiles fed by TMA), fp32 the FMA kernel
+(exact to 2e-5; tensor cores would round to TF32).  ``launches`` counts
+kernel launches only, ``launches_by_route`` the same per route.
 """
 from __future__ import annotations
 
@@ -19,11 +24,13 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 HEAD_DIMS = tuple(range(16, 129, 16))    # bf16 rows of 16-byte words
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.float32: "fma", torch.bfloat16: "wgmma"}
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _ARGTYPES = ([_P] * 4 + [_I] * 6 + [_L] * 9
              + [_I, _I, ctypes.c_float, _I, _P])
 
 launches = 0
+launches_by_route = {route: 0 for route in ROUTES.values()}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -75,4 +82,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention_fwd")
     launches += 1
+    launches_by_route[ROUTES[q.dtype]] += 1
     return out

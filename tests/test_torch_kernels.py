@@ -80,6 +80,10 @@ FLASH_CASES = [  # B, S, H, KV, D, causal, window
     (1, 128, 2, 2, 32, False, None),     # non-causal
     (1, 128, 4, 4, 112, True, None),     # zamba2 head_dim
     (1, 128, 4, 4, 112, True, 48),       # D=112 + window
+    # the bf16 kernel's 64 x 64 tiles: a window crossing tile borders,
+    # GQA at D=112
+    (1, 256, 4, 4, 96, True, 80),
+    (1, 256, 4, 2, 112, True, None),
 ]
 
 
@@ -107,10 +111,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     s = torch.randn(128)
     q = torch.randn(1, 64, 2, 32)
     r0, f0 = rms_ops.launches, fa_ops.launches
+    routes = dict(fa_ops.launches_by_route)
     assert torch.equal(rms_ops.rmsnorm(x, s), rmsnorm_ref(x, s))
     assert torch.equal(fa_ops.flash_attention(q, q, q),
                        attention_ref(q, q, q))
+    assert torch.equal(fa_ops.flash_attention(q.bfloat16(), q.bfloat16(),
+                                              q.bfloat16()),
+                       attention_ref(q.bfloat16(), q.bfloat16(),
+                                     q.bfloat16()))
     assert (rms_ops.launches, fa_ops.launches) == (r0, f0)
+    assert fa_ops.launches_by_route == routes
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -152,7 +162,14 @@ def test_rmsnorm_kernel_matches_plain(cuda, R, dtype):
 @pytest.mark.parametrize("B,S,H,KV,D,causal,window", FLASH_CASES + [
     (1, 256, 32, 32, 96, True, None), (1, 100, 4, 4, 128, True, None),
     (1, 65, 32, 32, 112, True, None), (2, 100, 4, 2, 16, True, 40),
-    (1, 64, 4, 4, 48, False, None), (1, 80, 4, 4, 80, True, None)])
+    (1, 64, 4, 4, 48, False, None), (1, 80, 4, 4, 80, True, None),
+    # edges of the bf16 kernel's tiles: ragged query and key tiles, kv
+    # tiles through the ring with GQA, a window across 64-key borders;
+    # the last four have enough blocks for the 128 x 128 tiles
+    (1, 200, 4, 4, 112, True, None), (1, 65, 4, 4, 112, True, 40),
+    (1, 256, 4, 4, 96, True, 40), (1, 1024, 32, 8, 128, True, None),
+    (1, 1000, 32, 8, 112, True, None), (1, 2048, 16, 16, 96, True, 200),
+    (2, 1024, 16, 4, 64, True, None)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain(cuda, B, S, H, KV, D, causal, window,
                                     dtype):
@@ -168,6 +185,20 @@ def test_flash_kernel_matches_plain(cuda, B, S, H, KV, D, causal, window,
     tol = 2e-5 if dtype == "float32" else 2e-2
     want = attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_routes_by_dtype(cuda):
+    """bf16 runs on the tensor-core (wgmma) route, fp32 on the FMA
+    route; each call counts once, on its own route."""
+    for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "fma")):
+        q = torch.randn(1, 128, 4, 64, device=cuda, dtype=dtype)
+        before = dict(fa_ops.launches_by_route)
+        fa_ops.flash_attention(q, q, q)
+        torch.cuda.synchronize()
+        after = fa_ops.launches_by_route
+        assert {r: after[r] - before[r] for r in after} == {
+            r: int(r == route) for r in after}
 
 
 @pytest.mark.gpu
