@@ -7,11 +7,13 @@ Needs one CUDA card and a checkout of the repository around this file;
 without either it exits non-zero and prints no result.  Imports nothing
 of JAX and nothing of the ``repro`` package.  In order:
 
-1. builds the four CUDA kernels (RMSNorm, flash-attention forward, MoE
-   gather, SSD intra-chunk) from ``src/repro_torch/csrc/``, one
-   ``nvcc`` per source, in parallel;
+1. builds the four CUDA sources (RMSNorm with its fused residual-add
+   form, flash-attention forward, the MoE dispatch, SSD intra-chunk)
+   from ``src/repro_torch/csrc/``, one ``nvcc`` per source, in parallel;
 2. holds each kernel against its plain PyTorch version on the card at
-   the main paths' shapes (the gather bit-exact; flash in bf16 on its
+   the main paths' shapes (the MoE dispatch bit-exact in its buffer,
+   slots and counts, also at a 4096-token prefill, with and without
+   capacity drops; the fused norm's sum bit-exact; flash in bf16 on its
    wgmma/TMA route and in fp32 on its FMA route, also at zamba2's
    head_dim 112, and in bf16 at long prefills of 4096 tokens and a
    ragged S = 200), and reduced fp32 phi3, deepseek-moe-16b and
@@ -30,12 +32,16 @@ of JAX and nothing of the ``repro`` package.  In order:
 4. checks consistency: phi3's chunked and legacy first-token logits
    (cosine >= 0.99); zamba2's prefill(64) + one decode step against the
    last logits of prefill(65) (cosine >= 0.99); deepseek's chunked vs
-   legacy first-token cosine is printed only (see there); and profiles
+   legacy first-token cosine is printed only (see there); profiles
    one prefill and one decode forward of each model (wall vs device
-   time, the kernels with most device time);
+   time, kernel count, host syncs, the kernels with most device time);
+   and profiles one deepseek MoE layer, which must launch one dispatch
+   kernel and run no bincount, argsort, index_put or host sync;
 5. times each kernel, its plain version and the PyTorch library call
    where one computes the same function, with CUDA events: device time
-   per call (``ms``, from CUDA-graph replays) and time per eager call
+   per call (``ms``, from CUDA-graph replays; for the plain MoE
+   dispatch, which syncs with the host and cannot be captured, the sum
+   of its kernels' times under the profiler) and time per eager call
    (``call_ms``, host included); flash also at the long prefills.
 
 It prints a ``{"serve": ...}`` line, a ``{"timings": ...}`` line, one
@@ -46,6 +52,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -57,11 +64,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 PHI3, DEEPSEEK, ZAMBA = "phi3-mini-3.8b", "deepseek-moe-16b", "zamba2-7b"
-KERNELS = ("rmsnorm", "flash_attention", "moe_gather", "ssd_intra")
+KERNELS = ("rmsnorm", "add_rmsnorm", "flash_attention", "moe_dispatch",
+           "ssd_intra")
 OUR_KERNELS = {  # kernel: its CUDA functions' names, as the profiler shows
-    "rmsnorm": ("rmsnorm_kernel",), "flash_attention": ("flash_fwd_",),
-    "moe_gather": ("moe_gather_kernel",),
-    "ssd_intra": ("ssd_y_kernel", "ssd_state_kernel")}
+    "rmsnorm": r"(?<!add_)rmsnorm_kernel", "add_rmsnorm": r"add_rmsnorm_kernel",
+    "flash_attention": r"flash_fwd_", "moe_dispatch": r"moe_dispatch_kernel",
+    "ssd_intra": r"ssd_y_kernel|ssd_state_kernel"}
+NORM_WIDTHS = (2048, 3072, 3584, 7168)  # deepseek, phi3, zamba2, its inner norm
 SEED = 0
 
 
@@ -78,22 +87,22 @@ def _imports():
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.moe_dispatch import ops as gather_ops
-    from repro_torch.kernels.moe_dispatch.ref import moe_gather_ref
+    from repro_torch.kernels.moe_dispatch import ops as dispatch_ops
+    from repro_torch.kernels.moe_dispatch.ref import moe_dispatch_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssm_scan import ops as ssd_ops
     from repro_torch.kernels.ssm_scan.ref import ssd_intra_ref
     from repro_torch.models import api
+    from repro_torch.models.moe import moe_capacity, moe_forward
     from repro_torch.serving.engine import Engine
     return dict(np=np, torch=torch, F=F, bridge=bridge,
                 get_config=get_config, reduced_config=reduced_config,
                 build=build, fa_ops=fa_ops, attention_ref=attention_ref,
-                gather_ops=gather_ops, moe_gather_ref=moe_gather_ref,
+                dispatch_ops=dispatch_ops, moe_dispatch_ref=moe_dispatch_ref,
                 rms_ops=rms_ops, rmsnorm_ref=rmsnorm_ref, ssd_ops=ssd_ops,
                 ssd_intra_ref=ssd_intra_ref, api=api, Engine=Engine,
-                counted={"rmsnorm": rms_ops, "flash_attention": fa_ops,
-                         "moe_gather": gather_ops, "ssd_intra": ssd_ops})
+                moe_capacity=moe_capacity, moe_forward=moe_forward)
 
 
 def _check(ok: bool, what: str) -> None:
@@ -102,14 +111,20 @@ def _check(ok: bool, what: str) -> None:
 
 
 def _zero_counts(m) -> None:
-    for mod in m["counted"].values():
-        mod.launches = 0
-    for route in m["fa_ops"].launches_by_route:
-        m["fa_ops"].launches_by_route[route] = 0
+    for mod in ("rms_ops", "fa_ops", "dispatch_ops", "ssd_ops"):
+        m[mod].launches = 0
+    for by in (m["rms_ops"].launches_by_form, m["fa_ops"].launches_by_route):
+        for key in by:
+            by[key] = 0
 
 
 def _counts(m) -> dict:
-    return {name: mod.launches for name, mod in m["counted"].items()}
+    """Launches of each kernel of KERNELS (the RMSNorm wrapper counts
+    its plain and fused forms apart)."""
+    return {**m["rms_ops"].launches_by_form,
+            "flash_attention": m["fa_ops"].launches,
+            "moe_dispatch": m["dispatch_ops"].launches,
+            "ssd_intra": m["ssd_ops"].launches}
 
 
 def _time_ms(torch, fn, reps: int = 25, inner: int = 10) -> float:
@@ -161,15 +176,38 @@ def _device_ms(torch, fn, reps: int = 25, inner: int = 20) -> float:
     return statistics.median(times)
 
 
-def _times(torch, kernel, plain, library) -> dict:
+def _profiled_ms(torch, fn, reps: int = 20) -> float:
+    """Device time per call of an eager `fn` that a CUDA graph cannot
+    capture (it syncs with the host): the sum of the self device times
+    of its kernels and copies under ``torch.profiler`` over `reps`
+    calls, after a warm-up; the gaps between them are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    return dev / 1e3 / reps
+
+
+def _times(torch, kernel, plain, library, plain_syncs=False) -> dict:
     """Device and per-call times of a kernel, its plain version and,
-    where one exists, the library call computing the same function."""
+    where one exists, the library call computing the same function.
+    `plain_syncs`: the plain version syncs with the host, so its device
+    time comes from the profiler, not from a graph."""
     out = {}
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
         if fn is None:
             out[f"{key}ms"] = out[f"{key}call_ms"] = None
             continue
-        out[f"{key}ms"] = _device_ms(torch, fn)
+        out[f"{key}ms"] = (_profiled_ms(torch, fn)
+                           if key == "plain_" and plain_syncs
+                           else _device_ms(torch, fn))
         out[f"{key}call_ms"] = _time_ms(torch, fn)
     return out
 
@@ -200,17 +238,14 @@ def _cosine(torch, a, b) -> float:
 # inputs at the main paths' shapes
 # ---------------------------------------------------------------------------
 
-def gather_inputs(torch, g, T, d, E, C, dtype):
-    """x [T, d] and slot_token [E*C] with empty (-1), out-of-range (>= T)
-    and duplicate slots, from generator `g` on the card."""
+def dispatch_inputs(torch, g, T, d, E, k, dtype):
+    """x [T, d] and eidx [T, k] int64: the top-k of skewed random router
+    scores (low expert ids are popular and overflow a tight capacity),
+    from generator `g` on the card."""
     x = torch.randn(T, d, generator=g, device="cuda").to(dtype)
-    st = torch.full((E * C,), -1, dtype=torch.int32, device="cuda")
-    n = min(E * C, T * 6)                      # top-6 pairs, some dropped
-    st[:n] = torch.randint(0, T, (n,), generator=g, device="cuda",
-                           dtype=torch.int32)
-    st[n:n + 2] = torch.tensor([T, T + 3], dtype=torch.int32, device="cuda")
-    perm = torch.randperm(E * C, generator=g, device="cuda")
-    return x, st[perm].contiguous()
+    scores = (torch.rand(T, E, generator=g, device="cuda")
+              + torch.linspace(1, 0, E, device="cuda"))
+    return x, torch.topk(scores, k, dim=-1).indices
 
 
 def ssd_inputs(torch, g, nc, Q, H=112, P=64, N=64):
@@ -231,15 +266,22 @@ def kernel_phase(m) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {name: 0.0 for name in KERNELS}
     for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
-        for rows, d in ((4, 3072), (128, 3072), (256, 3072), (64, 2048),
-                        (128, 7168)):
-            x = torch.randn(rows, d, generator=g, device="cuda").to(dt)
-            s = torch.randn(d, generator=g, device="cuda").to(dt)
-            got = m["rms_ops"].rmsnorm_cuda(x, s)
-            torch.cuda.synchronize()
-            e = _max_err(torch, got, m["rmsnorm_ref"](x, s), tol,
-                         f"rmsnorm {dt} [{rows},{d}]")
-            errs["rmsnorm"] = max(errs["rmsnorm"], e)
+        for rows in (2, 64, 128, 256):
+            for d in NORM_WIDTHS:
+                x, h = (torch.randn(rows, d, generator=g, device="cuda")
+                        .to(dt) for _ in range(2))
+                w = torch.randn(d, generator=g, device="cuda").to(dt)
+                got = m["rms_ops"].rmsnorm_cuda(x, w)
+                s, y = m["rms_ops"].add_rmsnorm_cuda(x, h, w)
+                torch.cuda.synchronize()
+                e = _max_err(torch, got, m["rmsnorm_ref"](x, w), tol,
+                             f"rmsnorm {dt} [{rows},{d}]")
+                errs["rmsnorm"] = max(errs["rmsnorm"], e)
+                _check(torch.equal(s, x + h),
+                       f"add_rmsnorm {dt} [{rows},{d}]: sum not bit-exact")
+                e = _max_err(torch, y, m["rmsnorm_ref"](x + h, w), tol,
+                             f"add_rmsnorm {dt} [{rows},{d}]")
+                errs["add_rmsnorm"] = max(errs["add_rmsnorm"], e)
     cases = [  # (S, H, KV, D, window): phi3, deepseek, zamba2 shapes
         (64, 32, 32, 96, None), (256, 32, 32, 96, None),
         (256, 32, 8, 96, None), (256, 32, 32, 96, 64),
@@ -270,13 +312,35 @@ def kernel_phase(m) -> dict:
                      f"flash bf16 S={S} H={H} KV={KV} D={D} window={w}")
         errs["flash_attention"] = max(errs["flash_attention"], e)
         del q, k, v, got, want
+    # the MoE dispatch at deepseek's widths (E = 64, top-6, d = 2048):
+    # decode, chunk and bucket token counts and a 4096-token prefill
+    # (N = 24576 pairs); C tight (one average expert's load, so popular
+    # experts drop pairs), the model's capacity, and ample (C = T: no
+    # expert can overflow)
+    cfg = m["get_config"](DEEPSEEK)
+    drops = {}
     for dt in (torch.bfloat16, torch.float32):
-        for T, C in ((2, 8), (64, 8), (128, 16)):
-            x, st = gather_inputs(torch, g, T, 2048, 64, C, dt)
-            got = m["gather_ops"].moe_gather_cuda(x, st, 64, C)
-            torch.cuda.synchronize()
-            _check(torch.equal(got, m["moe_gather_ref"](x, st, 64, C)),
-                   f"moe gather {dt} T={T} C={C}: not bit-exact")
+        for T in (1, 2, 64, 128, 4096):
+            x, eidx = dispatch_inputs(torch, g, T, 2048, 64, 6, dt)
+            for kind, C in (("tight", max(1, T * 6 // 64)),
+                            ("model", m["moe_capacity"](T, cfg)),
+                            ("ample", T)):
+                got = m["dispatch_ops"].moe_dispatch_cuda(eidx, x, 64, C)
+                torch.cuda.synchronize()
+                want = m["moe_dispatch_ref"](eidx, x, 64, C)
+                for name, a, b in zip(("buf", "dest_tk", "counts"), got,
+                                      want):
+                    _check(a.dtype == b.dtype and torch.equal(a, b),
+                           f"moe_dispatch {dt} T={T} C={C}: {name} not "
+                           f"bit-exact")
+                drops[f"{T}/{kind}"] = int((got[1] == 64 * C).sum())
+                del got, want
+            del x, eidx
+    _check(all(drops[f"{T}/ample"] == 0 for T in (1, 2, 64, 128, 4096))
+           and all(drops[f"{T}/tight"] > 0 for T in (64, 128, 4096)),
+           f"moe_dispatch: dropped pairs {drops}")
+    print(f"[kernels] moe_dispatch dropped pairs (last dtype): {drops}",
+          flush=True)
     for nc, Q in ((1, 64), (1, 65), (1, 128), (2, 256)):
         args = ssd_inputs(torch, g, nc, Q)
         y, s = m["ssd_ops"].ssd_intra_cuda(*args)
@@ -307,15 +371,20 @@ def reduced_model_phase(m) -> dict:
         got, _, _ = api.forward(gpu, {"tokens": toks}, cfg, mode="prefill")
         n = _counts(m)
         if cfg.family == "hybrid":
+            groups = layers // cfg.attn_every
+            # the first block's norm and each mixer's gated norm are
+            # plain; every other norm takes the residual add in
             _check(n["ssd_intra"] == layers and n["flash_attention"]
-                   == layers // cfg.attn_every,
-                   f"{arch}: SSD/flash launches {n} per prefill")
+                   == groups and n["rmsnorm"] == 1 + layers
+                   and n["add_rmsnorm"] == layers + 2 * groups,
+                   f"{arch}: launches {n} per prefill")
         else:
-            _check(n["flash_attention"] == layers,
-                   f"{arch}: flash launches {n} per prefill")
+            _check(n["flash_attention"] == layers and n["rmsnorm"] == 1
+                   and n["add_rmsnorm"] == 2 * layers,
+                   f"{arch}: launches {n} per prefill")
         if cfg.is_moe:
-            _check(n["moe_gather"] == layers - cfg.moe.first_k_dense,
-                   f"{arch}: gather launches {n} per prefill")
+            _check(n["moe_dispatch"] == layers - cfg.moe.first_k_dense,
+                   f"{arch}: dispatch launches {n} per prefill")
         out[arch] = {"max_abs_err": _max_err(torch, got.cpu(), want, 1e-3,
                                              f"reduced fp32 {arch}"),
                      "launches": n}
@@ -403,8 +472,10 @@ def step_profile(m, cfg, params) -> dict:
     under ``torch.profiler``, each after a warm-up call: wall ms (host
     clock around the call, synchronised; profiler overhead included),
     device ms (sum of the kernels' self device times), the device's busy
-    share, the number of kernels, the five kernels with the most device
-    time, and the device ms and launches of each hand-written kernel."""
+    share, the number of kernels, the host syncs (device-to-host reads:
+    ``aten::_local_scalar_dense`` calls, and ``cudaStreamSynchronize``),
+    the five kernels with the most device time, and the device ms and
+    launches of each hand-written kernel."""
     torch, api = m["torch"], m["api"]
     from torch.profiler import ProfilerActivity, profile
     g = torch.Generator().manual_seed(SEED)
@@ -429,22 +500,79 @@ def step_profile(m, cfg, params) -> dict:
             fn()
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
-        kern = [e for e in prof.key_averages()
+        events = prof.key_averages()
+        kern = [e for e in events
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0]
         dev = sum(e.self_device_time_total for e in kern) / 1e3
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
         ours = {k: [sum(e.self_device_time_total for e in kern
-                        if any(f in e.key for f in fns)) / 1e3,
-                    sum(e.count for e in kern
-                        if any(f in e.key for f in fns))]
-                for k, fns in OUR_KERNELS.items()}
+                        if re.search(pat, e.key)) / 1e3,
+                    sum(e.count for e in kern if re.search(pat, e.key))]
+                for k, pat in OUR_KERNELS.items()}
+        syncs = {key: sum(e.count for e in events if e.key == key)
+                 for key in ("aten::_local_scalar_dense",
+                             "cudaStreamSynchronize")}
         out[name] = {"wall_ms": wall, "device_ms": dev,
                      "busy_share": dev / wall,
                      "kernels": sum(e.count for e in kern),
+                     "host_syncs": syncs,
                      "top": [[e.key[:60], e.self_device_time_total / 1e3,
                               e.count] for e in top],
                      "ours": ours}
+    return out
+
+
+def _profile_ops(torch, fn) -> tuple:
+    """Kernels launched by one call of `fn` under the profiler (after a
+    warm-up call), and the count of each op that sorts, counts, scatters
+    or reads the device back to the host."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ops = {e.key: e.count for e in events
+           if re.match(r"aten::(bincount|argsort|index_put|"
+                       r"_local_scalar_dense)", e.key)}
+    kernels = sum(e.count for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0)
+    return kernels, ops
+
+
+def moe_layer_profile(m, cfg, params) -> dict:
+    """One MoE layer of the full-width model (``moe_forward`` on
+    [1, 64, d] and [2, 1, d] bf16 inputs) under the profiler: it must
+    launch exactly one dispatch kernel, and run no bincount, argsort,
+    index_put or device-to-host read.  Beside it, the plain dispatch on
+    the same routing, as the layer ran it before the kernel took it in."""
+    torch = m["torch"]
+    stage = params["stage1"]
+    lp = stage.layer(stage.n - 1)["moe"]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    out = {}
+    for B, S in ((1, 64), (2, 1)):
+        x = torch.randn(B, S, cfg.d_model, generator=g, device="cuda").to(
+            torch.bfloat16)
+        _zero_counts(m)
+        kernels, ops = _profile_ops(
+            torch, lambda: m["moe_forward"](lp, x, cfg))
+        n = _counts(m)["moe_dispatch"]
+        _check(n == 2 and not ops,      # the warm-up call and the profiled
+               f"moe layer [{B},{S}]: {n} dispatch launches, ops {ops}")
+        xf = x.reshape(B * S, -1)
+        eidx = torch.topk(xf.float() @ lp["router"], k, dim=-1).indices
+        C = m["moe_capacity"](B * S, cfg)
+        plain_kernels, plain_ops = _profile_ops(
+            torch, lambda: m["moe_dispatch_ref"](eidx, xf, E, C))
+        out[f"{B}x{S}"] = {"kernels": kernels, "dispatch_launches": n // 2,
+                           "plain_dispatch_kernels": plain_kernels,
+                           "plain_dispatch_ops": plain_ops}
     return out
 
 
@@ -515,6 +643,7 @@ def serve_phase(m) -> dict:
     # paths route different token sets and need not agree
     out["deepseek_first_token_cosine"] = _cosine(torch, chunked, legacy)
     out["deepseek_profile"] = step_profile(m, cfg, params)
+    out["deepseek_moe_layer"] = moe_layer_profile(m, cfg, params)
     del params
     _free(torch)
 
@@ -534,12 +663,12 @@ def serve_phase(m) -> dict:
            "no prefix-cache hit in phi3 chunked")
     _check(out["deepseek_chunked"]["prefix_cache_hits"] > 0,
            "no prefix-cache hit in deepseek chunked")
-    expect = {"phi3_chunked": ("rmsnorm",),
-              "phi3_legacy": ("rmsnorm", "flash_attention"),
-              "deepseek_chunked": ("rmsnorm", "moe_gather"),
-              "deepseek_legacy": ("rmsnorm", "flash_attention",
-                                  "moe_gather"),
-              "zamba_legacy": ("rmsnorm", "flash_attention", "ssd_intra")}
+    norms = ("rmsnorm", "add_rmsnorm")
+    expect = {"phi3_chunked": norms,
+              "phi3_legacy": norms + ("flash_attention",),
+              "deepseek_chunked": norms + ("moe_dispatch",),
+              "deepseek_legacy": norms + ("flash_attention", "moe_dispatch"),
+              "zamba_legacy": norms + ("flash_attention", "ssd_intra")}
     for path, names in expect.items():
         for name in names:
             _check(out[path]["launches"][name] > 0,
@@ -569,6 +698,20 @@ def timing_phase(m) -> dict:
                      lambda: m["rmsnorm_ref"](x, s),
                      lambda: F.rms_norm(x, (d,), s, 1e-5)),
             **_bound(2 * (2 * rows * d + d), 4 * rows * d, FP32_FLOPS)})
+    # the fused form at phi3's shapes and deepseek's and zamba2's bucket;
+    # the library yardstick is torch.add then F.rms_norm (both kernels'
+    # device times, captured in one graph)
+    for rows, d in ((2, 3072), (64, 3072), (128, 3072), (128, 2048),
+                    (128, 3584)):
+        x, h = (torch.randn(rows, d, generator=g, device="cuda").to(bf)
+                for _ in range(2))
+        s = torch.randn(d, generator=g, device="cuda").to(bf)
+        out["add_rmsnorm"].append({
+            "shape": [rows, d], "dtype": "bfloat16",
+            **_times(torch, lambda: m["rms_ops"].add_rmsnorm_cuda(x, h, s),
+                     lambda: (x + h, m["rmsnorm_ref"](x + h, s)),
+                     lambda: F.rms_norm(torch.add(x, h), (d,), s, 1e-5)),
+            **_bound(2 * (4 * rows * d + d), 5 * rows * d, FP32_FLOPS)})
     # flash: legacy prefill buckets of phi3 (D=96), deepseek (D=128) and
     # zamba2 (D=112), then long prefills of phi3 and deepseek
     for S, H, D in ((64, 32, 96), (128, 32, 96), (128, 16, 128),
@@ -588,23 +731,34 @@ def timing_phase(m) -> dict:
                      lambda: F.scaled_dot_product_attention(
                          qt, kt, vt, is_causal=True)),
             **_bound(2 * 4 * S * H * D, 4 * D * pairs * H, BF16_FLOPS)})
-    # gather: deepseek decode (T=2), chunk (2 x 32), legacy buckets; the
-    # library call is index_select over x with one zero row appended
-    # (empty slots pointed at it), both made before the timed call
-    for T, C in ((2, 8), (64, 8), (128, 16)):
-        E, d = 64, 2048
-        x, st = gather_inputs(torch, g, T, d, E, C, bf)
-        valid = (st >= 0) & (st < T)
+    # MoE dispatch: deepseek decode (T=2), chunk (2 x 32), legacy bucket
+    # at the model's capacity.  The plain version syncs with the host
+    # (bincount), so its device time is from the profiler.  No library
+    # call sorts and gathers; beside it, index_select does the gather
+    # alone (x with one zero row appended, empty slots pointed at it,
+    # the index map made before the timed call)
+    cfg = m["get_config"](DEEPSEEK)
+    for T in (2, 64, 128):
+        E, k, d = 64, 6, 2048
+        C = m["moe_capacity"](T, cfg)
+        x, eidx = dispatch_inputs(torch, g, T, d, E, k, bf)
+        _, dest_tk, counts = m["moe_dispatch_ref"](eidx, x, E, C)
+        slot = torch.full((E * C + 1,), T, dtype=torch.long, device="cuda")
+        slot[dest_tk.long()] = torch.arange(T * k, device="cuda") // k
+        idx = slot[:E * C].contiguous()
         xz = torch.cat([x, torch.zeros(1, d, dtype=bf, device="cuda")])
-        idx = torch.where(valid, st, torch.full_like(st, T)).long()
-        filled = int(valid.sum())
-        out["moe_gather"].append({
-            "shape": [T, d, E, C], "dtype": "bfloat16", "filled": filled,
+        filled = int(torch.clamp(counts, max=C).sum())
+        out["moe_dispatch"].append({
+            "shape": [T, k, d, E, C], "dtype": "bfloat16", "filled": filled,
+            "dropped": int(counts.sum()) - filled,
             **_times(torch,
-                     lambda: m["gather_ops"].moe_gather_cuda(x, st, E, C),
-                     lambda: m["moe_gather_ref"](x, st, E, C),
-                     lambda: torch.index_select(xz, 0, idx)),
-            **_bound(2 * d * (filled + E * C) + 4 * E * C, 0, BF16_FLOPS)})
+                     lambda: m["dispatch_ops"].moe_dispatch_cuda(eidx, x, E,
+                                                                 C),
+                     lambda: m["moe_dispatch_ref"](eidx, x, E, C),
+                     lambda: torch.index_select(xz, 0, idx),
+                     plain_syncs=True),
+            **_bound(8 * T * k + 2 * d * (filled + E * C) + 4 * T * k
+                     + 4 * E, 0, BF16_FLOPS)})
     # SSD: zamba2's legacy prefill chunks (nc=1, Q = 64, 128); no single
     # PyTorch call computes it
     for nc, Q in ((1, 64), (1, 128)):
@@ -672,11 +826,13 @@ def main() -> int:
     sources = {  # name: (source, replaces, index of the main-path shape)
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/kernel.py:31", 2),
+        "add_rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                        "src/repro/kernels/rmsnorm/kernel.py:31", 2),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:101",
                             1),
-        "moe_gather": ("src/repro_torch/csrc/moe_dispatch.cu",
-                       "src/repro/kernels/moe_dispatch/kernel.py:51", 1),
+        "moe_dispatch": ("src/repro_torch/csrc/moe_dispatch.cu",
+                         "src/repro/kernels/moe_dispatch/kernel.py:51", 1),
         "ssd_intra": ("src/repro_torch/csrc/ssm_scan.cu",
                       "src/repro/kernels/ssm_scan/kernel.py:60", 0)}
     paths = [p for p in serve if isinstance(serve[p], dict)
@@ -691,7 +847,8 @@ def main() -> int:
             "launches_by_path": by_path, "max_abs_err": errs[name],
             "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "call_ms": t["call_ms"]})
+            "library_ms": t["library_ms"], "call_ms": t["call_ms"],
+            "plain_call_ms": t["plain_call_ms"]})
         if name == "flash_attention":
             routes = m["fa_ops"].ROUTES
             kernels[-1]["routes"] = {str(dt).replace("torch.", ""): r

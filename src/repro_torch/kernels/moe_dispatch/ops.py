@@ -1,57 +1,65 @@
-"""MoE gather wrapper: the CUDA kernel for CUDA tensors, the plain
+"""MoE dispatch wrapper: the CUDA kernel for CUDA tensors, the plain
 version for CPU tensors.
 
-x [T, d] and slot_token [E*C] int32 (the token each capacity slot
-holds; -1, or any value outside [0, T), marks an empty slot) give the
-capacity buffer [E, C, d], bit-exact with ``moe_gather_ref``.
-``launches`` counts kernel launches only.
+``moe_dispatch(eidx, x, E, C)`` takes the router's top-k experts eidx
+[T, k] (int64, as ``torch.topk`` gives them) and the tokens x [T, d] and
+returns the capacity buffer [E, C, d], each pair's slot ``dest_tk``
+[T*k] int32 (E*C for a dropped pair) and the per-expert ``counts`` [E]
+int32, all bit-exact with ``moe_dispatch_ref``: one launch in place of
+the eager sort, the inverse map and the gather.  ``launches`` counts
+kernel launches only.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.moe_dispatch.ref import moe_gather_ref
+from repro_torch.kernels.moe_dispatch.ref import moe_dispatch_ref
 
 SOURCE = "src/repro_torch/csrc/moe_dispatch.cu"
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 launches = 0
 
 
-def moe_gather(x: torch.Tensor, slot_token: torch.Tensor, E: int,
-               C: int) -> torch.Tensor:
+def moe_dispatch(eidx: torch.Tensor, x: torch.Tensor, E: int, C: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
-        return moe_gather_ref(x, slot_token, E, C)
-    return moe_gather_cuda(x, slot_token, E, C)
+        return moe_dispatch_ref(eidx, x, E, C)
+    return moe_dispatch_cuda(eidx, x, E, C)
 
 
-def moe_gather_cuda(x: torch.Tensor, slot_token: torch.Tensor, E: int,
-                    C: int) -> torch.Tensor:
+def moe_dispatch_cuda(eidx: torch.Tensor, x: torch.Tensor, E: int, C: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     global launches
-    if x.device.type != "cuda" or slot_token.device != x.device:
-        raise ValueError("moe_gather kernel needs CUDA tensors on one "
-                         f"device, got {x.device} and {slot_token.device}")
-    if slot_token.dtype != torch.int32:
-        raise TypeError(f"slot_token must be int32, got {slot_token.dtype}")
-    if x.dim() != 2 or slot_token.shape != (E * C,):
-        raise ValueError(f"bad shapes x {tuple(x.shape)}, slot_token "
-                         f"{tuple(slot_token.shape)} for E={E}, C={C}")
-    T, d = x.shape
-    if not (x.is_contiguous() and slot_token.is_contiguous()):
-        raise ValueError("moe_gather kernel needs contiguous x, slot_token")
+    if x.device.type != "cuda" or eidx.device != x.device:
+        raise ValueError("moe_dispatch kernel needs CUDA tensors on one "
+                         f"device, got {x.device} and {eidx.device}")
+    if eidx.dtype != torch.int64:
+        raise TypeError(f"eidx must be int64 (torch.topk's indices), got "
+                        f"{eidx.dtype}")
+    if x.dim() != 2 or eidx.dim() != 2 or eidx.shape[0] != x.shape[0] \
+            or E < 1 or C < 1:
+        raise ValueError(f"bad shapes x {tuple(x.shape)}, eidx "
+                         f"{tuple(eidx.shape)} for E={E}, C={C}")
+    (T, d), k = x.shape, eidx.shape[1]
+    if not (x.is_contiguous() and eidx.is_contiguous()):
+        raise ValueError("moe_dispatch kernel needs contiguous x and eidx")
     if (d * x.element_size()) % 16 or x.data_ptr() % 16:
-        raise ValueError("moe_gather kernel needs 16-byte aligned rows "
+        raise ValueError("moe_dispatch kernel needs 16-byte aligned rows "
                          f"(d={d}, dtype={x.dtype})")
-    out = torch.empty((E, C, d), dtype=x.dtype, device=x.device)
-    fn = build.function("moe_dispatch", "moe_gather_fwd", _ARGTYPES)
+    buf = torch.empty((E, C, d), dtype=x.dtype, device=x.device)
+    dest_tk = torch.empty(T * k, dtype=torch.int32, device=x.device)
+    counts = torch.empty(E, dtype=torch.int32, device=x.device)
+    fn = build.function("moe_dispatch", "moe_dispatch_fwd", _ARGTYPES)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), slot_token.data_ptr(), out.data_ptr(), T,
-                 E * C, d * x.element_size() // 16,
+        err = fn(eidx.data_ptr(), x.data_ptr(), buf.data_ptr(),
+                 dest_tk.data_ptr(), counts.data_ptr(), T, k, E, C,
+                 d * x.element_size() // 16,
                  torch.cuda.current_stream().cuda_stream)
-    build.check(err, "moe_gather_fwd")
+    build.check(err, "moe_dispatch_fwd")
     launches += 1
-    return out
+    return buf, dest_tk, counts

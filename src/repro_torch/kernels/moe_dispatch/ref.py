@@ -1,7 +1,11 @@
-"""Plain PyTorch MoE gather: the twin of
-``repro.kernels.moe_dispatch.ref.moe_gather_ref`` (take with a
-validity mask)."""
+"""Plain PyTorch MoE dispatch: the sort of (token, slot) pairs by expert
+with global capacity, as ``repro.models.moe.moe_forward`` computes it,
+and the capacity-buffer gather, the twin of
+``repro.kernels.moe_dispatch.ref.moe_gather_ref`` (take with a validity
+mask)."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -16,3 +20,33 @@ def moe_gather_ref(x: torch.Tensor, slot_token: torch.Tensor, E: int,
     buf = x[rows]
     buf = torch.where(valid[:, None], buf, torch.zeros_like(buf))
     return buf.reshape(E, C, d)
+
+
+def moe_dispatch_ref(eidx: torch.Tensor, x: torch.Tensor, E: int, C: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """eidx [T, k] (each token's experts), x [T, d] -> (buf [E, C, d],
+    dest_tk [T*k] int32, counts [E] int32).
+
+    A stable argsort of the flat pairs by expert gives each pair its
+    position among its expert's pairs; pairs past the capacity C go to
+    the drop slot E*C.  ``dest_tk[t*k + s]`` is the slot of pair (t, s)
+    and ``buf`` holds the token of each filled slot, zeros elsewhere.
+    """
+    T, k = eidx.shape
+    dev = x.device
+    flat_e = eidx.reshape(T * k)
+    counts = torch.bincount(flat_e, minlength=E)
+    sort_idx = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[sort_idx]
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(T * k, device=dev) - starts[sorted_e]
+    dest = torch.where(pos < C, sorted_e * C + pos,
+                       torch.full_like(pos, E * C))        # E*C = drop slot
+    # inverse map: the token each slot holds; dest is unique except for
+    # the drop slot, which is cut off
+    slot_token = torch.full((E * C + 1,), -1, dtype=torch.int32, device=dev)
+    slot_token[dest] = (sort_idx // k).to(torch.int32)
+    buf = moe_gather_ref(x, slot_token[:E * C], E, C)
+    dest_tk = torch.empty_like(dest)
+    dest_tk[sort_idx] = dest                               # (token, slot)
+    return buf, dest_tk.to(torch.int32), counts.to(torch.int32)

@@ -1,13 +1,17 @@
 """Shared building blocks: the twin of ``repro.models.common``.
 
-``rmsnorm`` dispatches to the kernel wrapper, which launches the CUDA
-kernel for CUDA tensors and runs the plain version for CPU tensors.
+``rmsnorm`` and ``add_rmsnorm`` dispatch to the kernel wrappers, which
+launch the CUDA kernel for CUDA tensors and run the plain version for
+CPU tensors.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rmsnorm.ops import add_rmsnorm as _add_rmsnorm_op
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as _rmsnorm_op
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -22,6 +26,17 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm with fp32 statistics, output in x's dtype."""
     return _rmsnorm_op(x, scale, eps)
+
+
+def add_rmsnorm(x: torch.Tensor, h: Optional[torch.Tensor],
+                scale: torch.Tensor, eps: float = 1e-5
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the pre-norm after it, in one kernel:
+    (s = x + h, rmsnorm(s)).  h None (no branch pending, the first
+    norm of a stack): (x, rmsnorm(x))."""
+    if h is None:
+        return x, _rmsnorm_op(x, scale, eps)
+    return _add_rmsnorm_op(x, h, scale, eps)
 
 
 def rope_freqs(head_dim: int, theta: float,

@@ -1,21 +1,24 @@
 """Mixture-of-Experts block, sort-dispatch path: the twin of
 ``repro.models.moe`` (``moe_capacity``, ``init_moe``, ``moe_forward``).
 
-Top-k routing in fp32, a stable argsort of the (token, slot) pairs by
-expert with global capacity (pairs past an expert's capacity C go to
-the drop slot E*C), the capacity buffer [E, C, d] built by the MoE
-gather kernel, grouped expert GEMMs, and the combine.
+Top-k routing in fp32, the dispatch of the (token, slot) pairs to
+the capacity buffer [E, C, d] (a stable sort by expert with global
+capacity: pairs past an expert's capacity C go to the drop slot E*C),
+grouped expert GEMMs, and the combine.
 
-Two differences of form, none of result:
+The dispatch is one kernel (``kernels/moe_dispatch``): it ranks each
+expert's pairs, writes each pair's slot and the per-expert counts and
+fills the buffer, bit-exact with the plain sort and gather of
+``moe_dispatch_ref``, which the CPU runs.  Two differences of form from
+the JAX code, none of result:
 
 - The JAX code scatters token rows into the buffer
-  (``.at[dest].set(take(xf, token_of))``).  Here the same map is
-  inverted into ``slot_token`` [E*C] (the token held by each slot, -1
-  for an empty one) and the buffer is *gathered*: that gather is the
-  kernel (``kernels/moe_dispatch``), bit-exact with the scatter.
+  (``.at[dest].set(take(xf, token_of))``); here the buffer is
+  *gathered*, each slot reading the token it holds.
 - The JAX combine is a scatter-add over the sorted pairs.  Here the
-  expert outputs are un-sorted to [T, k, d] and summed over k in fp32,
-  with no atomics, so a request gives the same tokens run to run.
+  expert outputs are picked per (token, slot) pair with ``dest_tk`` to
+  [T, k, d] and summed over k in fp32, with no atomics, so a request
+  gives the same tokens run to run.
 
 The expert-parallel all-to-all path (``moe_a2a``) is not ported.
 """
@@ -26,7 +29,7 @@ from typing import Mapping, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.moe_dispatch.ops import moe_gather
+from repro_torch.kernels.moe_dispatch.ops import moe_dispatch
 from repro_torch.models import params as P
 from repro_torch.models.common import swiglu
 from repro_torch.models.mlp import mlp_forward
@@ -57,7 +60,6 @@ def moe_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     m = cfg.moe
     T, k, E = B * S, m.top_k, m.num_experts
     C = moe_capacity(T, cfg)
-    dev = x.device
     xf = x.reshape(T, d)
 
     # --- routing (fp32) ---------------------------------------------------
@@ -66,36 +68,22 @@ def moe_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     gates, eidx = torch.topk(probs, k, dim=-1)             # [T, k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
+    # --- dispatch: each pair's slot, the per-expert counts, the buffer ----
+    buf, dest_tk, counts = moe_dispatch(eidx, xf, E, C)    # [E, C, d]
+
     # aux load-balancing loss (Switch-style): E * sum_e f_e * P_e
-    flat_e = eidx.reshape(T * k)
-    counts = torch.bincount(flat_e, minlength=E)
     f_e = counts.float() / (T * k)
     aux = E * torch.sum(f_e * probs.mean(dim=0)) * m.router_aux_coef
-
-    # --- dispatch: sort (token, slot) pairs by expert ----------------------
-    sort_idx = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[sort_idx]
-    starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(T * k, device=dev) - starts[sorted_e]
-    dest = torch.where(pos < C, sorted_e * C + pos,
-                       torch.full_like(pos, E * C))        # E*C = drop slot
-    token_of = sort_idx // k
-    # inverse map: the token each slot holds; dest is unique except for
-    # the drop slot, which is cut off
-    slot_token = torch.full((E * C + 1,), -1, dtype=torch.int32, device=dev)
-    slot_token[dest] = token_of.to(torch.int32)
-    buf = moe_gather(xf, slot_token[:E * C], E, C)          # [E, C, d]
 
     # --- grouped expert GEMMs ----------------------------------------------
     h = swiglu(torch.bmm(buf, p["w_gate"]), torch.bmm(buf, p["w_up"]))
     out = torch.bmm(h, p["w_down"])                        # [E, C, d]
 
-    # --- combine: un-sort to [T, k] and sum over k in fp32 ----------------
+    # --- combine: each pair's row to [T, k], summed over k in fp32 ---------
     out_flat = torch.cat([out.reshape(E * C, d),
-                          torch.zeros((1, d), dtype=out.dtype, device=dev)])
-    dest_tk = torch.empty_like(dest)
-    dest_tk[sort_idx] = dest                               # (token, slot)
-    picked = out_flat[dest_tk].reshape(T, k, d).float()
+                          torch.zeros((1, d), dtype=out.dtype,
+                                      device=x.device)])
+    picked = out_flat.index_select(0, dest_tk).reshape(T, k, d).float()
     y = (picked * gates[..., None]).sum(dim=1)
 
     # --- shared experts: one dense MLP --------------------------------------

@@ -19,7 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention
 from repro_torch.models import params as P
-from repro_torch.models.common import padded_vocab, rmsnorm
+from repro_torch.models.common import add_rmsnorm, padded_vocab
 from repro_torch.models.mlp import mlp_forward
 from repro_torch.models.moe import moe_forward, moe_spec
 
@@ -125,6 +125,9 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
 
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     new_caches: Dict[str, Any] = {}
+    # each block's output y is added to the residual stream by the
+    # kernel of the next norm (the next layer's norm1, or the final norm)
+    y = None
     for name, n, kind, _dff in plan:
         stage: P.ParamTree = params[name]
         new_k, new_v = [], []
@@ -134,18 +137,16 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
             if lens is not None:
                 kv = caches[name]
                 cache = {"k": kv["k"][i], "v": kv["v"][i], "len": lens}
-            h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+            x, h = add_rmsnorm(x, y, lp["norm1"], cfg.norm_eps)
             h, nc = attention.attn_forward(lp["attn"], h, positions,
                                            cfg=cfg, mode=mode, cache=cache,
                                            keep=keep)
-            x = x + h
-            h2 = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+            x, h2 = add_rmsnorm(x, h, lp["norm2"], cfg.norm_eps)
             if kind == "moe":
                 y, aux_i = moe_forward(lp["moe"], h2, cfg)
                 aux = aux + aux_i
             else:
                 y = mlp_forward(lp["mlp"], h2)
-            x = x + y
             if mode == "prefill":
                 new_k.append(nc["k"])
                 new_v.append(nc["v"])
@@ -161,7 +162,7 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
         step = 1 if mode == "decode" else S
         new_caches["len"] = (lens + step).to(torch.int32)
 
-    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    _, x = add_rmsnorm(x, y, params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = x @ head
     return logits, aux, (new_caches or None)

@@ -20,7 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, ssm
 from repro_torch.models import params as P
-from repro_torch.models.common import padded_vocab, rmsnorm
+from repro_torch.models.common import add_rmsnorm, padded_vocab
 from repro_torch.models.mlp import mlp_forward
 from repro_torch.models.transformer import attention_spec
 
@@ -69,20 +69,21 @@ def _layer_cache(caches: Optional[Dict[str, Any]], part: str, i: int):
     return {name: leaf[i] for name, leaf in caches[part].items()}
 
 
-def _mamba_block(bp: Mapping[str, Any], x, cfg, mode, cache, rows):
-    h, new_cache = ssm.mamba2_forward(
-        bp["mixer"], rmsnorm(x, bp["norm"], cfg.norm_eps), cfg, mode=mode,
-        cache=cache, rows=rows)
-    return x + h, new_cache
+def _mamba_block(bp: Mapping[str, Any], x, y, cfg, mode, cache, rows):
+    """x + y (the branch before, None for the first block), then this
+    block's norm and mixer: returns the new residual and its branch."""
+    x, h = add_rmsnorm(x, y, bp["norm"], cfg.norm_eps)
+    h, new_cache = ssm.mamba2_forward(bp["mixer"], h, cfg, mode=mode,
+                                      cache=cache, rows=rows)
+    return x, h, new_cache
 
 
-def _shared_block(sp, x, positions, cfg, mode, kv_cache, keep):
-    h, new_kv = attention.attn_forward(
-        sp["attn"], rmsnorm(x, sp["norm1"], cfg.norm_eps), positions,
-        cfg=cfg, mode=mode, cache=kv_cache, keep=keep)
-    x = x + h
-    x = x + mlp_forward(sp["mlp"], rmsnorm(x, sp["norm2"], cfg.norm_eps))
-    return x, new_kv
+def _shared_block(sp, x, y, positions, cfg, mode, kv_cache, keep):
+    x, h = add_rmsnorm(x, y, sp["norm1"], cfg.norm_eps)
+    h, new_kv = attention.attn_forward(sp["attn"], h, positions, cfg=cfg,
+                                       mode=mode, cache=kv_cache, keep=keep)
+    x, h = add_rmsnorm(x, h, sp["norm2"], cfg.norm_eps)
+    return x, mlp_forward(sp["mlp"], h), new_kv
 
 
 def _stack(trees):
@@ -117,28 +118,32 @@ def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
     else:
         raise ValueError(f"unknown zamba mode {mode!r}")
 
+    # each block's branch y is added to the residual stream by the kernel
+    # of the next norm (the next block's, or the final norm)
+    y = None
     new_mamba, new_kv = [], []
     for gi in range(n_groups):
         for j in range(g):
             i = gi * g + j
             cache = _layer_cache(caches, "mamba", i)
-            x, nc = _mamba_block(params.blocks.layer(i), x, cfg, mode,
-                                 cache, rows)
+            x, y, nc = _mamba_block(params.blocks.layer(i), x, y, cfg, mode,
+                                    cache, rows)
             new_mamba.append(nc)
         kv = None
         if caches is not None:
             kv = {"k": caches["kv"]["k"][gi], "v": caches["kv"]["v"][gi],
                   "len": caches["len"]}
-        x, nkv = _shared_block(params.shared, x, positions, cfg, mode, kv,
-                               keep)
+        x, y, nkv = _shared_block(params.shared, x, y, positions, cfg, mode,
+                                  kv, keep)
         new_kv.append(nkv)
     new_tail = []
     for i in range(tail):
         cache = _layer_cache(caches, "tail", i)
-        x, nc = _mamba_block(params.tail.layer(i), x, cfg, mode, cache, rows)
+        x, y, nc = _mamba_block(params.tail.layer(i), x, y, cfg, mode, cache,
+                                rows)
         new_tail.append(nc)
 
-    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    _, x = add_rmsnorm(x, y, params.final_norm, cfg.norm_eps)
     logits = x @ params.lm_head
 
     new_caches = None

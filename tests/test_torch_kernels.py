@@ -1,9 +1,9 @@
 """The port's kernels: plain versions against the JAX package's Pallas
 kernels (interpret mode) and oracles on the CPU; the CUDA kernels
-(RMSNorm, flash attention, MoE gather, SSD intra-chunk) against the
-plain versions on a card (``gpu`` marker, skipped here).  The MoE and
-SSD plain versions' CPU parity tests are in ``test_torch_moe.py`` and
-``test_torch_hybrid.py``.
+(RMSNorm plain and fused with the residual add, flash attention, the
+MoE dispatch, SSD intra-chunk) against the plain versions on a card
+(``gpu`` marker, skipped here).  The MoE and SSD plain versions' CPU
+parity tests are in ``test_torch_moe.py`` and ``test_torch_hybrid.py``.
 
 JAX is imported inside the CPU parity tests only, so the ``gpu`` tests
 also run on a machine without JAX:
@@ -18,10 +18,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
-from repro_torch.kernels.moe_dispatch import ops as gather_ops  # noqa: E402
-from repro_torch.kernels.moe_dispatch.ref import moe_gather_ref  # noqa: E402
+from repro_torch.kernels.moe_dispatch import ops as dispatch_ops  # noqa: E402
+from repro_torch.kernels.moe_dispatch.ref import moe_dispatch_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
+    add_rmsnorm_ref, rmsnorm_ref)
 from repro_torch.kernels.ssm_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import ssd_intra_ref  # noqa: E402
 
@@ -36,9 +37,10 @@ def jx():
     from repro.kernels.flash_attention.ref import attention_ref as attn_ref
     from repro.kernels.rmsnorm.ops import rmsnorm
     from repro.kernels.rmsnorm.ref import rmsnorm_ref as rms_ref
+    from repro.models.common import rmsnorm as model_rmsnorm
     return types.SimpleNamespace(jnp=jnp, flash=flash_attention,
                                  attn_ref=attn_ref, rmsnorm=rmsnorm,
-                                 rms_ref=rms_ref)
+                                 rms_ref=rms_ref, model_rmsnorm=model_rmsnorm)
 
 
 def _pair(jx, a: np.ndarray, dtype: str):
@@ -71,6 +73,25 @@ def test_rmsnorm_plain_matches_pallas(jx, R, d, dtype):
     tol = 1e-5 if dtype == "float32" else 2e-2
     for want in (jx.rmsnorm(xj, sj), jx.rms_ref(xj, sj)):
         np.testing.assert_allclose(got, _f32(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("R,d", [(64, 128), (33, 256), (2, 2048),
+                                 (4, 3072)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_add_rmsnorm_plain_matches_jax_model(jx, R, d, dtype):
+    """The fused form's plain path against the JAX model's residual add
+    and ``repro.models.common.rmsnorm``: s bit-exact, y within tol."""
+    rng = np.random.default_rng(4)
+    x, xj = _pair(jx, rng.standard_normal((R, d), np.float32), dtype)
+    h, hj = _pair(jx, rng.standard_normal((R, d), np.float32), dtype)
+    g, gj = _pair(jx, rng.standard_normal(d, np.float32), dtype)
+    s, y = rms_ops.add_rmsnorm(x, h, g)
+    sj = xj + hj
+    assert s.dtype == y.dtype == x.dtype
+    assert np.array_equal(_f32(s), _f32(sj))
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_f32(y), _f32(jx.model_rmsnorm(sj, gj)),
+                               atol=tol, rtol=tol)
 
 
 FLASH_CASES = [  # B, S, H, KV, D, causal, window
@@ -110,17 +131,27 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     x = torch.randn(8, 128)
     s = torch.randn(128)
     q = torch.randn(1, 64, 2, 32)
-    r0, f0 = rms_ops.launches, fa_ops.launches
+    r0, f0, m0 = rms_ops.launches, fa_ops.launches, dispatch_ops.launches
     routes = dict(fa_ops.launches_by_route)
+    forms = dict(rms_ops.launches_by_form)
     assert torch.equal(rms_ops.rmsnorm(x, s), rmsnorm_ref(x, s))
+    for got, want in zip(rms_ops.add_rmsnorm(x, x.flip(0), s),
+                         add_rmsnorm_ref(x, x.flip(0), s)):
+        assert torch.equal(got, want)
     assert torch.equal(fa_ops.flash_attention(q, q, q),
                        attention_ref(q, q, q))
     assert torch.equal(fa_ops.flash_attention(q.bfloat16(), q.bfloat16(),
                                               q.bfloat16()),
                        attention_ref(q.bfloat16(), q.bfloat16(),
                                      q.bfloat16()))
-    assert (rms_ops.launches, fa_ops.launches) == (r0, f0)
+    eidx = torch.tensor([[0, 1], [1, 0], [1, 2]])
+    for got, want in zip(dispatch_ops.moe_dispatch(eidx, x[:3], 4, 2),
+                         moe_dispatch_ref(eidx, x[:3], 4, 2)):
+        assert torch.equal(got, want)
+    assert (rms_ops.launches, fa_ops.launches, dispatch_ops.launches) \
+        == (r0, f0, m0)
     assert fa_ops.launches_by_route == routes
+    assert rms_ops.launches_by_form == forms
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -128,12 +159,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.randn(4, 128)
     with pytest.raises(ValueError):
         rms_ops.rmsnorm_cuda(x, torch.ones(128))
+    with pytest.raises(ValueError):
+        rms_ops.add_rmsnorm_cuda(x, x, torch.ones(128))
     q = torch.randn(1, 64, 2, 32)
     with pytest.raises(ValueError):
         fa_ops.flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError):
-        gather_ops.moe_gather_cuda(x, torch.zeros(8, dtype=torch.int32), 2,
-                                   4)
+        dispatch_ops.moe_dispatch_cuda(torch.zeros(4, 2, dtype=torch.long),
+                                       x, 2, 4)
     cum = torch.zeros(1, 1, 8, 2)
     with pytest.raises(ValueError):
         ssd_ops.ssd_intra_cuda(cum, torch.zeros(1, 1, 8, 2, 4),
@@ -141,20 +174,49 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                torch.zeros(1, 1, 8, 4))
 
 
+# the model widths (deepseek, phi3, zamba2, zamba2's inner norm) and
+# edges of the kernel's thread and register plan
+NORM_WIDTHS = [2048, 3072, 3584, 7168, 64, 1000, 16384]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("R", [4, 128, 256, 33])
+@pytest.mark.parametrize("d", NORM_WIDTHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rmsnorm_kernel_matches_plain(cuda, R, dtype):
+def test_rmsnorm_kernel_matches_plain(cuda, R, d, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     tdt = DTYPES[dtype]
-    x = torch.randn(R, 3072, generator=g, device=cuda).to(tdt)
-    s = torch.randn(3072, generator=g, device=cuda).to(tdt)
+    x = torch.randn(R, d, generator=g, device=cuda).to(tdt)
+    s = torch.randn(d, generator=g, device=cuda).to(tdt)
     n0 = rms_ops.launches
     got = rms_ops.rmsnorm(x, s)
     torch.cuda.synchronize()
     assert rms_ops.launches == n0 + 1
     tol = 1e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), rmsnorm_ref(x, s).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [1, 2, 128, 33])
+@pytest.mark.parametrize("d", NORM_WIDTHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_add_rmsnorm_kernel_matches_plain(cuda, R, d, dtype):
+    """s bit-exact with torch's x + h, y within tol of the plain norm of
+    it; one launch, counted on the fused form."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tdt = DTYPES[dtype]
+    x, h = (torch.randn(R, d, generator=g, device=cuda).to(tdt)
+            for _ in range(2))
+    scale = torch.randn(d, generator=g, device=cuda).to(tdt)
+    before = dict(rms_ops.launches_by_form)
+    s, y = rms_ops.add_rmsnorm(x, h, scale)
+    torch.cuda.synchronize()
+    assert rms_ops.launches_by_form == dict(
+        before, add_rmsnorm=before["add_rmsnorm"] + 1)
+    assert torch.equal(s, x + h)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(y.float(), rmsnorm_ref(x + h, scale).float(),
                                atol=tol, rtol=tol)
 
 
@@ -209,13 +271,22 @@ def test_cuda_wrappers_raise_on_bad_input(cuda):
     q = torch.randn(1, 64, 2, 72, device=cuda)
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, q, q)
-    x = torch.randn(8, 4, device=cuda)       # a row of 16 bytes is fine
-    st = torch.zeros(8, dtype=torch.int64, device=cuda)
-    with pytest.raises(TypeError):
-        gather_ops.moe_gather(x, st, 2, 4)
+    wide = torch.randn(2, 32768 + 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # over-wide row
+        rms_ops.add_rmsnorm(wide, wide, wide[0].contiguous())
     with pytest.raises(ValueError):
-        gather_ops.moe_gather(torch.randn(8, 6, device=cuda),
-                              st.int(), 2, 4)
+        rms_ops.rmsnorm(wide.float(), wide[0].float().contiguous())
+    with pytest.raises(TypeError):                      # mixed dtypes
+        rms_ops.add_rmsnorm(wide[:, :64], wide[:, :64].float(),
+                            wide[0, :64].contiguous())
+    x = torch.randn(8, 4, device=cuda)       # a row of 16 bytes is fine
+    eidx = torch.zeros(8, 2, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):                      # eidx not int64
+        dispatch_ops.moe_dispatch(eidx.int(), x, 2, 4)
+    with pytest.raises(ValueError):                     # 24-byte rows
+        dispatch_ops.moe_dispatch(eidx, torch.randn(8, 6, device=cuda), 2, 4)
+    with pytest.raises(ValueError):                     # T differs
+        dispatch_ops.moe_dispatch(eidx[:4], x, 2, 4)
     cum = torch.zeros(1, 1, 8, 2, device=cuda)
     with pytest.raises(ValueError):                          # P = 6
         ssd_ops.ssd_intra(cum, torch.zeros(1, 1, 8, 2, 6, device=cuda),
@@ -223,30 +294,35 @@ def test_cuda_wrappers_raise_on_bad_input(cuda):
                           torch.zeros(1, 1, 8, 4, device=cuda))
 
 
-GATHER_CASES = [  # T, d, E, C: deepseek-moe-16b's decode, chunk, prefill
-    (2, 2048, 64, 8), (64, 2048, 64, 8), (128, 2048, 64, 16),
-    (33, 128, 8, 8)]
+DISPATCH_CASES = [  # T, d, E, k, C: deepseek-moe-16b's decode, chunk and
+    # prefill capacities (8, 8, 16), an ample C (no drops), a long
+    # prefill of N = 24576 pairs, small edges
+    (1, 2048, 64, 6, 8), (2, 2048, 64, 6, 8), (64, 2048, 64, 6, 8),
+    (128, 2048, 64, 6, 16), (128, 2048, 64, 6, 128),
+    (4096, 2048, 64, 6, 480), (33, 128, 8, 2, 3), (200, 64, 4, 3, 1)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,d,E,C", GATHER_CASES)
+@pytest.mark.parametrize("T,d,E,k,C", DISPATCH_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gather_kernel_bit_exact(cuda, T, d, E, C, dtype):
-    """Empty (-1), out-of-range (>= T) and duplicate slot indices."""
+def test_gather_kernel_bit_exact(cuda, T, d, E, k, C, dtype):
+    """The fused dispatch (sort + capacity cut + gather, the kernel that
+    replaced the standalone gather) against the plain version: buf,
+    dest_tk and counts bit-exact, empty slots zero, one launch.  Routing
+    is top-k of skewed random scores, so popular experts overflow C."""
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(T, d, generator=g, device=cuda).to(DTYPES[dtype])
-    st = torch.full((E * C,), -1, dtype=torch.int32)
-    n = min(E * C - 2, T * 3)
-    st[:n] = torch.randint(0, T, (n,), generator=torch.Generator()
-                           .manual_seed(1), dtype=torch.int32)
-    st[n:n + 2] = torch.tensor([T, T + 7], dtype=torch.int32)
-    st = st[torch.randperm(E * C, generator=torch.Generator()
-                           .manual_seed(2))].to(cuda)
-    n0 = gather_ops.launches
-    got = gather_ops.moe_gather(x, st, E, C)
+    bias = torch.linspace(2, 0, E, device=cuda)
+    eidx = torch.topk(torch.rand(T, E, generator=g, device=cuda) + bias, k,
+                      dim=-1).indices
+    n0 = dispatch_ops.launches
+    got = dispatch_ops.moe_dispatch(eidx, x, E, C)
     torch.cuda.synchronize()
-    assert gather_ops.launches == n0 + 1
-    assert torch.equal(got, moe_gather_ref(x, st, E, C))
+    assert dispatch_ops.launches == n0 + 1
+    want = moe_dispatch_ref(eidx, x, E, C)
+    for name, a, b in zip(("buf", "dest_tk", "counts"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), name
 
 
 SSD_CASES = [  # B, nc, Q, H, P, N: zamba2-7b's prefill chunks and edges

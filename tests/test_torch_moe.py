@@ -1,5 +1,7 @@
 """The port's MoE family against the JAX package on the same inputs:
-capacity, the plain capacity-buffer gather (bit-exact), ``moe_forward``
+capacity, the plain capacity-buffer gather and the plain dispatch (sort,
+capacity cut and gather, against the JAX sort dispatch; bit-exact),
+``moe_forward
 (y and aux, with and without capacity drops), the two-stage
 DeepSeek-MoE and single-stage OLMoE decoders in the prefill, decode and
 chunk modes, and the parameter tree (reduced configs, fp32)."""
@@ -17,8 +19,9 @@ from repro.models import api as japi  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
-from repro_torch.kernels.moe_dispatch import ops as gather_ops  # noqa: E402
-from repro_torch.kernels.moe_dispatch.ref import moe_gather_ref  # noqa: E402
+from repro_torch.kernels.moe_dispatch import ops as dispatch_ops  # noqa: E402
+from repro_torch.kernels.moe_dispatch.ref import (  # noqa: E402
+    moe_dispatch_ref, moe_gather_ref)
 from repro_torch.models import api, moe  # noqa: E402
 
 ARCHS = ("olmoe-1b-7b", "deepseek-moe-16b")
@@ -72,10 +75,60 @@ def test_gather_plain_bit_exact_with_reference(T, d, E, C, dtype):
     assert got.dtype == xt.dtype and tuple(got.shape) == (E, C, d)
     assert np.array_equal(got.float().numpy(),
                           np.asarray(want.astype(jnp.float32)))
-    n0 = gather_ops.launches
-    assert torch.equal(gather_ops.moe_gather(xt, torch.from_numpy(st), E, C),
-                       got)
-    assert gather_ops.launches == n0            # CPU: the plain version
+
+
+def _jax_dispatch(eidx: np.ndarray, x, E: int, C: int):
+    """The sort dispatch of ``repro.models.moe.moe_forward``, with the
+    same jnp ops: (buf [E, C, d], dest [T*k] in sorted order, sort_idx,
+    counts)."""
+    T, k = eidx.shape
+    flat_e = jnp.asarray(eidx).reshape(T * k)
+    sort_idx = jnp.argsort(flat_e)                          # stable
+    sorted_e = jnp.take(flat_e, sort_idx)
+    counts = jnp.zeros(E, jnp.int32).at[flat_e].add(1)
+    starts = jnp.cumsum(counts) - counts
+    pos = jnp.arange(T * k, dtype=jnp.int32) - jnp.take(starts, sorted_e)
+    dest = jnp.where(pos < C, sorted_e * C + pos, E * C)
+    token_of = sort_idx // k
+    buf = jnp.zeros((E * C + 1, x.shape[1]), x.dtype)
+    buf = buf.at[dest].set(jnp.take(x, token_of, axis=0), mode="drop")
+    return buf[:E * C].reshape(E, C, -1), dest, sort_idx, counts
+
+
+@pytest.mark.parametrize("T", [1, 2, 33, 64])
+@pytest.mark.parametrize("drops", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dispatch_plain_matches_jax_sort(T, drops, dtype):
+    """Each token's k distinct experts, expert 0 among them at a random
+    place; with `drops` the capacity is one average expert's load, so
+    expert 0 overflows it (from T = 2), else every pair fits.  buf is
+    bit-exact, dest_tk is JAX's dest un-sorted, counts are equal; the
+    wrapper on CPU tensors runs the plain version and counts no launch."""
+    E, k, d = 8, 3, 32
+    rng = np.random.default_rng(T)
+    eidx = np.stack([rng.permutation(np.r_[0, 1 + rng.permutation(E - 1)
+                                           [:k - 1]]) for _ in range(T)])
+    C = max(1, T * k // E) if drops else T
+    x = rng.standard_normal((T, d), np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    buf, dest_tk, counts = moe_dispatch_ref(torch.from_numpy(eidx), xt, E,
+                                            C)
+    jbuf, jdest, jsort, jcounts = _jax_dispatch(
+        eidx, jnp.asarray(x).astype(getattr(jnp, dtype)), E, C)
+    want_tk = np.empty(T * k, np.int64)
+    want_tk[np.asarray(jsort)] = np.asarray(jdest)
+    assert buf.dtype == xt.dtype and tuple(buf.shape) == (E, C, d)
+    assert np.array_equal(buf.float().numpy(),
+                          np.asarray(jbuf.astype(jnp.float32)))
+    assert dest_tk.dtype == counts.dtype == torch.int32
+    assert np.array_equal(dest_tk.numpy(), want_tk)
+    assert np.array_equal(counts.numpy(), np.asarray(jcounts))
+    assert bool((dest_tk == E * C).any()) == (drops and T >= 2)
+    n0 = dispatch_ops.launches
+    got = dispatch_ops.moe_dispatch(torch.from_numpy(eidx), xt, E, C)
+    assert all(torch.equal(a, b) for a, b in zip(got, (buf, dest_tk,
+                                                        counts)))
+    assert dispatch_ops.launches == n0          # CPU: the plain version
 
 
 @pytest.mark.parametrize("drops", [False, True])
