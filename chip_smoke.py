@@ -16,9 +16,11 @@ of JAX and nothing of the ``repro`` package.  In order:
    capacity drops; the fused norm's sum bit-exact; flash in bf16 on its
    wgmma/TMA route and in fp32 on its FMA route, also at zamba2's
    head_dim 112, and in bf16 at long prefills of 4096 tokens and a
-   ragged S = 200), and reduced fp32 phi3, deepseek-moe-16b and
-   zamba2-7b prefills on the card (kernels) against the same models on
-   the CPU (plain versions);
+   ragged S = 200; SSD at chunks of 1, 64, 65, 128 and 256 tokens, at
+   16 chunks of 256 and with steep decay, and its worst error /
+   tolerance against an fp64 plain version over three seeds), and
+   reduced fp32 phi3, deepseek-moe-16b and zamba2-7b prefills on the
+   card (kernels) against the same models on the CPU (plain versions);
 3. serves three models at full published width in bf16, one on the
    card at a time, with random weights from a seeded generator:
    ``phi3-mini-3.8b`` (a) chunked prefill, 4 requests on 2 slots behind
@@ -42,7 +44,8 @@ of JAX and nothing of the ``repro`` package.  In order:
    per call (``ms``, from CUDA-graph replays; for the plain MoE
    dispatch, which syncs with the host and cannot be captured, the sum
    of its kernels' times under the profiler) and time per eager call
-   (``call_ms``, host included); flash also at the long prefills.
+   (``call_ms``, host included); flash also at the long prefills; SSD
+   also at 16 chunks of 256.
 
 It prints a ``{"serve": ...}`` line, a ``{"timings": ...}`` line, one
 ``{"kernels": [...]}`` line, the card's name and power limit, and ends
@@ -63,13 +66,14 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
+TF32X3_FLOPS = 495e12 / 3          # fp32 products as 3 TF32 tensor-core passes
 PHI3, DEEPSEEK, ZAMBA = "phi3-mini-3.8b", "deepseek-moe-16b", "zamba2-7b"
 KERNELS = ("rmsnorm", "add_rmsnorm", "flash_attention", "moe_dispatch",
            "ssd_intra")
 OUR_KERNELS = {  # kernel: its CUDA functions' names, as the profiler shows
     "rmsnorm": r"(?<!add_)rmsnorm_kernel", "add_rmsnorm": r"add_rmsnorm_kernel",
     "flash_attention": r"flash_fwd_", "moe_dispatch": r"moe_dispatch_kernel",
-    "ssd_intra": r"ssd_y_kernel|ssd_state_kernel"}
+    "ssd_intra": r"ssd_intra_kernel"}
 NORM_WIDTHS = (2048, 3072, 3584, 7168)  # deepseek, phi3, zamba2, its inner norm
 SEED = 0
 
@@ -212,9 +216,13 @@ def _times(torch, kernel, plain, library, plain_syncs=False) -> dict:
     return out
 
 
-def _bound(nbytes: float, flops: float, peak: float) -> dict:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return {"bytes": nbytes, "flops": flops,
+def _bound(nbytes: float, flops: float, peak: float,
+           tc_flops: float = 0.0) -> dict:
+    """`flops` at `peak`; of them, `tc_flops` are products that run on
+    the tensor cores in 3xTF32 and count at that rate instead."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (flops - tc_flops) / peak + tc_flops / TF32X3_FLOPS
+    return {"bytes": nbytes, "flops": flops, "tc_flops": tc_flops,
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -248,9 +256,10 @@ def dispatch_inputs(torch, g, T, d, E, k, dtype):
     return x, torch.topk(scores, k, dim=-1).indices
 
 
-def ssd_inputs(torch, g, nc, Q, H=112, P=64, N=64):
-    cum = torch.cumsum(-0.1 * torch.rand(1, nc, Q, H, generator=g,
-                                         device="cuda"), dim=2)
+def ssd_inputs(torch, g, nc, Q, H=112, P=64, N=64, rate=0.1):
+    """zamba2's widths; cum steps are -rate * U(0, 1)."""
+    cum = torch.cumsum(-rate * torch.rand(1, nc, Q, H, generator=g,
+                                          device="cuda"), dim=2)
     return (cum, torch.randn(1, nc, Q, H, P, generator=g, device="cuda"),
             torch.randn(1, nc, Q, N, generator=g, device="cuda"),
             torch.randn(1, nc, Q, N, generator=g, device="cuda"))
@@ -341,15 +350,92 @@ def kernel_phase(m) -> dict:
            f"moe_dispatch: dropped pairs {drops}")
     print(f"[kernels] moe_dispatch dropped pairs (last dtype): {drops}",
           flush=True)
-    for nc, Q in ((1, 64), (1, 65), (1, 128), (2, 256)):
-        args = ssd_inputs(torch, g, nc, Q)
+    # SSD at zamba2's prefill chunks, one-token chunks, its 4096-token
+    # context (16 chunks of 256), and steep decay (cum steps to -10: exp
+    # past the diagonal overflows, so a mask applied after exp gives NaN)
+    for nc, Q, rate in ((1, 1, 0.1), (1, 64, 0.1), (1, 65, 0.1),
+                        (1, 128, 0.1), (2, 256, 0.1), (16, 256, 0.1),
+                        (1, 64, 10.0), (2, 256, 10.0)):
+        args = ssd_inputs(torch, g, nc, Q, rate=rate)
         y, s = m["ssd_ops"].ssd_intra_cuda(*args)
         torch.cuda.synchronize()
         yr, sr = m["ssd_intra_ref"](*args)
-        e = max(_max_err(torch, y, yr, 1e-4, f"ssd y nc={nc} Q={Q}"),
-                _max_err(torch, s, sr, 1e-4, f"ssd S nc={nc} Q={Q}"))
+        what = f"ssd nc={nc} Q={Q} rate={rate}"
+        e = max(_max_err(torch, y, yr, 1e-4, f"{what} y"),
+                _max_err(torch, s, sr, 1e-4, f"{what} S"))
         errs["ssd_intra"] = max(errs["ssd_intra"], e)
+        if (nc, Q) == (16, 256):
+            # worst |err| / tolerance of the kernel (3xTF32) and of one
+            # TF32 pass: the plain version with its matmuls in TF32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            y1, s1 = m["ssd_intra_ref"](*args)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            share = {name: max(float(((a - b).abs() / (1e-4 + 1e-4 * b.abs()))
+                                     .max()) for a, b in pair)
+                     for name, pair in (("3xtf32_kernel", ((y, yr), (s, sr))),
+                                        ("tf32_plain", ((y1, yr), (s1, sr))))}
+            print(f"[kernels] ssd [1,16,256,112,64,64] worst error / "
+                  f"tolerance: {share}", flush=True)
+            del y1, s1
+        del args, y, s, yr, sr
+    ssd_error_survey(m)
     return errs
+
+
+def _share(torch, got, want) -> float:
+    """Worst |got - want| / (1e-4 + 1e-4 |want|): the share of the SSD
+    tolerance used."""
+    return float(((got.double() - want).abs()
+                  / (1e-4 + 1e-4 * want.abs())).max())
+
+
+def _ssd_fp64(torch, cum, xdt, Bc, Cc):
+    """The plain SSD (``ssd_intra_ref``'s math) in fp64."""
+    cum, xdt, Bc, Cc = (t.double() for t in (cum, xdt, Bc, Cc))
+    Q = cum.shape[2]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                device=cum.device))
+    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    CB = torch.einsum("bnqs,bnks->bnqk", Cc, Bc)
+    M = torch.where(tri[None, None, :, :, None], CB[..., None] * decay,
+                    torch.zeros((), dtype=torch.float64, device=cum.device))
+    dec_end = torch.exp(cum[:, :, -1:, :] - cum)
+    return (torch.einsum("bnqkh,bnkhp->bnqhp", M, xdt),
+            torch.einsum("bnkh,bnks,bnkhp->bnhsp", dec_end, Bc, xdt))
+
+
+def ssd_error_survey(m) -> None:
+    """Worst error / tolerance of the SSD kernel (y and S) and of the
+    plain version in fp32, against the plain version in fp64, over seeds
+    0-2, at 16 chunks of 256 and with steep decay; and at 16 x 256 with
+    B and C, then xdt, on a grid of 1/8 in [-4, 4]: such values are
+    exact in TF32, so C.B^T, then the products with xdt, lose nothing to
+    3xTF32's dropped lo*lo' term."""
+    torch = m["torch"]
+    grid = lambda t: torch.clamp(torch.round(8 * t) / 8, -4, 4)  # noqa: E731
+    out = {}
+    for nc, Q, rate in ((16, 256, 0.1), (1, 64, 10.0), (2, 256, 10.0)):
+        for seed in range(3):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            args = ssd_inputs(torch, g, nc, Q, rate=rate)
+            variants = {"randn": args}
+            if (nc, seed) == (16, 0):
+                variants["BC_on_grid"] = (args[0], args[1], grid(args[2]),
+                                          grid(args[3]))
+                variants["xdt_on_grid"] = (args[0], grid(args[1]), args[2],
+                                           args[3])
+            for name, a in variants.items():
+                y, s = m["ssd_ops"].ssd_intra_cuda(*a)
+                yp, sp = m["ssd_intra_ref"](*a)
+                yr, sr = _ssd_fp64(torch, *a)
+                out[f"{nc}x{Q} rate={rate} seed={seed} {name}"] = {
+                    "y": _share(torch, y, yr), "S": _share(torch, s, sr),
+                    "plain_y": _share(torch, yp, yr),
+                    "plain_S": _share(torch, sp, sr)}
+                del y, s, yp, sp, yr, sr
+            del args, variants
+    print("[kernels] ssd worst error / tolerance against fp64: "
+          + json.dumps(out), flush=True)
 
 
 def reduced_model_phase(m) -> dict:
@@ -759,20 +845,26 @@ def timing_phase(m) -> dict:
                      plain_syncs=True),
             **_bound(8 * T * k + 2 * d * (filled + E * C) + 4 * T * k
                      + 4 * E, 0, BF16_FLOPS)})
-    # SSD: zamba2's legacy prefill chunks (nc=1, Q = 64, 128); no single
-    # PyTorch call computes it
-    for nc, Q in ((1, 64), (1, 128)):
+    # SSD: zamba2's legacy prefill chunks (nc=1, Q = 64, 128) and its
+    # 4096-token context (nc=16, Q=256); no single PyTorch call computes
+    # it.  The products (C.B^T over causal pairs, M @ xdt, the state
+    # product) run in 3xTF32 and count at that rate; the decay and
+    # dec_end scaling at the fp32 rate
+    for nc, Q in ((1, 64), (1, 128), (16, 256)):
         H, P, N = 112, 64, 64
         args = ssd_inputs(torch, g, nc, Q)
         pairs = Q * (Q + 1) // 2
         flops = nc * (pairs * 2 * N + H * pairs * (2 + 2 * P)
                       + H * Q * (N + 2 * N * P))
+        tc_flops = nc * (pairs * 2 * N + H * pairs * 2 * P
+                         + H * Q * 2 * N * P)
         nbytes = 4 * nc * (Q * H + 2 * Q * H * P + 2 * Q * N + H * N * P)
         out["ssd_intra"].append({
             "shape": [1, nc, Q, H, P, N], "dtype": "float32",
             **_times(torch, lambda: m["ssd_ops"].ssd_intra_cuda(*args),
                      lambda: m["ssd_intra_ref"](*args), None),
-            **_bound(nbytes, flops, FP32_FLOPS)})
+            **_bound(nbytes, flops, FP32_FLOPS, tc_flops)})
+        del args
     return out
 
 

@@ -1,56 +1,85 @@
-// SSD (Mamba2) intra-chunk block for Hopper (sm_90a), fp32, plain C
-// interface for ctypes.
+// SSD (Mamba2) intra-chunk block for Hopper (sm_90a), fp32 in and out,
+// products on the tensor cores (wgmma) in 3xTF32; plain C interface for
+// ctypes.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssm_scan/kernel.py
 // (_kernel / ssd_intra_fwd).  Per (batch*chunk bc, head h), with
-// cum [Q] the chunk's log-decay cumsum, xdt [Q, P] and B, C [Q, N]:
+// cum [Q] the chunk's log-decay cumsum, xdt [Q, P] and B, C [Q, N]
+// (one group: B and C are shared by every head):
 //
 //   y_intra[t] = sum_{j <= t} (C_t . B_j) exp(cum_t - cum_j) xdt_j   [Q, P]
 //   S_chunk    = sum_j exp(cum_last - cum_j) B_j xdt_j^T             [N, P]
 //
-// The TPU kernel takes one whole chunk per grid cell into VMEM and
-// builds the [Q, Q] matrix there.  A CUDA block has far less fast
-// memory, so the work is tiled like the flash kernel: one block owns
-// one (bc, h, 32-query tile) and walks the 32-key tiles up to its
-// diagonal (tiles above it are never loaded).  Each warp owns 8 query
-// rows; lane j scores key j of the tile for all 8 rows (C_t . B_j from
-// shared memory, B with a padded row stride so the 32 lanes hit 32
-// banks), then multiplies by the decay, and the tile's [8, 32] weights
-// meet xdt through warp shuffles, each lane accumulating ceil(P/32)
-// output columns in registers.
+// One launch computes both.  A block owns (bc, head h) and the whole
+// chunk; it walks 64-row query tiles qt and, for each, the 64-key tiles
+// kt <= qt (tiles above the diagonal are never loaded).  Warpgroup 0
+// (warps 0-3) owns the 64 query rows: per (qt, kt) it forms C.B^T in
+// registers, turns it into M = tril(CB * exp(cum_t - cum_j)) and
+// accumulates M @ xdt.  Warpgroup 1 (warps 4-7) owns the state rows (64
+// at a time) and accumulates (B * dec_end)^T @ xdt on the diagonal
+// tiles, where every key tile passes once.  dec_end = exp(cum_last -
+// cum_j) is computed once per key into shared memory.  Head-dim columns
+// go in passes of 64.
+//
+// Products: wgmma m64n64k8 with tf32 operands and fp32 accumulators, A
+// from registers, B from shared memory.  Each fp32 operand a is split
+// as hi = tf32(a), lo = tf32(a - hi) and a product is taken as
+// lo*hi' + hi*lo' + hi*hi' (3xTF32, about fp32 accuracy; one TF32 pass
+// errs by ~1e-2 where 1e-4 is tolerated).  tf32 wgmma reads B K-major
+// only, so after each key tile lands, warpgroup 0 writes B (rows = keys,
+// K = state) and warpgroup 1 xdt^T (rows = head-dim columns, K = keys)
+// into shared memory once, split into hi and lo planes in the 128-byte
+// swizzle the descriptors name; every product then reads them with no
+// conversion in its loop, and C.B^T starts as soon as B's planes are
+// written.  The A operands (C, M, B * dec_end) are split in registers.
+// C.B^T's accumulator feeds M @ xdt as its A operand directly: inside
+// each 8-key step the accumulator holds the keys in the order (0, 2, 4,
+// 6, 1, 3, 5, 7), so xdt^T's planes store them in that order, and the
+// state product's A operand follows it.
+//
+// Loads: every thread copies raw tiles with 16-byte cp.async (zero-
+// filling rows past Q and the k padding of B and C); each warpgroup
+// issues the next key tile's copies of the raw tile it has just split,
+// so the next tile loads while this one's products run.  C query tiles
+// (read as A fragments, row pitch = 4 mod 32 floats: no bank conflicts)
+// go through a 2-slot ring, the raw B and xdt key tiles through one
+// slot each.  (With one producer warp issuing every copy, that warp's
+// issue rate set the kernel's time on the H100.)
 //
 // Masking comes BEFORE exp: above the diagonal cum_t - cum_j > 0 and
-// the exponent can overflow; the Pallas kernel zeroes those entries
-// after exp (a select), but a product with a 0/1 mask would give
-// inf * 0 = NaN.  Here exp is evaluated only for j <= t < Q.
+// the exponent can overflow; a product with a 0/1 mask would give
+// inf * 0 = NaN.  Here M is a select: exp's value is used only where
+// j <= t < Q, and dec_end is 0 past Q.
 //
-// S_chunk is a second kernel in this file: one block per (bc, h, 32
-// state rows), looping over all key tiles; B's tile is scaled by
-// exp(cum_last - cum_j) (<= 1, cum is non-increasing) as it is staged.
-//
-// Q is any value from 1 to the chunk length (the model's chunk is any
-// divisor of the sequence length up to 256, e.g. 65), so every tile is
-// guarded; P and N are multiples of 4 up to 128 (16-byte loads).
+// Q is any value from 1 to 256 (the model's chunk is any divisor of
+// the sequence length up to 256, e.g. 65); P and N are multiples of 4
+// up to 128 (16-byte rows).
 //
 // What bounds it on this card: at zamba2-7b's prefill shapes (Q = 64,
-// H = 112, P = N = 64) the function does ~Q^2 (N + P) + 2 Q N P flops
-// per head on ~Q (N + P) fp32 inputs, about 15 flops per byte at
-// Q = 64: below the ridge of the fp32 FMA units (67 TFLOP/s over
-// 3.35 TB/s, ~20 flops per byte), so the bound is bytes.  This first
-// kernel uses plain fp32 FMAs from shared memory; TF32 tensor cores
-// would change the numbers beyond the 1e-4 tolerance and are later work.
+// H = 112, P = N = 64) the function moves ~5.6 MB and does ~89 MFLOP of
+// products, 1.7 us of bytes against 0.5 us of 3xTF32 tensor time, so
+// the bound is bytes; but a block per head (112 blocks, one key tile
+// each) makes the kernel a chain of latencies: load, split, C.B^T,
+// M @ xdt, store.  The design shortens the chain (C.B^T waits for B's
+// planes only; the state product runs beside it) and keeps the tensor
+// cores fed within it (no branch between wgmmas, the next batch's A
+// fragments split while one batch runs).  C.B^T is formed once a
+// block, i.e. once per head: at the prefill shapes a block per head
+// fills the most SMs, and a block of two heads (C.B^T formed half as
+// often) was slower there.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 32;              // query rows per block
-constexpr int BK = 32;              // keys per tile (one per lane)
-constexpr int BN = 32;              // state rows per S_chunk block
-constexpr int kWarps = 4;
-constexpr int kRows = BQ / kWarps;  // rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxDim = 128;        // largest N and P
+constexpr int kTile = 64;         // query rows and keys per tile
+constexpr int kPB = 64;           // head-dim columns per pass
+constexpr int kMaxQ = 256;
+constexpr int kMaxDim = 128;      // largest N and P
+constexpr int kThreads = 256;     // warps 0-3: y; warps 4-7: S_chunk
+static_assert(kMaxQ == kThreads, "one cum entry a thread");
+constexpr int kBox = kTile * 128;  // 64 rows x 128 bytes (32 tf32 of K)
+constexpr int kSmemMax = 232448;
 
 struct Args {
   const float* cum;  // [BC, Q, H]
@@ -62,223 +91,605 @@ struct Args {
   int Q, H, N, P;
 };
 
-__host__ __device__ constexpr size_t y_smem_floats(int N, int P) {
-  return (size_t)BQ * N + (size_t)BK * (N + 1) + (size_t)BK * P + BQ + BK;
+__host__ __device__ constexpr int np8_of(int N) { return (N + 7) / 8 * 8; }
+// C tile row pitch in floats, = 4 mod 32
+__host__ __device__ constexpr int pitch_c(int N) {
+  return (N + 31) / 32 * 32 + 4;
+}
+// 128-byte boxes of the B planes (32 state columns each): two up to
+// N = 64, else four, so every batch of 4 k-steps has its box
+__host__ __device__ constexpr int b_boxes(int N) { return N > 64 ? 4 : 2; }
+
+// Shared memory, in bytes from a 1024-aligned base: the B planes (hi,
+// lo), the xdt^T planes (hi, lo; two boxes each), then cum, dec_end,
+// the C ring, the raw B tile and the raw xdt tile.
+struct Offsets {
+  int bp_hi, bp_lo, xp_hi, xp_lo, cum, dec, cs, kr, xr, total;
+};
+
+__host__ __device__ constexpr Offsets offsets(int N) {
+  Offsets o{};
+  o.bp_hi = 0;
+  o.bp_lo = o.bp_hi + b_boxes(N) * kBox;
+  o.xp_hi = o.bp_lo + b_boxes(N) * kBox;
+  o.xp_lo = o.xp_hi + 2 * kBox;
+  o.cum = o.xp_lo + 2 * kBox;
+  o.dec = o.cum + 4 * kMaxQ;
+  o.cs = o.dec + 4 * kMaxQ;
+  o.kr = o.cs + 4 * 2 * kTile * pitch_c(N);
+  o.xr = o.kr + 4 * kTile * np8_of(N);
+  o.total = o.xr + 4 * kTile * kPB;
+  return o;
 }
 
-// Stage rows [r0, r0 + rows) of a row-major slab (row stride `stride`
-// floats, `width` floats per row, width % 4 == 0) into shared memory
-// with row pitch `pitch`; rows past `n` are zero.
-__device__ __forceinline__ void stage(float* dst, int pitch,
-                                      const float* __restrict__ src,
-                                      long long stride, int r0, int rows,
-                                      int n, int width, int tid) {
-  const int per_row = width / 4;
+__host__ __device__ constexpr size_t smem_bytes(int N) {
+  return 1024 + offsets(N).total;  // + slack to align the base
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global into shared memory, or 16 zero bytes where
+// !valid (nothing is read then)
+__device__ __forceinline__ void cp16(uint32_t dst, const float* src,
+                                     bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// A 64-row tile, `cols` floats a row (a multiple of 4), into `dst`
+// (row pitch `pitch`) by threads tid < nthr: row r < rows holds
+// src[r * stride + c] for c < valid_cols and zeros past it; rows past
+// `rows` are zeros.
+__device__ __forceinline__ void copy_tile(float* dst, int pitch,
+                                          const float* src, size_t stride,
+                                          int rows, int cols, int valid_cols,
+                                          int tid, int nthr) {
+  const int per_row = cols / 4;
+  if ((per_row & (per_row - 1)) == 0) {  // a power of 2: no division
+    const int sh = __ffs(per_row) - 1;
+    for (int i = tid; i < kTile * per_row; i += nthr) {
+      const int r = i >> sh, c = (i & (per_row - 1)) * 4;
+      const bool ok = r < rows && c < valid_cols;
+      cp16(smem_addr(dst + r * pitch + c), ok ? src + r * stride + c : src,
+           ok);
+    }
+    return;
+  }
+  for (int i = tid; i < kTile * per_row; i += nthr) {
+    const int r = i / per_row, c = (i - r * per_row) * 4;
+    const bool ok = r < rows && c < valid_cols;
+    cp16(smem_addr(dst + r * pitch + c), ok ? src + r * stride + c : src, ok);
+  }
+}
+
+// x rounded to tf32, to nearest with ties away (cvt.rna for finite x)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x (finite) ~ hi + lo, both tf32: x - hi is exact, lo is it rounded
+// (within 2^-22 of x)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// named barriers besides __syncthreads' 0: 1 warpgroup 0 alone, 2 the
+// B planes written (warpgroup 0 arrives, 1 waits), 3 warpgroup 1 alone,
+// 4 the xdt^T planes written (warpgroup 1 arrives, 0 waits)
+enum { kBarY = 1, kBarB = 2, kBarS = 3, kBarX = 4 };
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a
+// 128-byte-swizzled box
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled K-major operand:
+// rows of 128 bytes, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         static_cast<uint64_t>(1) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// waits until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// pins registers at this point of the program, so the compiler neither
+// moves their reads or writes across a wgmma fence or wait nor reuses
+// an A fragment's registers while a wgmma may still read them
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[i][e])::"memory");
+}
+
+#define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define ACC16(i) ACC4(i), ACC4(i + 4), ACC4(i + 8), ACC4(i + 12)
+#define ACC32(i) ACC16(i), ACC16(i + 16)
+#define REGS32                                                           \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31"
+
+// d[64 x 64] (+)= A[64 x 8] * B[8 x 64] in tf32, A from registers (each
+// warp its 16 rows), B K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" REGS32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : ACC32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d (+)= a . b in 3xTF32 (small terms first); b's planes at b_hi, b_lo
+__device__ __forceinline__ void wgmma3(float (&d)[32],
+                                       const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4], uint32_t b_hi,
+                                       uint32_t b_lo, int accumulate) {
+  wgmma_tf32(d, al, sw128_desc(b_hi), accumulate);
+  wgmma_tf32(d, ah, sw128_desc(b_lo), 1);
+  wgmma_tf32(d, ah, sw128_desc(b_hi), 1);
+}
+
+// K offset in bytes of k-step kk (8 tf32) in a plane of 128-byte boxes
+__device__ __forceinline__ uint32_t kstep(int kk) {
+  return (kk >> 2) * kBox + (kk & 3) * 32;
+}
+
+struct Smem {
+  unsigned char* p;  // the aligned base
+  uint32_t base;     // its shared-memory address
+  Offsets o;
+  float* cum;  // [kMaxQ] the head's cum, 0 past Q
+  float* dec;  // [kMaxQ] exp(cum_last - cum_j), 0 past Q
+  float* cs;   // [2][kTile][pc] C query tiles
+  float* kr;   // [kTile][np8] raw B key tile
+  float* xr;   // [kTile][kPB] raw xdt key tile
+  int pc, np8;
+};
+
+// byte offset of B[key j][state n] in a B plane
+__device__ __forceinline__ uint32_t b_off(int j, int n) {
+  return (n >> 5) * kBox + swz(j, (n & 31) >> 2) + (n & 3) * 4;
+}
+
+// One step of the walk: head-dim pass pb, query tile qt, key tile kt;
+// ci counts the (pb, qt) steps (the C ring's slot is ci & 1).
+struct Step {
+  int pb, qt, kt, ci;
+};
+
+// the step after `st`, or pb = npb where the walk ends
+__device__ __forceinline__ Step next_step(Step st, int nq) {
+  if (st.kt < st.qt) return {st.pb, st.qt, st.kt + 1, st.ci};
+  if (st.qt + 1 < nq) return {st.pb, st.qt + 1, 0, st.ci + 1};
+  return {st.pb + 1, 0, 0, st.ci + 1};
+}
+
+// Issue raw tiles of step `st` by threads tid < nthr: C query tile qt
+// where the step starts a query tile, and B key tile kt
+__device__ __forceinline__ void load_bc(const Args& a, const Smem& m, Step st,
+                                        int bc, int tid, int nthr) {
+  const int Q = a.Q, N = a.N;
+  if (st.kt == 0)
+    copy_tile(m.cs + (st.ci & 1) * kTile * m.pc, m.pc,
+              a.c + ((size_t)bc * Q + st.qt * kTile) * N, N,
+              Q - st.qt * kTile, m.np8, N, tid, nthr);
+  copy_tile(m.kr, m.np8, a.b + ((size_t)bc * Q + st.kt * kTile) * N, N,
+            Q - st.kt * kTile, m.np8, N, tid, nthr);
+}
+
+// ... and the xdt key tile kt of head h (pass pb)
+__device__ __forceinline__ void load_x(const Args& a, const Smem& m, Step st,
+                                       int bc, int h, int tid, int nthr) {
+  const int Q = a.Q, P = a.P, H = a.H, rows = Q - st.kt * kTile;
+  const int pcols = min(kPB, P - st.pb * kPB);
+  copy_tile(m.xr, kPB,
+            a.xdt + (((size_t)bc * Q + st.kt * kTile) * H + h) * P +
+                st.pb * kPB,
+            (size_t)H * P, rows, pcols, pcols, tid, nthr);
+}
+
+// At the start of each step every thread waits for its copies and
+// meets the others (the raw tiles are then visible, and every product
+// of the step before is done, so the planes are free).  Warpgroup 0
+// then splits B into its planes and starts C.B^T; warpgroup 1 splits
+// xdt^T and joins once B is written; warpgroup 0 waits for xdt^T only
+// before M @ xdt.  Each issues the next step's copies of the raw tile
+// it has just freed, to load while this step's products run.
+// B planes: row = key, K = state column.
+__device__ __forceinline__ void begin_y(const Args& a, const Smem& m,
+                                        Step st, int nq, int npb, int bc,
+                                        int gt) {
+  cp_wait_all();
+  __syncthreads();
+  const int per_row = m.np8 / 4;  // 16-byte chunks of a B row
+  const bool pow2 = (per_row & (per_row - 1)) == 0;
+  const int sh = __ffs(per_row) - 1;
 #pragma unroll 4
-  for (int idx = tid; idx < rows * per_row; idx += kThreads) {
-    const int r = idx / per_row, c = (idx % per_row) * 4;
+  for (int i = gt; i < kTile * per_row; i += 128) {
+    const int r = pow2 ? i >> sh : i / per_row, c4 = i - r * per_row;
     const float4 v =
-        r0 + r < n ? __ldg(reinterpret_cast<const float4*>(
-                         src + (r0 + r) * stride + c))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-    float* d = dst + r * pitch + c;
-    d[0] = v.x;
-    d[1] = v.y;
-    d[2] = v.z;
-    d[3] = v.w;
+        *reinterpret_cast<const float4*>(m.kr + r * m.np8 + 4 * c4);
+    uint4 hi, lo;
+    split(v.x, hi.x, lo.x);
+    split(v.y, hi.y, lo.y);
+    split(v.z, hi.z, lo.z);
+    split(v.w, hi.w, lo.w);
+    const uint32_t off = b_off(r, 4 * c4);
+    *reinterpret_cast<uint4*>(m.p + m.o.bp_hi + off) = hi;
+    *reinterpret_cast<uint4*>(m.p + m.o.bp_lo + off) = lo;
+  }
+  // the planes are read by wgmma (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  bar_sync(kBarY, 128);
+  bar_arrive(kBarB, 256);
+  const Step nx = next_step(st, nq);
+  if (nx.pb < npb) load_bc(a, m, nx, bc, gt, 128);
+  cp_commit();
+}
+
+// xdt^T planes: row = head-dim column p, K = key, keys of each 8-step in
+// the order (0, 2, 4, 6, 1, 3, 5, 7); thread (p, key octet g8, parity e)
+// takes keys 8 g8 + e + {0, 2, 4, 6}, which land in K positions
+// 8 g8 + 4 e + {0, 1, 2, 3}
+__device__ __forceinline__ void begin_s(const Args& a, const Smem& m,
+                                        Step st, int nq, int npb, int bc,
+                                        int h, int gt) {
+  cp_wait_all();
+  __syncthreads();
+  constexpr int xp = kPB;  // raw xdt row pitch
+#pragma unroll 4
+  for (int i = gt; i < kPB * 16; i += 128) {
+    const int p = i % kPB, q = i / kPB;
+    const int g8 = q >> 1, e = q & 1;
+    const float* col = m.xr + (8 * g8 + e) * xp + p;
+    uint4 hi, lo;
+    split(col[0], hi.x, lo.x);
+    split(col[2 * xp], hi.y, lo.y);
+    split(col[4 * xp], hi.z, lo.z);
+    split(col[6 * xp], hi.w, lo.w);
+    const int kpos = 8 * g8 + 4 * e;
+    const uint32_t off = (kpos >> 5) * kBox + swz(p, (kpos & 31) >> 2);
+    *reinterpret_cast<uint4*>(m.p + m.o.xp_hi + off) = hi;
+    *reinterpret_cast<uint4*>(m.p + m.o.xp_lo + off) = lo;
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  bar_sync(kBarS, 128);
+  bar_arrive(kBarX, 256);
+  const Step nx = next_step(st, nq);
+  if (nx.pb < npb) load_x(a, m, nx, bc, h, gt, 128);
+  cp_commit();
+  bar_sync(kBarB, 256);  // B planes written
+}
+
+// The products go in batches of 4 k-steps (12 wgmmas); each batch's A
+// fragments are split into one of two register sets while the batch
+// before runs on the tensor cores.  After issuing batch b: wait until
+// batch b - 1 is done (its set is free again).  Every batch is issued,
+// with no branch between its wgmmas (ptxas serialises wgmmas that a
+// branch separates): k-steps past the data multiply zeros (zero A
+// fragments, masked M, dec_end = 0 past Q, planes zeroed at the start).
+#define BATCH_ISSUED(b, ah, al)  \
+  do {                           \
+    wgmma_commit();              \
+    wgmma_wait<1>();             \
+    pin(ah[((b) + 1) & 1]);      \
+    pin(al[((b) + 1) & 1]);      \
+  } while (0)
+#define BATCH_DRAIN(ah, al) \
+  do {                        \
+    wgmma_wait<0>();          \
+    pin(ah[0]);               \
+    pin(al[0]);               \
+    pin(ah[1]);               \
+    pin(al[1]);               \
+  } while (0)
+
+// warpgroup 0: y_intra; warp w holds query rows [16 w, +16) of a tile
+template <int NM>
+__device__ __forceinline__ void y_group(const Args& a, const Smem& m, int bc,
+                                        int h, int warp, int lane, int tid) {
+  const int Q = a.Q, P = a.P, H = a.H, pc = m.pc;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (Q + kTile - 1) / kTile, npb = (P + kPB - 1) / kPB;
+  const int nk8 = m.np8 / 8;
+  Step st{0, 0, 0, 0};
+  for (int pb = 0; pb < npb; ++pb) {
+    const int pcols = min(kPB, P - pb * kPB);
+    for (int qt = 0; qt < nq; ++qt) {
+      const int t0 = qt * kTile + 16 * warp + g, t1 = t0 + 8;  // my rows
+      float acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+      for (int kt = 0; kt <= qt; ++kt, st = next_step(st, nq)) {
+        begin_y(a, m, st, nq, npb, bc, tid);
+        const float* crow = m.cs + ((st.ci & 1) * kTile + 16 * warp + g) * pc;
+        uint32_t ah[2][4][4], al[2][4][4];
+
+        // CB = C . B^T over the state columns, 8 a step
+        float cb[32];
+#pragma unroll
+        for (int b = 0; b < 2 * NM; ++b) {
+          const int k0 = 4 * b;
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const int c = 8 * min(k0 + s, nk8 - 1) + t;
+            const bool in = k0 + s < nk8;  // else a zero step
+            split(in ? crow[c] : 0.f, ah[b & 1][s][0], al[b & 1][s][0]);
+            split(in ? crow[8 * pc + c] : 0.f, ah[b & 1][s][1],
+                  al[b & 1][s][1]);
+            split(in ? crow[c + 4] : 0.f, ah[b & 1][s][2], al[b & 1][s][2]);
+            split(in ? crow[8 * pc + c + 4] : 0.f, ah[b & 1][s][3],
+                  al[b & 1][s][3]);
+          }
+          if (b == 0) pin(cb);  // not while a batch writes it
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma3(cb, ah[b & 1][s], al[b & 1][s],
+                   m.base + m.o.bp_hi + kstep(k0 + s),
+                   m.base + m.o.bp_lo + kstep(k0 + s), k0 + s > 0);
+          BATCH_ISSUED(b, ah, al);
+        }
+        BATCH_DRAIN(ah, al);
+        pin(cb);
+        bar_sync(kBarX, 256);  // xdt^T planes written
+
+        // M @ xdt, keys 8 a step
+        const float cq0 = m.cum[t0], cq1 = m.cum[t1];
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int k0 = 4 * b;
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const int nt = k0 + s;
+            const int j0 = kt * kTile + 8 * nt + 2 * t, j1 = j0 + 1;
+            const float c0 = m.cum[j0], c1 = m.cum[j1];
+            // mask first: exp's value only where j <= t < Q
+            const float m0 = j0 <= t0 && t0 < Q
+                                 ? cb[4 * nt] * __expf(cq0 - c0) : 0.f;
+            const float m1 = j1 <= t0 && t0 < Q
+                                 ? cb[4 * nt + 1] * __expf(cq0 - c1) : 0.f;
+            const float m2 = j0 <= t1 && t1 < Q
+                                 ? cb[4 * nt + 2] * __expf(cq1 - c0) : 0.f;
+            const float m3 = j1 <= t1 && t1 < Q
+                                 ? cb[4 * nt + 3] * __expf(cq1 - c1) : 0.f;
+            // A slots (t, t + 4) hold keys (2t, 2t + 1)
+            split(m0, ah[b & 1][s][0], al[b & 1][s][0]);
+            split(m2, ah[b & 1][s][1], al[b & 1][s][1]);
+            split(m1, ah[b & 1][s][2], al[b & 1][s][2]);
+            split(m3, ah[b & 1][s][3], al[b & 1][s][3]);
+          }
+          if (b == 0) pin(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma3(acc, ah[b & 1][s], al[b & 1][s],
+                   m.base + m.o.xp_hi + kstep(k0 + s),
+                   m.base + m.o.xp_lo + kstep(k0 + s), 1);
+          BATCH_ISSUED(b, ah, al);
+        }
+        BATCH_DRAIN(ah, al);
+        pin(acc);
+      }
+
+      float* yh = a.y + ((size_t)bc * Q * H + h) * P + pb * kPB;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int p = 8 * i + 2 * t;
+        if (p >= pcols) continue;
+        if (t0 < Q)
+          *reinterpret_cast<float2*>(yh + (size_t)t0 * H * P + p) =
+              make_float2(acc[4 * i], acc[4 * i + 1]);
+        if (t1 < Q)
+          *reinterpret_cast<float2*>(yh + (size_t)t1 * H * P + p) =
+              make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+      }
+    }
   }
 }
 
-template <int NV>
-__global__ void __launch_bounds__(kThreads) ssd_y_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int N = a.N, P = a.P, Q = a.Q, H = a.H;
-  float* cs = smem;                  // [BQ][N]   C rows of the query tile
-  float* bs = cs + BQ * N;           // [BK][N+1] B rows of the key tile
-  float* xs = bs + BK * (N + 1);     // [BK][P]   xdt rows of the key tile
-  float* cq = xs + BK * P;           // [BQ]      cum of the queries
-  float* ck = cq + BQ;               // [BK]      cum of the keys
+// warpgroup 1: S_chunk; warp sw holds state rows [64 i + 16 sw, +16),
+// i < NM
+template <int NM>
+__device__ __forceinline__ void s_group(const Args& a, const Smem& m, int bc,
+                                        int h, int sw, int lane, int tid) {
+  const int Q = a.Q, N = a.N, P = a.P, H = a.H;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (Q + kTile - 1) / kTile, npb = (P + kPB - 1) / kPB;
+  const float* bp_hi = reinterpret_cast<const float*>(m.p + m.o.bp_hi);
+  const float* bp_lo = reinterpret_cast<const float*>(m.p + m.o.bp_lo);
+  Step st{0, 0, 0, 0};
+  for (int pb = 0; pb < npb; ++pb) {
+    const int pcols = min(kPB, P - pb * kPB);
+    float acc[NM][32];
+#pragma unroll
+    for (int i = 0; i < NM; ++i)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
 
-  const int bc = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * BQ;
+    for (int qt = 0; qt < nq; ++qt) {
+      for (int kt = 0; kt <= qt; ++kt, st = next_step(st, nq)) {
+        begin_s(a, m, st, nq, npb, bc, h, tid - 128);
+        if (kt != qt) continue;  // each key tile once: on the diagonal
+        const float* dec = m.dec + kt * kTile;
+        uint32_t ah[2][4][4], al[2][4][4];
+#pragma unroll
+        for (int b = 0; b < 2 * NM; ++b) {
+          const int i = b / 2, k0 = 4 * (b & 1);
+          const int n0 = 64 * i + 16 * sw + g;  // rows n0, n0 + 8
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const int j0 = 8 * (k0 + s) + 2 * t;  // keys j0, j0 + 1
+            // B from its planes (hi + lo is B to 2^-22), at (j0, n0),
+            // (j0, n0 + 8), (j0 + 1, n0), (j0 + 1, n0 + 8)
+            float bv[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const uint32_t off = b_off(j0 + (e >> 1), n0 + 8 * (e & 1)) / 4;
+              bv[e] = bp_hi[off] + bp_lo[off];
+            }
+            const float d0 = dec[j0], d1 = dec[j0 + 1];
+            split(bv[0] * d0, ah[b & 1][s][0], al[b & 1][s][0]);
+            split(bv[1] * d0, ah[b & 1][s][1], al[b & 1][s][1]);
+            split(bv[2] * d1, ah[b & 1][s][2], al[b & 1][s][2]);
+            split(bv[3] * d1, ah[b & 1][s][3], al[b & 1][s][3]);
+          }
+          if (b == 0)
+#pragma unroll
+            for (int i2 = 0; i2 < NM; ++i2) pin(acc[i2]);
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            wgmma3(acc[i], ah[b & 1][s], al[b & 1][s],
+                   m.base + m.o.xp_hi + kstep(k0 + s),
+                   m.base + m.o.xp_lo + kstep(k0 + s), 1);
+          BATCH_ISSUED(b, ah, al);
+        }
+        BATCH_DRAIN(ah, al);
+#pragma unroll
+        for (int i2 = 0; i2 < NM; ++i2) pin(acc[i2]);
+      }
+    }
+
+    float* sh = a.s + (((size_t)bc * H + h) * N) * P + pb * kPB;
+#pragma unroll
+    for (int i = 0; i < NM; ++i) {
+      const int n0 = 64 * i + 16 * sw + g, n1 = n0 + 8;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int p = 8 * c + 2 * t;
+        if (p >= pcols) continue;
+        if (n0 < N)
+          *reinterpret_cast<float2*>(sh + (size_t)n0 * P + p) =
+              make_float2(acc[i][4 * c], acc[i][4 * c + 1]);
+        if (n1 < N)
+          *reinterpret_cast<float2*>(sh + (size_t)n1 * P + p) =
+              make_float2(acc[i][4 * c + 2], acc[i][4 * c + 3]);
+      }
+    }
+  }
+}
+
+// NM: 64-row passes of state rows (1 where N <= 64, else 2)
+template <int NM>
+__global__ void __launch_bounds__(kThreads, 1) ssd_intra_kernel(Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  const int Q = a.Q;
+  Smem m;
+  m.p = smem_raw + pad;
+  m.base = raw + pad;
+  m.o = offsets(a.N);
+  m.pc = pitch_c(a.N);
+  m.np8 = np8_of(a.N);
+  m.cum = reinterpret_cast<float*>(m.p + m.o.cum);
+  m.dec = reinterpret_cast<float*>(m.p + m.o.dec);
+  m.cs = reinterpret_cast<float*>(m.p + m.o.cs);
+  m.kr = reinterpret_cast<float*>(m.p + m.o.kr);
+  m.xr = reinterpret_cast<float*>(m.p + m.o.xr);
+
+  const int bc = blockIdx.x / a.H, h = blockIdx.x % a.H;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float* cum = a.cum + (size_t)bc * Q * H + h;  // stride H
-  const float* xdt = a.xdt + ((size_t)bc * Q * H + h) * P;
 
-  stage(cs, N, a.c + (size_t)bc * Q * N, N, t0, BQ, Q, N, tid);
-  if (tid < BQ) cq[tid] = t0 + tid < Q ? cum[(size_t)(t0 + tid) * H] : 0.f;
-
-  float acc[kRows][NV];
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr)
-#pragma unroll
-    for (int i = 0; i < NV; ++i) acc[rr][i] = 0.f;
-
-  const int k_hi = min(Q, t0 + BQ);  // keys j <= t < t0 + BQ
-  for (int kt = 0; kt < k_hi; kt += BK) {
-    __syncthreads();  // the previous tile is consumed (and cs is stored)
-    stage(bs, N + 1, a.b + (size_t)bc * Q * N, N, kt, BK, Q, N, tid);
-    stage(xs, P, xdt, (long long)H * P, kt, BK, Q, P, tid);
-    if (tid < BK) ck[tid] = kt + tid < Q ? cum[(size_t)(kt + tid) * H] : 0.f;
-    __syncthreads();
-
-    // C_t . B_j for this warp's rows and key `lane`
-    const float* brow = bs + lane * (N + 1);
-    const float* cw = cs + warp * kRows * N;
-    float sc[kRows];
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) sc[rr] = 0.f;
-    for (int n = 0; n < N; n += 4) {
-      const float b0 = brow[n], b1 = brow[n + 1], b2 = brow[n + 2],
-                  b3 = brow[n + 3];
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) {
-        const float4 cv = *reinterpret_cast<const float4*>(cw + rr * N + n);
-        sc[rr] += cv.x * b0 + cv.y * b1 + cv.z * b2 + cv.w * b3;
-      }
-    }
-    // mask first, then decay: exp only where j <= t < Q
-    const int j = kt + lane;
-    float m[kRows];
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int r = warp * kRows + rr, t = t0 + r;
-      m[rr] = (t < Q && j <= t) ? sc[rr] * expf(cq[r] - ck[lane]) : 0.f;
-    }
-    // M @ xdt: each xdt element is loaded once for all kRows rows
-    const int jn = min(BK, k_hi - kt);
-#pragma unroll 4
-    for (int jj = 0; jj < jn; ++jj) {
-      float xv[NV];
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int p = lane + 32 * i;
-        xv[i] = p < P ? xs[jj * P + p] : 0.f;
-      }
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) {
-        const float mj = __shfl_sync(0xffffffffu, m[rr], jj);
-#pragma unroll
-        for (int i = 0; i < NV; ++i) acc[rr][i] += mj * xv[i];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    const int t = t0 + warp * kRows + rr;
-    if (t >= Q) continue;
-    float* yrow = a.y + (((size_t)bc * Q + t) * H + h) * P;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int p = lane + 32 * i;
-      if (p < P) yrow[p] = acc[rr][i];
-    }
-  }
+  // cum first (a strided 4-byte read, into a register), so its latency
+  // overlaps the first tiles' copies; kMaxQ == kThreads
+  const float cv =
+      tid < Q ? __ldg(a.cum + ((size_t)bc * Q + tid) * a.H + h) : 0.f;
+  load_bc(a, m, Step{0, 0, 0, 0}, bc, tid, kThreads);
+  load_x(a, m, Step{0, 0, 0, 0}, bc, h, tid, kThreads);
+  cp_commit();
+  // zero the B planes' state columns past N, which no split writes but
+  // zero steps read
+  if (m.np8 < 32 * b_boxes(a.N))
+    for (int i = tid; i < m.o.cum / 16; i += kThreads)
+      reinterpret_cast<uint4*>(m.p)[i] = make_uint4(0, 0, 0, 0);
+  m.cum[tid] = cv;
+  __syncthreads();
+  m.dec[tid] = tid < Q ? expf(m.cum[Q - 1] - cv) : 0.f;
+  // (dec is read after the first step's __syncthreads)
+  if (warp < 4)
+    y_group<NM>(a, m, bc, h, warp, lane, tid);
+  else
+    s_group<NM>(a, m, bc, h, warp - 4, lane, tid);
 }
 
-template <int NV>
-__global__ void __launch_bounds__(kThreads) ssd_state_kernel(Args a) {
-  __shared__ float bs[BK * BN];       // [BK][BN] decayed B, this n tile
-  __shared__ float xs[BK * kMaxDim];  // [BK][P]
-  const int N = a.N, P = a.P, Q = a.Q, H = a.H;
-  const int bc = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float* cum = a.cum + (size_t)bc * Q * H + h;  // stride H
-  const float* bmat = a.b + (size_t)bc * Q * N;
-  const float* xdt = a.xdt + ((size_t)bc * Q * H + h) * P;
-  const float cum_last = cum[(size_t)(Q - 1) * H];
-
-  float acc[kRows][NV];
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr)
-#pragma unroll
-    for (int i = 0; i < NV; ++i) acc[rr][i] = 0.f;
-
-  for (int kt = 0; kt < Q; kt += BK) {
-    __syncthreads();
-#pragma unroll 4
-    for (int idx = tid; idx < BK * BN; idx += kThreads) {
-      const int r = idx / BN, n = n0 + idx % BN, j = kt + r;
-      bs[idx] = (j < Q && n < N)
-                    ? __ldg(bmat + (size_t)j * N + n) *
-                          expf(cum_last - cum[(size_t)j * H])
-                    : 0.f;
-    }
-    stage(xs, P, xdt, (long long)H * P, kt, BK, Q, P, tid);
-    __syncthreads();
-    const int jn = min(BK, Q - kt);
-#pragma unroll 4
-    for (int jj = 0; jj < jn; ++jj) {
-      float xv[NV];
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int p = lane + 32 * i;
-        xv[i] = p < P ? xs[jj * P + p] : 0.f;
-      }
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) {
-        const float bj = bs[jj * BN + warp * kRows + rr];  // broadcast
-#pragma unroll
-        for (int i = 0; i < NV; ++i) acc[rr][i] += bj * xv[i];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    const int n = n0 + warp * kRows + rr;
-    if (n >= N) continue;
-    float* srow = a.s + (((size_t)bc * H + h) * N + n) * P;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int p = lane + 32 * i;
-      if (p < P) srow[p] = acc[rr][i];
-    }
-  }
-}
-
-template <int NV>
+template <int NM>
 int launch(const Args& a, int BC, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ssd_y_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(sizeof(float) * y_smem_floats(kMaxDim, kMaxDim)));
+        ssd_intra_kernel<NM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemMax);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const size_t smem = sizeof(float) * y_smem_floats(a.N, a.P);
-  const dim3 grid_y((a.Q + BQ - 1) / BQ, a.H, BC);
-  ssd_y_kernel<NV><<<grid_y, kThreads, smem, stream>>>(a);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const dim3 grid_s((a.N + BN - 1) / BN, a.H, BC);
-  ssd_state_kernel<NV><<<grid_s, kThreads, 0, stream>>>(a);
+  const long long blocks = (long long)BC * a.H;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  ssd_intra_kernel<NM>
+      <<<(unsigned)blocks, kThreads, smem_bytes(a.N), stream>>>(a);
   return cudaGetLastError();
 }
+
+static_assert(smem_bytes(kMaxDim) <= kSmemMax, "shared memory");
 
 }  // namespace
 
 // cum: [BC, Q, H]; xdt: [BC, Q, H, P]; b, c: [BC, Q, N]; y: [BC, Q, H, P];
-// s: [BC, H, N, P]; all fp32, contiguous, 16-byte aligned.  Q >= 1;
-// N and P multiples of 4 in [4, 128].  Launches the y_intra and the
-// S_chunk kernel; returns cudaGetLastError() after them.
+// s: [BC, H, N, P]; all fp32, contiguous, 16-byte aligned.  1 <= Q <= 256;
+// N and P multiples of 4 in [4, 128].  One launch writes y and s;
+// returns cudaGetLastError() after it.
 extern "C" int ssd_intra_fwd(const void* cum, const void* xdt, const void* b,
                              const void* c, void* y, void* s, int BC, int Q,
                              int H, int N, int P, void* stream) {
   if (BC <= 0 || H <= 0) return cudaSuccess;
-  if (Q <= 0 || N <= 0 || P <= 0 || N % 4 || P % 4 || N > kMaxDim ||
-      P > kMaxDim)
+  if (Q <= 0 || Q > kMaxQ || N <= 0 || P <= 0 || N % 4 || P % 4 ||
+      N > kMaxDim || P > kMaxDim)
     return cudaErrorInvalidValue;
   const Args a{static_cast<const float*>(cum), static_cast<const float*>(xdt),
                static_cast<const float*>(b),   static_cast<const float*>(c),
                static_cast<float*>(y),         static_cast<float*>(s),
                Q, H, N, P};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((P + 31) / 32) {
-    case 1: return launch<1>(a, BC, st);
-    case 2: return launch<2>(a, BC, st);
-    case 3: return launch<3>(a, BC, st);
-    default: return launch<4>(a, BC, st);
-  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return N > 64 ? launch<2>(a, BC, st) : launch<1>(a, BC, st);
 }

@@ -3,10 +3,12 @@ version for CPU tensors.
 
 cum [B,nc,Q,H], xdt [B,nc,Q,H,P] and Bc/Cc [B,nc,Q,N], all fp32, give
 y_intra [B,nc,Q,H,P] and S_chunk [B,nc,H,N,P] in fp32, as
-``ssd_intra_ref``.  The kernel takes any Q >= 1 (the model's chunk is
-any divisor of the sequence length up to 256), P and N multiples of 4
-up to 128.  ``launches`` counts wrapper calls that launched the kernels
-(one call launches the y_intra and the S_chunk kernel).
+``ssd_intra_ref``.  The kernel takes any Q from 1 to 256 (the model's
+chunk is any divisor of the sequence length up to 256), P and N
+multiples of 4 up to 128.  One launch writes both outputs, a block per
+(chunk, head), with the products on the tensor cores in 3xTF32 (about
+fp32 accuracy).  ``launches`` counts wrapper calls that launched the
+kernel.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.kernels.ssm_scan.ref import ssd_intra_ref
 
 SOURCE = "src/repro_torch/csrc/ssm_scan.cu"
 MAX_DIM = 128
+MAX_Q = 256
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]
 
@@ -54,6 +57,8 @@ def ssd_intra_cuda(cum: torch.Tensor, xdt: torch.Tensor, Bc: torch.Tensor,
             or tuple(Bc.shape[:3]) != (B, nc, Q):
         raise ValueError(f"shapes do not match: cum {tuple(cum.shape)}, "
                          f"xdt {tuple(xdt.shape)}, B {tuple(Bc.shape)}")
+    if not 0 < Q <= MAX_Q:
+        raise ValueError(f"chunk length Q={Q} must be in [1, {MAX_Q}]")
     if P % 4 or N % 4 or not 0 < P <= MAX_DIM or not 0 < N <= MAX_DIM:
         raise ValueError(f"P={P} and N={N} must be multiples of 4 in "
                          f"[4, {MAX_DIM}]")

@@ -292,6 +292,11 @@ def test_cuda_wrappers_raise_on_bad_input(cuda):
         ssd_ops.ssd_intra(cum, torch.zeros(1, 1, 8, 2, 6, device=cuda),
                           torch.zeros(1, 1, 8, 4, device=cuda),
                           torch.zeros(1, 1, 8, 4, device=cuda))
+    with pytest.raises(ValueError):                          # Q = 257
+        ssd_ops.ssd_intra(torch.zeros(1, 1, 257, 2, device=cuda),
+                          torch.zeros(1, 1, 257, 2, 4, device=cuda),
+                          torch.zeros(1, 1, 257, 4, device=cuda),
+                          torch.zeros(1, 1, 257, 4, device=cuda))
 
 
 DISPATCH_CASES = [  # T, d, E, k, C: deepseek-moe-16b's decode, chunk and
@@ -328,22 +333,73 @@ def test_gather_kernel_bit_exact(cuda, T, d, E, k, C, dtype):
 SSD_CASES = [  # B, nc, Q, H, P, N: zamba2-7b's prefill chunks and edges
     (1, 1, 64, 112, 64, 64), (1, 1, 65, 112, 64, 64),
     (1, 1, 128, 112, 64, 64), (1, 2, 256, 112, 64, 64),
-    (2, 3, 13, 3, 8, 4), (1, 2, 16, 8, 32, 16), (1, 1, 40, 2, 128, 128)]
+    (2, 3, 13, 3, 8, 4), (1, 2, 16, 8, 32, 16), (1, 1, 40, 2, 128, 128),
+    # one-token chunks, zamba2's 4096-token context (16 chunks of 256),
+    # the narrowest state and head, and ragged shapes: P past one
+    # 64-column pass, N past one 64-row pass of state, N not a multiple
+    # of 8
+    (1, 1, 1, 112, 64, 64), (1, 16, 256, 112, 64, 64),
+    (1, 2, 70, 5, 4, 4), (1, 2, 65, 5, 64, 64), (1, 1, 40, 3, 128, 128),
+    (1, 1, 130, 7, 100, 72), (1, 1, 130, 7, 100, 40),
+    (1, 1, 256, 4, 64, 128)]
+
+
+def _ssd_case(cuda, B, nc, Q, H, P, N, rate=1.0):
+    """Seeded inputs on the card; cum steps are -rate * U(0, 1)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    cum = torch.cumsum(-rate * torch.rand(B, nc, Q, H, generator=g,
+                                          device=cuda), dim=2)
+    xdt = torch.randn(B, nc, Q, H, P, generator=g, device=cuda)
+    Bc = torch.randn(B, nc, Q, N, generator=g, device=cuda)
+    Cc = torch.randn(B, nc, Q, N, generator=g, device=cuda)
+    return cum, xdt, Bc, Cc
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,nc,Q,H,P,N", SSD_CASES)
 def test_ssd_kernel_matches_plain(cuda, B, nc, Q, H, P, N):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    cum = torch.cumsum(-torch.rand(B, nc, Q, H, generator=g, device=cuda),
-                       dim=2)
-    xdt = torch.randn(B, nc, Q, H, P, generator=g, device=cuda)
-    Bc = torch.randn(B, nc, Q, N, generator=g, device=cuda)
-    Cc = torch.randn(B, nc, Q, N, generator=g, device=cuda)
+    args = _ssd_case(cuda, B, nc, Q, H, P, N)
     n0 = ssd_ops.launches
-    y, s = ssd_ops.ssd_intra(cum, xdt, Bc, Cc)
+    y, s = ssd_ops.ssd_intra(*args)
     torch.cuda.synchronize()
     assert ssd_ops.launches == n0 + 1
-    yr, sr = ssd_intra_ref(cum, xdt, Bc, Cc)
+    yr, sr = ssd_intra_ref(*args)
     torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(s, sr, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc,Q", [(1, 256), (2, 65), (1, 1)])
+def test_ssd_kernel_steep_decay(cuda, nc, Q):
+    """cum steps of up to -10: exp(cum_t - cum_j) above the diagonal
+    overflows to inf, so a mask applied after exp would give NaN."""
+    args = _ssd_case(cuda, 1, nc, Q, 112, 64, 64, rate=10.0)
+    y, s = ssd_ops.ssd_intra(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    yr, sr = ssd_intra_ref(*args)
+    torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, sr, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("Q", [1, 13, 64])
+def test_ssd_plain_steep_decay_matches_jax(Q):
+    """The plain version (the wrapper's CPU path) against the JAX
+    package's reference where exp past the diagonal overflows: finite,
+    within 1e-4."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.ssm_scan.ref import ssd_intra_ref as jax_ref
+    rng = np.random.default_rng(7)
+    cum = np.cumsum(-10 * rng.random((1, 2, Q, 3)), axis=2).astype(
+        np.float32)
+    xdt = rng.standard_normal((1, 2, Q, 3, 8)).astype(np.float32)
+    Bc, Cc = (rng.standard_normal((1, 2, Q, 4)).astype(np.float32)
+              for _ in range(2))
+    args = (cum, xdt, Bc, Cc)
+    y, s = ssd_ops.ssd_intra(*(torch.from_numpy(a) for a in args))
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    yj, sj = jax_ref(*(jnp.asarray(a) for a in args))
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sj), atol=1e-4,
+                               rtol=1e-4)
