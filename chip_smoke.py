@@ -24,10 +24,21 @@ of JAX and nothing of the ``repro`` package.  In order:
 3. serves three models at full published width in bf16, one on the
    card at a time, with random weights from a seeded generator:
    ``phi3-mini-3.8b`` (a) chunked prefill, 4 requests on 2 slots behind
-   a 64-token shared prefix, so the prefix cache hits, (b) legacy
-   bucketed prefill, 2 requests; ``deepseek-moe-16b`` (c) chunked, as
-   (a), (d) legacy, as (b); ``zamba2-7b`` (e) legacy, prompts of
-   exactly 64 and 128 tokens, so no pad enters the recurrent state.
+   a 64-token shared prefix, so the prefix cache hits, (a') the same on
+   the paged KV layout (pages of 32 tokens), which must give (a)'s
+   tokens, share prefix pages and copy none, then (a) again (warm, as
+   (a') is), (b) legacy bucketed prefill, 2 requests, (b-obs) (b) again
+   with the observability plane on (tracer, flight recorder, kernel
+   timing, an HTTP server scraped mid-run), which must give (b)'s
+   tokens and count each kernel's launches as its wrapper does, then
+   (b) again (warm), and (chaos) (a) on the paged layout under the
+   seeded fault plan of ``--chaos-seed 1234``, where every request
+   must finish with a known reason and the flight dump written under
+   ``build/`` must validate; ``deepseek-moe-16b`` (c) chunked, as (a),
+   (c') paged, as (a'), then (c) again, (d) legacy, as (b);
+   ``zamba2-7b`` (e) legacy, prompts of exactly 64 and 128 tokens, so
+   no pad enters the recurrent state, and its engine must refuse the
+   paged layout.
    Each path runs with every kernel's launch count set to 0 just before
    it and read just after (flash's per route too: bf16 serving must
    run it on the wgmma route only);
@@ -37,8 +48,10 @@ of JAX and nothing of the ``repro`` package.  In order:
    legacy first-token cosine is printed only (see there); profiles
    one prefill and one decode forward of each model (wall vs device
    time, kernel count, host syncs, the kernels with most device time);
-   and profiles one deepseek MoE layer, which must launch one dispatch
-   kernel and run no bincount, argsort, index_put or host sync;
+   profiles one deepseek MoE layer, which must launch one dispatch
+   kernel and run no bincount, argsort, index_put or host sync; and
+   times the paged layout's page gather and scatter of one decode tick
+   on phi3's and deepseek's pools;
 5. times each kernel, its plain version and the PyTorch library call
    where one computes the same function, with CUDA events: device time
    per call (``ms``, from CUDA-graph replays; for the plain MoE
@@ -86,7 +99,7 @@ def _imports():
     import torch
     import torch.nn.functional as F
 
-    from repro_torch import bridge
+    from repro_torch import bridge, faults, obs
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -99,8 +112,10 @@ def _imports():
     from repro_torch.kernels.ssm_scan.ref import ssd_intra_ref
     from repro_torch.models import api
     from repro_torch.models.moe import moe_capacity, moe_forward
+    from repro_torch.serving import kv_pool
     from repro_torch.serving.engine import Engine
-    return dict(np=np, torch=torch, F=F, bridge=bridge,
+    return dict(np=np, torch=torch, F=F, bridge=bridge, obs=obs,
+                faults=faults, kv_pool=kv_pool,
                 get_config=get_config, reduced_config=reduced_config,
                 build=build, fa_ops=fa_ops, attention_ref=attention_ref,
                 dispatch_ops=dispatch_ops, moe_dispatch_ref=moe_dispatch_ref,
@@ -477,15 +492,31 @@ def reduced_model_phase(m) -> dict:
     return out
 
 
-def _serve(m, cfg, params, prompts, max_new, **kw) -> dict:
-    """One engine run with every launch count zeroed just before it."""
+FINISH_REASONS = {"eos", "max_new", "max_len", "timeout", "shed",
+                  "degraded"}
+
+
+def _serve(m, cfg, params, prompts, max_new, reasons=("max_new",),
+           during=None, after=None, **kw) -> dict:
+    """One engine run with every launch count zeroed and the peak
+    memory reset just before it.  Every request must finish with one of
+    `reasons` and `max_new + 1` tokens.  `during(eng)` runs after the
+    first tick, `after(eng)` after the run; their results go under
+    "during" and "after".  No engine outlives the call, so the next
+    run's peak memory holds no pool of this one."""
     torch = m["torch"]
+    gc.collect()                # a paged engine's prefix hook is a cycle
     eng = m["Engine"](cfg, params, n_slots=2, max_len=256, eos_id=-1,
                       prefill_chunk=32, **kw)
     _zero_counts(m)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new=max_new) for p in prompts]
+    extra = {}
+    if during is not None:
+        eng.step()
+        extra["during"] = during(eng)
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -493,23 +524,225 @@ def _serve(m, cfg, params, prompts, max_new, **kw) -> dict:
     routes = dict(m["fa_ops"].launches_by_route)
     res = eng.results()
     for r in rids:
+        why = eng.requests[r].finish_reason
+        _check(why in reasons, f"request {r} finished {why!r}")
         _check(len(res[r]) == max_new + 1,
                f"request {r}: {len(res[r])} tokens, want {max_new + 1}")
-        _check(eng.requests[r].finish_reason == "max_new",
-               f"request {r} finished {eng.requests[r].finish_reason}")
     snap = eng.metrics_snapshot()
     tokens = sum(len(res[r]) for r in rids)
-    return {"arch": cfg.name, "mode": eng.prefill_mode,
-            "requests": len(rids), "tokens": tokens, "wall_s": wall,
-            "tokens_per_s": tokens / wall,
-            "ttft_s_mean": snap["serving.ttft_s"]["mean"],
-            "ttft_s_max": snap["serving.ttft_s"]["max"],
-            "prefix_cache_hits": snap.get(
-                "serving.prefix_cache.hits", {}).get("value", 0),
-            "prefills": snap["serving.prefills"]["value"],
-            "decode_ticks": snap["serving.decode_ticks"]["value"],
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches": launches, "flash_launches_by_route": routes}
+    out = {"arch": cfg.name, "mode": eng.prefill_mode,
+           "kv_layout": eng.kv_layout,
+           "requests": len(rids), "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "ttft_s_mean": snap["serving.ttft_s"]["mean"],
+           "ttft_s_max": snap["serving.ttft_s"]["max"],
+           "prefix_cache_hits": snap.get(
+               "serving.prefix_cache.hits", {}).get("value", 0),
+           "prefills": snap["serving.prefills"]["value"],
+           "decode_ticks": snap["serving.decode_ticks"]["value"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "out": [res[r] for r in rids],
+           "reasons": [eng.requests[r].finish_reason for r in rids],
+           "launches": launches, "flash_launches_by_route": routes}
+    if eng.kv_layout == "paged":
+        out["kv"] = {k.split(".")[-1]: snap.get(k, {}).get("value", 0)
+                     for k in ("serving.kv.pages_shared",
+                               "serving.kv.pages_copied",
+                               "serving.kv.cow_splits",
+                               "serving.kv.admit_blocked")}
+    if after is not None:
+        extra["after"] = after(eng)
+    out.update(extra)
+    return out
+
+
+def serve_paged(m, cfg, params, prompts, contiguous) -> tuple:
+    """(a') / (c'): the chunked run on the paged layout (pages of 32
+    tokens); the tokens must equal the contiguous run's, prefix hits
+    must share pages, and the page-aligned 64-token prefix must be
+    copied never.  Then the contiguous run again, warm as the paged one
+    is ((a) and (c) pay first calls), to compare the two layouts."""
+    out = _serve(m, cfg, params, prompts, 8, prefill_mode="chunked",
+                 prefix_cache_entries=32, kv_layout="paged", kv_page_size=32)
+    _check(out["out"] == contiguous["out"],
+           f"{cfg.name} paged tokens {out['out']} != contiguous "
+           f"{contiguous['out']}")
+    _check(out["kv"]["pages_shared"] > 0 and out["kv"]["pages_copied"] == 0,
+           f"{cfg.name} paged kv counters {out['kv']}")
+    again = _serve(m, cfg, params, prompts, 8, prefill_mode="chunked",
+                   prefix_cache_entries=32)
+    _check(again["out"] == contiguous["out"], "chunked tokens changed")
+    print(f"[serve] {cfg.name} paged: pages_shared "
+          f"{out['kv']['pages_shared']}, pages_copied "
+          f"{out['kv']['pages_copied']}; tokens/s {out['tokens_per_s']:.2f}"
+          f" paged vs {again['tokens_per_s']:.2f} contiguous (warm)",
+          flush=True)
+    return out, again
+
+
+def serve_obs(m, cfg, params, prompts, plain) -> dict:
+    """(b-obs): the legacy run with the whole observability plane on:
+    tracer, flight recorder (mirroring the tracer), kernel timing, and
+    an HTTP server on an ephemeral port scraped once after the first
+    tick.  Tokens must equal the plain run's, the trace must hold at
+    least 3 span names, and ``kernels.<name>.launches`` must equal each
+    kernel wrapper's own count.  Then (b-again): the plain run once
+    more, warm as this one is ((b) pays first calls), for the wall cost
+    of the plane."""
+    import urllib.request
+    obs, torch = m["obs"], m["torch"]
+    obs.metrics.reset()
+    obs.tracer.clear()
+    obs.flight.clear()
+    obs.enable_tracing()
+    obs.flight.enable()
+    obs.flight.attach_tracer(obs.tracer)
+    obs.enable_kernel_timing()
+    server = None
+
+    def scrape(eng):
+        nonlocal server
+        server = obs.ObsServer(port=0, registries=[eng.metrics, obs.metrics],
+                               health=eng.liveness,
+                               requests=eng.debug_requests,
+                               flight=obs.flight)
+        port = server.start()
+        got = {}
+        for path in ("/metrics", "/healthz", "/debug/requests"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=10) as r:
+                got[path] = (r.status, r.read().decode())
+        _check(got["/metrics"][0] == 200
+               and got["/metrics"][1].endswith("# EOF\n"),
+               f"/metrics scrape {got['/metrics'][0]}")
+        _check(got["/healthz"][0] == 200, f"/healthz {got['/healthz']}")
+        return {p: c for p, (c, _) in got.items()}
+
+    try:
+        out = _serve(m, cfg, params, prompts, 8, prefill_mode="legacy",
+                     during=scrape)
+    finally:
+        if server is not None:
+            server.stop()
+        obs.disable_kernel_timing()
+        obs.disable_tracing()
+        obs.flight.disable()
+    events = obs.tracer.drain()
+    names = sorted({e["name"] for e in events if e.get("ph") == "X"})
+    kernels = {k.split(".")[1]: v["value"]
+               for k, v in obs.metrics.snapshot().items()
+               if k.endswith(".launches")}
+    timed = {k.split(".")[1]: v["count"]
+             for k, v in obs.metrics.snapshot().items()
+             if k.endswith(".time_s")}
+    _check(out["out"] == plain["out"],
+           f"obs-on tokens {out['out']} != plain {plain['out']}")
+    _check(len(names) >= 3, f"trace span names {names}")
+    ops = {k: v for k, v in out["launches"].items() if v}
+    _check(kernels == ops and timed == ops,
+           f"kernels.<name>.launches {kernels} (timed {timed}) != the "
+           f"wrappers' counts {ops}")
+    flights = [e["kind"] for e in obs.flight.snapshot()]
+    out.update(span_names=names, trace_events=len(events),
+               kernel_launches_counted=kernels,
+               kernel_time_s={k: v["sum"] for k, v in
+                              obs.metrics.snapshot().items()
+                              if k.endswith(".time_s")},
+               flight_events=len(flights))
+    obs.metrics.reset()
+    obs.flight.clear()
+    again = _serve(m, cfg, params, prompts, 8, prefill_mode="legacy")
+    _check(again["out"] == plain["out"], "legacy tokens changed")
+    out["wall_vs_plain_again"] = out["wall_s"] / again["wall_s"]
+    print(f"[serve] {cfg.name} legacy with the obs plane: wall "
+          f"{out['wall_s']:.3f}s vs {plain['wall_s']:.3f}s (b), "
+          f"{again['wall_s']:.3f}s (b) again; {len(names)} span names, "
+          f"kernels {kernels}", flush=True)
+    return out, again
+
+
+def serve_chaos(m, cfg, params, prompts) -> dict:
+    """(chaos): the paged chunked run under ``faults.serving_plan(1234)``
+    (NaN / Inf logits, slow decode ticks, transient step crashes) with
+    the flight recorder on: every request finishes with a reason of the
+    JAX engine's set, and the dump written to build/ validates."""
+    faults, obs = m["faults"], m["obs"]
+    inj = faults.FaultInjector(faults.serving_plan(1234))
+
+    def dump(eng):
+        snap = eng.metrics_snapshot()   # not the engine: it is freed after
+        obs.flight.add_metrics_source(lambda: snap)
+        obs.flight.add_metrics_source(inj.metrics)
+        return obs.flight.dump(str(ROOT / "build"), reason="chaos-run-end")
+
+    obs.flight.clear()
+    obs.flight.enable()
+    try:
+        out = _serve(m, cfg, params, prompts, 8,
+                     reasons=tuple(FINISH_REASONS), after=dump,
+                     prefill_mode="chunked", prefix_cache_entries=32,
+                     kv_layout="paged", kv_page_size=32, faults=inj)
+    finally:
+        obs.flight.disable()
+    path = out.pop("after")
+    doc = json.loads(Path(path).read_text())
+    obs.validate_flight(doc)
+    snap = next(v for v in doc["metrics"].values()
+                if "serving.tokens" in v)
+    kinds = [e["kind"] for e in doc["events"]]
+    out.update(
+        watchdog_retries=snap.get("serving.watchdog.retries",
+                                  {}).get("value", 0),
+        nonfinite_logit_rows=snap.get("serving.decode.nonfinite_logit_rows",
+                                      {}).get("value", 0),
+        faults_injected={k: v["value"]
+                         for k, v in inj.metrics.snapshot().items()},
+        faults_remaining=inj.remaining(),
+        flight_dump=str(Path(path).relative_to(ROOT)),
+        flight_events=len(kinds),
+        finishes=kinds.count("serving.finish"))
+    _check(out["finishes"] == len(prompts),
+           f"flight dump holds {out['finishes']} finishes")
+    obs.flight.clear()
+    print(f"[serve] {cfg.name} chaos: reasons {out['reasons']}, "
+          f"serving.watchdog.retries {out['watchdog_retries']}, "
+          f"serving.decode.nonfinite_logit_rows "
+          f"{out['nonfinite_logit_rows']}, flight dump {path}", flush=True)
+    return out
+
+
+def paged_copy_profile(m, cfg, params) -> dict:
+    """One decode tick's page traffic on a 2-slot paged engine's pool
+    (max_len 256, pages of 32): the gather of the whole [2, 256] view
+    through a read table of 16 distinct pages, and the scatter of one
+    dirty page per slot.  Device ms from the profiler (the index copy
+    from the host keeps them out of a CUDA graph), per-call ms with the
+    host; bound: the view read and written once (gather), the dirty
+    pages read and written once (scatter)."""
+    torch, np, kvp = m["torch"], m["np"], m["kv_pool"]
+    eng = m["Engine"](cfg, params, n_slots=2, max_len=256,
+                      prefill_chunk=32, kv_layout="paged", kv_page_size=32)
+    kv = eng._kv
+    n, pps, ps = eng.n_slots, kv.pages_per_slot, kv.page_size
+    table = np.arange(n * pps, dtype=np.int32).reshape(n, pps)
+    mask = np.zeros((n, pps), bool)
+    mask[:, 2] = True
+    view = kvp.gather_pages(eng.caches, table, n, pps, ps)
+    nbytes = sum(t.numel() * t.element_size()
+                 for st in view.values() for t in st.values())
+    out = {}
+    for name, fn, moved in (
+            ("gather", lambda: kvp.gather_pages(eng.caches, table, n, pps,
+                                                ps), 2 * nbytes),
+            ("scatter", lambda: kvp.scatter_pages(
+                eng.caches, view, table, mask, n, pps, ps),
+             2 * nbytes * int(mask.sum()) // mask.size)):
+        out[name] = {"ms": _profiled_ms(torch, fn),
+                     "call_ms": _time_ms(torch, fn),
+                     "bound_ms": 1e3 * moved / HBM_BYTES_PER_S}
+    out["view_gb"] = nbytes / 1e9
+    del eng, view
+    return out
 
 
 def first_token_logits(m, cfg, params, prompt):
@@ -702,7 +935,13 @@ def serve_phase(m) -> dict:
     out["phi3_chunked"] = _serve(m, cfg, params, pa, 8,
                                  prefill_mode="chunked",
                                  prefix_cache_entries=32)
+    out["phi3_chunked_paged"], out["phi3_chunked_again"] = serve_paged(
+        m, cfg, params, pa, out["phi3_chunked"])
     out["phi3_legacy"] = _serve(m, cfg, params, pb, 8, prefill_mode="legacy")
+    out["phi3_legacy_obs"], out["phi3_legacy_again"] = serve_obs(
+        m, cfg, params, pb, out["phi3_legacy"])
+    out["phi3_chaos"] = serve_chaos(m, cfg, params, pa)
+    out["phi3_paged_copies"] = paged_copy_profile(m, cfg, params)
     chunked, legacy = first_token_logits(m, cfg, params, pa[0])
     cos = _cosine(torch, chunked, legacy)
     # the two paths do the same bf16 math with fp32 attention; they
@@ -720,8 +959,11 @@ def serve_phase(m) -> dict:
     out["deepseek_chunked"] = _serve(m, cfg, params, pa, 8,
                                      prefill_mode="chunked",
                                      prefix_cache_entries=32)
+    out["deepseek_chunked_paged"], out["deepseek_chunked_again"] = \
+        serve_paged(m, cfg, params, pa, out["deepseek_chunked"])
     out["deepseek_legacy"] = _serve(m, cfg, params, pb, 8,
                                     prefill_mode="legacy")
+    out["deepseek_paged_copies"] = paged_copy_profile(m, cfg, params)
     chunked, legacy = first_token_logits(m, cfg, params, pa[0])
     # printed, not asserted: MoE capacity drops couple a token's output
     # to the other tokens of its batch (the other chunk positions and
@@ -738,6 +980,15 @@ def serve_phase(m) -> dict:
     pz = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (64, 128)]
     out["zamba_legacy"] = _serve(m, cfg, params, pz, 8,
                                  prefill_mode="legacy")
+    # zamba2's SSM and conv states have no sequence axis to page, and it
+    # prefills legacy only: its engine refuses the paged layout, as the
+    # JAX engine does
+    try:
+        m["Engine"](cfg, params, n_slots=2, max_len=256, kv_layout="paged")
+    except ValueError as e:
+        out["zamba_paged_refused"] = str(e)
+    else:
+        raise AssertionError("zamba2 accepted kv_layout='paged'")
     cos = decode_vs_prefill(m, cfg, params, pz[1][:65])
     _check(cos >= 0.99, f"zamba2 prefill+decode vs prefill cosine {cos}")
     out["zamba_decode_vs_prefill_cosine"] = cos
@@ -750,9 +1001,15 @@ def serve_phase(m) -> dict:
     _check(out["deepseek_chunked"]["prefix_cache_hits"] > 0,
            "no prefix-cache hit in deepseek chunked")
     norms = ("rmsnorm", "add_rmsnorm")
-    expect = {"phi3_chunked": norms,
+    expect = {"phi3_chunked": norms, "phi3_chunked_paged": norms,
+              "phi3_chunked_again": norms,
               "phi3_legacy": norms + ("flash_attention",),
+              "phi3_legacy_obs": norms + ("flash_attention",),
+              "phi3_legacy_again": norms + ("flash_attention",),
+              "phi3_chaos": norms,
               "deepseek_chunked": norms + ("moe_dispatch",),
+              "deepseek_chunked_paged": norms + ("moe_dispatch",),
+              "deepseek_chunked_again": norms + ("moe_dispatch",),
               "deepseek_legacy": norms + ("flash_attention", "moe_dispatch"),
               "zamba_legacy": norms + ("flash_attention", "ssd_intra")}
     for path, names in expect.items():

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -33,13 +34,16 @@ launches = 0
 launches_by_route = {route: 0 for route in ROUTES.values()}
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True,
+                     window: Optional[int] = None) -> torch.Tensor:
     """q: [B,S,H,D]; k,v: [B,Sk,KV,D] -> [B,S,H,D]."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+flash_attention = obs.instrument_kernel("flash_attention", _flash_attention)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -16,6 +16,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 from repro_torch.kernels.moe_dispatch.ref import moe_dispatch_ref
 
@@ -25,11 +26,14 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 launches = 0
 
 
-def moe_dispatch(eidx: torch.Tensor, x: torch.Tensor, E: int, C: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _moe_dispatch(eidx: torch.Tensor, x: torch.Tensor, E: int, C: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
         return moe_dispatch_ref(eidx, x, E, C)
     return moe_dispatch_cuda(eidx, x, E, C)
+
+
+moe_dispatch = obs.instrument_kernel("moe_dispatch", _moe_dispatch)
 
 
 def moe_dispatch_cuda(eidx: torch.Tensor, x: torch.Tensor, E: int, C: int

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 from repro_torch.kernels.rmsnorm.ref import add_rmsnorm_ref, rmsnorm_ref
 
@@ -29,20 +30,26 @@ launches = 0
 launches_by_form = {"rmsnorm": 0, "add_rmsnorm": 0}
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
     """x: [..., d]; scale: [d] -> [..., d] in x's dtype."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
     return rmsnorm_cuda(x, scale, eps)
 
 
-def add_rmsnorm(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
-                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+rmsnorm = obs.instrument_kernel("rmsnorm", _rmsnorm)
+
+
+def _add_rmsnorm(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, h: [..., d]; scale: [d] -> (x + h, rmsnorm(x + h))."""
     if x.device.type == "cpu":
         return add_rmsnorm_ref(x, h, scale, eps)
     return add_rmsnorm_cuda(x, h, scale, eps)
+
+
+add_rmsnorm = obs.instrument_kernel("add_rmsnorm", _add_rmsnorm)
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,

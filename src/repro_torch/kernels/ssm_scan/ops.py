@@ -17,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 from repro_torch.kernels.ssm_scan.ref import ssd_intra_ref
 
@@ -29,11 +30,14 @@ _ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]
 launches = 0
 
 
-def ssd_intra(cum: torch.Tensor, xdt: torch.Tensor, Bc: torch.Tensor,
-              Cc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _ssd_intra(cum: torch.Tensor, xdt: torch.Tensor, Bc: torch.Tensor,
+               Cc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if cum.device.type == "cpu":
         return ssd_intra_ref(cum, xdt, Bc, Cc)
     return ssd_intra_cuda(cum, xdt, Bc, Cc)
+
+
+ssd_intra = obs.instrument_kernel("ssd_intra", _ssd_intra)
 
 
 def ssd_intra_cuda(cum: torch.Tensor, xdt: torch.Tensor, Bc: torch.Tensor,

@@ -27,7 +27,10 @@ SCRIPT = textwrap.dedent("""
                  or m.startswith(("jax.", "jaxlib.", "repro.")))
     print(len(names), bad)
     assert not bad, bad
-    assert "repro_torch.serving.engine" in names, names
+    for want in ("serving.engine", "serving.kv_pool", "faults.plan",
+                 "faults.chaos", "obs.tracing", "obs.flight", "obs.export",
+                 "obs.perf", "obs.server", "launch.serve"):
+        assert "repro_torch." + want in names, (want, names)
 """)
 
 

@@ -403,3 +403,34 @@ def test_ssd_plain_steep_decay_matches_jax(Q):
                                rtol=1e-4)
     np.testing.assert_allclose(s.numpy(), np.asarray(sj), atol=1e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_kernel_timing_never_syncs_in_graph_capture(cuda):
+    """With kernel timing on, an eager call of a wrapper is counted and
+    timed; a call captured in a CUDA graph is counted but not timed (a
+    sync would break the capture), and the graph's replay runs it."""
+    from repro_torch import obs
+    x = torch.randn(64, 3072, device=cuda).to(torch.bfloat16)
+    w = torch.randn(3072, device=cuda).to(torch.bfloat16)
+    obs.metrics.reset()
+    obs.enable_kernel_timing()
+    try:
+        want = rms_ops.rmsnorm(x, w)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            rms_ops.rmsnorm(x, w)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = rms_ops.rmsnorm(x, w)
+        graph.replay()
+        torch.cuda.synchronize()
+        snap = obs.metrics.snapshot()
+    finally:
+        obs.disable_kernel_timing()
+        obs.metrics.reset()
+    assert snap["kernels.rmsnorm.launches"]["value"] == 3
+    assert snap["kernels.rmsnorm.time_s"]["count"] == 2
+    assert torch.equal(got, want)

@@ -19,6 +19,7 @@ from repro.serving.engine import Engine as JaxEngine  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import api  # noqa: E402
 from repro_torch.serving import sampler  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.scheduler import step_masks_np  # noqa: E402
@@ -171,11 +172,25 @@ def test_deadline_shed_and_nan_guard(weights):
     assert snap["serving.decode.nonfinite_logit_rows"]["value"] == 2
 
 
-def test_deferred_features_raise(weights):
+def test_deferred_features_raise(weights, family_weights):
+    """What the port still refuses: zamba2 with the paged layout (its
+    SSM and conv states have no sequence axis to page, and it prefills
+    legacy only, as in the JAX engine), int8 KV caches and zamba2's
+    long-context windowed attention."""
+    _, zcfg, _, zmodel = family_weights["zamba2-7b"]
+    with pytest.raises(ValueError, match="chunked prefill"):
+        Engine(zcfg, zmodel, max_len=64, kv_layout="paged")
+    with pytest.raises(ValueError, match="seq=64"):
+        Engine(zcfg, zmodel, max_len=64, prefill_mode="chunked",
+               kv_layout="paged")
+    with pytest.raises(ValueError, match="multiple of kv_page_size"):
+        Engine(CFG, weights[1], max_len=64, kv_layout="paged",
+               kv_page_size=24)
     with pytest.raises(NotImplementedError):
-        Engine(CFG, weights[1], kv_layout="paged")
+        api.init_caches(CFG, 1, 64, device="cpu", kv_quant=True)
     with pytest.raises(NotImplementedError):
-        Engine(CFG, weights[1], faults=object())
+        api.forward(zmodel, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
+                    zcfg, mode="prefill", long_context=True)
 
 
 def test_sample_guarded_greedy_matches_jax():
@@ -258,6 +273,6 @@ def test_serve_cli_refuses_cpu_fallback():
     with pytest.raises(RuntimeError):
         serve.main(["--arch", "phi3-mini-3.8b", "--reduced",
                     "--requests", "1"])
-    with pytest.raises(NotImplementedError):
-        serve.main(["--arch", "phi3-mini-3.8b", "--reduced", "--device",
-                    "cpu", "--chaos-seed", "1"])
+    with pytest.raises(ValueError, match="paged KV requires chunked"):
+        serve.main(["--arch", "zamba2-7b", "--reduced", "--device", "cpu",
+                    "--kv-layout", "paged"])
