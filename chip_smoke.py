@@ -7,10 +7,23 @@ Needs one CUDA card and a checkout of the repository around this file;
 without either it exits non-zero and prints no result.  Imports nothing
 of JAX and nothing of the ``repro`` package.  In order:
 
-1. builds the four CUDA sources (RMSNorm with its fused residual-add
-   form, flash-attention forward, the MoE dispatch, SSD intra-chunk)
-   from ``src/repro_torch/csrc/``, one ``nvcc`` per source, in parallel;
-2. holds each kernel against its plain PyTorch version on the card at
+1. builds the five CUDA sources (RMSNorm with its fused residual-add
+   form, flash-attention forward, the MoE dispatch, SSD intra-chunk, the
+   SIMT machine's cycle loop) from ``src/repro_torch/csrc/``, one
+   ``nvcc`` per source, in parallel;
+2. drives the Vortex SIMT machine: the kernel (one launch per machine
+   run) against the plain PyTorch loop on the card, every State field
+   and counter bit-equal (vecadd and nn at 8w8t, gaussian at 4w16t at
+   the Fig 9 sizes, a small bfs, and the edge-case programs of
+   ``runtime/kernels_src/edge_cases.py``); then the Fig 9 grid (42
+   cells, ``benchmarks/fig9_rodinia.py``'s settings) through the Rodinia
+   benches, each cell passing its numpy oracle and matching the
+   committed ``benchmarks/baselines/BENCH_fig9_rodinia.json`` in its 16
+   counters and cycles, each cell's kernel time under the profiler; the
+   paper's four claims (``tests/test_paper_claims.py``) on the port's
+   own numbers, the Fig 8 rows and Fig 10's best configuration per
+   bench; it prints a ``{"simt": ...}`` line;
+3. holds each kernel against its plain PyTorch version on the card at
    the main paths' shapes (the MoE dispatch bit-exact in its buffer,
    slots and counts, also at a 4096-token prefill, with and without
    capacity drops; the fused norm's sum bit-exact; flash in bf16 on its
@@ -21,7 +34,7 @@ of JAX and nothing of the ``repro`` package.  In order:
    tolerance against an fp64 plain version over three seeds), and
    reduced fp32 phi3, deepseek-moe-16b and zamba2-7b prefills on the
    card (kernels) against the same models on the CPU (plain versions);
-3. serves three models at full published width in bf16, one on the
+4. serves three models at full published width in bf16, one on the
    card at a time, with random weights from a seeded generator:
    ``phi3-mini-3.8b`` (a) chunked prefill, 4 requests on 2 slots behind
    a 64-token shared prefix, so the prefix cache hits, (a') the same on
@@ -42,7 +55,7 @@ of JAX and nothing of the ``repro`` package.  In order:
    Each path runs with every kernel's launch count set to 0 just before
    it and read just after (flash's per route too: bf16 serving must
    run it on the wgmma route only);
-4. checks consistency: phi3's chunked and legacy first-token logits
+5. checks consistency: phi3's chunked and legacy first-token logits
    (cosine >= 0.99); zamba2's prefill(64) + one decode step against the
    last logits of prefill(65) (cosine >= 0.99); deepseek's chunked vs
    legacy first-token cosine is printed only (see there); profiles
@@ -52,7 +65,7 @@ of JAX and nothing of the ``repro`` package.  In order:
    kernel and run no bincount, argsort, index_put or host sync; and
    times the paged layout's page gather and scatter of one decode tick
    on phi3's and deepseek's pools;
-5. times each kernel, its plain version and the PyTorch library call
+6. times each kernel, its plain version and the PyTorch library call
    where one computes the same function, with CUDA events: device time
    per call (``ms``, from CUDA-graph replays; for the plain MoE
    dispatch, which syncs with the host and cannot be captured, the sum
@@ -60,9 +73,10 @@ of JAX and nothing of the ``repro`` package.  In order:
    (``call_ms``, host included); flash also at the long prefills; SSD
    also at 16 chunks of 256.
 
-It prints a ``{"serve": ...}`` line, a ``{"timings": ...}`` line, one
-``{"kernels": [...]}`` line, the card's name and power limit, and ends
-with ``{"ok": true, "device": {...}}``.  Any failed check raises.
+It prints a ``{"simt": ...}`` line, a ``{"serve": ...}`` line, a
+``{"timings": ...}`` line, one ``{"kernels": [...]}`` line, the card's
+name and power limit, and ends with ``{"ok": true, "device": {...}}``.
+Any failed check raises.
 """
 from __future__ import annotations
 
@@ -101,6 +115,7 @@ def _imports():
 
     from repro_torch import bridge, faults, obs
     from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.simt import machine, power
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -108,10 +123,14 @@ def _imports():
     from repro_torch.kernels.moe_dispatch.ref import moe_dispatch_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.simt_machine import ops as simt_ops
     from repro_torch.kernels.ssm_scan import ops as ssd_ops
     from repro_torch.kernels.ssm_scan.ref import ssd_intra_ref
     from repro_torch.models import api
     from repro_torch.models.moe import moe_capacity, moe_forward
+    from repro_torch.obs import demo  # noqa: F401  (its imports, checked)
+    from repro_torch.runtime.asm import assemble
+    from repro_torch.runtime.kernels_src import edge_cases, rodinia
     from repro_torch.serving import kv_pool
     from repro_torch.serving.engine import Engine
     return dict(np=np, torch=torch, F=F, bridge=bridge, obs=obs,
@@ -121,7 +140,9 @@ def _imports():
                 dispatch_ops=dispatch_ops, moe_dispatch_ref=moe_dispatch_ref,
                 rms_ops=rms_ops, rmsnorm_ref=rmsnorm_ref, ssd_ops=ssd_ops,
                 ssd_intra_ref=ssd_intra_ref, api=api, Engine=Engine,
-                moe_capacity=moe_capacity, moe_forward=moe_forward)
+                moe_capacity=moe_capacity, moe_forward=moe_forward,
+                machine=machine, power=power, simt_ops=simt_ops,
+                assemble=assemble, edge_cases=edge_cases, rodinia=rodinia)
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1125,6 +1146,259 @@ def timing_phase(m) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the SIMT machine: one kernel launch per machine run
+# ---------------------------------------------------------------------------
+
+# benchmarks/fig9_rodinia.py:16-32 (the committed baseline's settings)
+FIG9_CONFIGS = [(2, 2), (2, 8), (8, 2), (8, 8), (4, 16), (16, 4)]
+FIG9_BENCHES = {  # name -> (kwargs, miss_latency)
+    "vecadd": (dict(n=256), 16),
+    "saxpy": (dict(n=256, repeats=8), 16),
+    "sgemm": (dict(m=12, k=12, n=12), 16),
+    "bfs": (dict(n_nodes=512, avg_deg=4), 200),
+    "gaussian": (dict(n=16), 16),
+    "nn": (dict(n=256), 16),
+    "kmeans": (dict(n=128, k=8), 16),
+}
+FIG9_BASELINE = ROOT / "benchmarks" / "baselines" / "BENCH_fig9_rodinia.json"
+FIG8_CONFIGS = [(1, 1), (2, 2), (2, 8), (4, 4), (2, 32), (8, 4), (8, 8),
+                (8, 32), (16, 16), (32, 32)]           # benchmarks/fig8_dse.py
+CLAIM_CONFIGS = [(2, 2), (2, 8), (8, 2), (8, 8)]      # test_paper_claims.py
+NAMED_CELLS = ("vecadd/8w8t", "bfs/2w2t")
+
+
+def _simt_config(m, w, t, miss_latency, **kw):
+    return m["machine"].MachineConfig(warps=w, threads=t,
+                                      max_cycles=12_000_000,
+                                      miss_latency=miss_latency, **kw)
+
+
+def _same_state(m, a, b) -> bool:
+    torch, machine = m["torch"], m["machine"]
+    return (all(torch.equal(getattr(a, f), getattr(b, f))
+                for f in machine.State._fields if f != "stats")
+            and machine.stats_dict(a) == machine.stats_dict(b))
+
+
+def _recorded(m, fn):
+    """fn() with every machine run recorded: (result, [(config,
+    program, dmem image, final state)])."""
+    machine, calls, real = m["machine"], [], m["machine"].run
+
+    def recording(mc, program, dmem_image=None, **kw):
+        out = real(mc, program, dmem_image=dmem_image, **kw)
+        calls.append((mc, program, dmem_image, out))
+        return out
+
+    machine.run = recording
+    try:
+        return fn(), calls
+    finally:
+        machine.run = real
+
+
+def simt_vs_plain(m) -> dict:
+    """The kernel against the plain loop on the card, every State field
+    and counter bit-equal: vecadd and nn at 8w8t and gaussian (both
+    launches) at 4w16t at the Fig 9 sizes, a small bfs, and the edge-case
+    programs (floats, aliasing and sub-word stores, IPDOM overflow)."""
+    torch, machine, ec = m["torch"], m["machine"], m["edge_cases"]
+    runs = [(name, w, t, FIG9_BENCHES[name][0], FIG9_BENCHES[name][1])
+            for name, w, t in (("vecadd", 8, 8), ("nn", 8, 8),
+                               ("gaussian", 4, 16))]
+    runs.append(("bfs", 8, 8, dict(n_nodes=32, avg_deg=3), 200))
+    launches = []
+    for name, w, t, kw, ml in runs:
+        (res, ok), calls = _recorded(m, lambda: m["rodinia"].BENCHMARKS[name](
+            _simt_config(m, w, t, ml), device="cuda", **kw))
+        _check(ok, f"simt {name} {w}w{t}t failed its oracle")
+        launches += [(f"{name}/{w}w{t}t#{i}", *c) for i, c in
+                     enumerate(calls)]
+    edge_src, edge_img, _ = ec.alu_edges()
+    for name, src, img, over in (
+            ("alu_edges", edge_src, edge_img, dict(miss_latency=1)),
+            ("alias_stores", ec.ALIAS_STORES, None, {}),
+            ("ipdom_overflow", ec.IPDOM_OVERFLOW, None,
+             dict(ipdom_depth=2, max_cycles=3000))):
+        mc = machine.MachineConfig(warps=8, threads=8,
+                                   **{"max_cycles": 100_000, **over})
+        prog = m["assemble"](src)
+        launches.append((name, mc, prog, img, machine.run(
+            mc, prog, dmem_image=img, device="cuda")))
+    out = {"launches": len(launches), "cycles": 0, "plain_s": 0.0,
+           "plain_ms": {}}
+    for name, mc, prog, img, got in launches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = machine.run_plain(mc, prog, dmem_image=img, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _check(_same_state(m, got, want),
+               f"simt {name}: kernel state != plain state")
+        cycles = int(want.cycle)
+        out["cycles"] += cycles
+        out["plain_s"] += dt
+        out["plain_ms"][name] = [1e3 * dt, cycles]
+    out["plain_ms_per_cycle"] = 1e3 * out["plain_s"] / out["cycles"]
+    print(f"[simt] kernel == plain on the card, bit for bit: "
+          f"{out['launches']} launches, {out['cycles']} cycles; plain "
+          f"{out['plain_ms_per_cycle']:.3f} ms/cycle", flush=True)
+    return out
+
+
+def _profiled_cell(m, fn):
+    """fn() under the profiler: (result, kernel ms, kernel launches, H2D
+    ms, D2H ms), device times from ``torch.profiler``."""
+    torch = m["torch"]
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    dev = {"kernel": [0.0, 0], "HtoD": [0.0, 0], "DtoH": [0.0, 0]}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = ("kernel" if "simt_kernel" in e.key else
+               "HtoD" if "HtoD" in e.key else
+               "DtoH" if "DtoH" in e.key else None)
+        if key is not None:
+            dev[key][0] += e.self_device_time_total / 1e3
+            dev[key][1] += e.count
+    return result, dev
+
+
+def _simt_bound(mc, stats, launches: int, imem_words: int) -> dict:
+    """The least time for a cell's work, as for every kernel: each
+    launch's state read once and written once (dmem, smem, GPRs, ...)
+    and its program read once, over HBM's rate, against one operation
+    per issued lane at the fp32 rate.  A serial interpreter is nowhere
+    near either; its yardstick is time per simulated cycle."""
+    W, T, D = mc.warps, mc.threads, mc.ipdom_depth
+    words = (mc.dmem_words + mc.smem_words + W * T * 32 + 3 * mc.sets
+             + W * (8 + 3 * D) + mc.barriers * (1 + W) + W * D * T / 4)
+    return _bound(launches * 2 * 4 * words + 4 * imem_words,
+                  stats["issued_lanes"], FP32_FLOPS)
+
+
+def simt_phase(m) -> dict:
+    """The SIMT machine on the card: the kernel against the plain loop;
+    the Fig 9 grid through the Rodinia benches (the main path: the
+    kernel's launch count zeroed before it, read after), every cell's 16
+    counters and cycles equal to the committed baseline and its numpy
+    oracle passed; the paper's four claims on the port's own numbers;
+    the Fig 8 rows and Fig 10's best configuration per bench."""
+    torch, power, machine = m["torch"], m["power"], m["machine"]
+    vs_plain = simt_vs_plain(m)
+    baseline = json.loads(FIG9_BASELINE.read_text())
+    keys = machine.STAT_KEYS + ("cycles",)
+    stats, cells = {}, {}
+    m["simt_ops"].launches = 0
+    t0 = time.perf_counter()
+    for name, (kw, ml) in FIG9_BENCHES.items():
+        for w, t in FIG9_CONFIGS:
+            cell = f"{name}/{w}w{t}t"
+            ((res, ok), calls), dev = _profiled_cell(m, lambda: _recorded(
+                m, lambda: m["rodinia"].BENCHMARKS[name](
+                    _simt_config(m, w, t, ml), device="cuda", **kw)))
+            _check(ok, f"simt {cell} failed its numpy oracle")
+            want = {k: baseline[cell]["stats"][k] for k in keys}
+            got = {k: res.stats[k] for k in keys}
+            _check(got == want, f"simt {cell}: counters {got} != the "
+                   f"committed baseline's {want}")
+            stats[(name, w, t)] = res.stats
+            cells[cell] = {
+                "cycles": res.stats["cycles"], "launches": dev["kernel"][1],
+                "kernel_ms": dev["kernel"][0],
+                "ns_per_cycle": 1e6 * dev["kernel"][0] / res.stats["cycles"],
+                "h2d_ms": dev["HtoD"][0], "d2h_ms": dev["DtoH"][0],
+                "bound": _simt_bound(calls[0][0], res.stats, len(calls),
+                                     sum(len(c[1]) for c in calls))}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grid_launches = m["simt_ops"].launches
+    n_launch = sum(c["launches"] for c in cells.values())
+    want = len(cells) + len(FIG9_CONFIGS)       # gaussian launches twice
+    _check(grid_launches == n_launch == want,
+           f"simt grid: {grid_launches} wrapper launches, {n_launch} "
+           f"profiled kernels, want {want}")
+    total_cycles = sum(c["cycles"] for c in cells.values())
+    kernel_ms = sum(c["kernel_ms"] for c in cells.values())
+    print(f"[simt] Fig 9: {len(cells)}/42 cells match the baseline, "
+          f"{total_cycles} cycles in {kernel_ms:.2f} kernel ms "
+          f"({1e6 * kernel_ms / total_cycles:.1f} ns/cycle), "
+          f"{grid_launches} launches, {wall:.2f} s wall", flush=True)
+
+    # the paper's claims (tests/test_paper_claims.py's grid: its bfs runs
+    # are the Fig 9 bfs cells, saxpy re-walks its data 16 times)
+    grid = {}
+    for w, t in CLAIM_CONFIGS:
+        res, ok = m["rodinia"].saxpy(_simt_config(m, w, t, 16), n=256,
+                                     repeats=16, device="cuda")
+        _check(ok, f"claims: saxpy {w}w{t}t failed its oracle")
+        grid[("saxpy", w, t)] = res.stats["cycles"]
+        grid[("bfs", w, t)] = stats[("bfs", w, t)]["cycles"]
+    gain_threads = grid[("saxpy", 2, 2)] / grid[("saxpy", 2, 8)]
+    gain_warps = grid[("saxpy", 2, 2)] / grid[("saxpy", 8, 2)]
+    bfs_warp_gain = grid[("bfs", 2, 2)] / grid[("bfs", 8, 2)]
+    _check(gain_threads > 2.0 and gain_threads > 2 * gain_warps,
+           f"claim (i): thread gain {gain_threads}, warp gain {gain_warps}")
+    _check(bfs_warp_gain > gain_warps,
+           f"claim (ii): bfs warp gain {bfs_warp_gain} <= saxpy's "
+           f"{gain_warps}")
+
+    def best(bench, configs, cycles):
+        effs = {(w, t): power.power_efficiency(cycles[(bench, w, t)], w,
+                                               t).perf_per_watt
+                for w, t in configs}
+        return max(effs, key=effs.get)
+
+    sax_best = best("saxpy", CLAIM_CONFIGS, grid)
+    bfs_best = best("bfs", CLAIM_CONFIGS, grid)
+    _check(sax_best == (2, 8) and bfs_best[0] >= sax_best[0],
+           f"claim (iii): best perf/W saxpy {sax_best}, bfs {bfs_best}")
+    d2, d32 = (power.area(16, 2) - power.area(8, 2),
+               power.area(16, 32) - power.area(8, 32))
+    _check(power.area_normalized(2, 32) > power.area_normalized(32, 2) * 0.99
+           and d32 > 4 * d2
+           and power.power_normalized(8, 8) > power.power_normalized(4, 8)
+           > power.power_normalized(2, 2)
+           and abs(power.power_mw(8, 4) - power.PAPER_ANCHOR_MW) < 1e-6,
+           "claim (iv): area/power scaling")
+    fig8 = {f"{w}w{t}t": [power.area_normalized(w, t),
+                          power.power_normalized(w, t),
+                          power.cell_count_normalized(w, t),
+                          power.power_mw(w, t)] for w, t in FIG8_CONFIGS}
+    fig10 = {name: "{}w{}t".format(*best(name, FIG9_CONFIGS, {
+        k: v["cycles"] for k, v in stats.items()})) for name in FIG9_BENCHES}
+    print("[simt] Fig 8 (area, power, cells normalised to 1w1t; mW): "
+          + json.dumps(fig8), flush=True)
+    print(f"[simt] Fig 10 most power-efficient config: {fig10}", flush=True)
+    named = {c: cells[c] for c in NAMED_CELLS}
+    return {
+        "cells_matched": len(cells), "cells": 42,
+        "total_cycles": total_cycles, "launches": grid_launches,
+        "kernel_ms": kernel_ms,
+        "kernel_ms_per_launch": kernel_ms / grid_launches,
+        "ns_per_cycle": 1e6 * kernel_ms / total_cycles,
+        "h2d_ms_per_launch": sum(c["h2d_ms"] for c in cells.values())
+        / grid_launches,
+        "d2h_ms_per_launch": sum(c["d2h_ms"] for c in cells.values())
+        / grid_launches,
+        "grid_wall_s": wall, "named_cells": named,
+        "plain_ms_per_cycle": vs_plain["plain_ms_per_cycle"],
+        "plain": vs_plain,
+        "claims": {"i_thread_gain": gain_threads, "i_warp_gain": gain_warps,
+                   "ii_bfs_warp_gain": bfs_warp_gain,
+                   "iii_best_saxpy": "{}w{}t".format(*sax_best),
+                   "iii_best_bfs": "{}w{}t".format(*bfs_best),
+                   "iv_dwarp_t32_over_t2": d32 / d2},
+        "fig10_best": fig10,
+        "cell_ms": {c: [v["kernel_ms"], v["ns_per_cycle"]]
+                    for c, v in cells.items()}}
+
+
 def _card() -> str:
     try:
         res = subprocess.run(
@@ -1161,6 +1435,8 @@ def main() -> int:
     print(f"[build] {len(reports)} kernels in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
+    simt = simt_phase(m)
+    print(json.dumps({"simt": simt}), flush=True)
     errs = kernel_phase(m)
     print(f"[kernels] max abs error vs plain: {errs}", flush=True)
     reduced = reduced_model_phase(m)
@@ -1206,6 +1482,20 @@ def main() -> int:
                 r: sum(serve[p]["flash_launches_by_route"][r] for p in paths)
                 for r in routes.values()}
         _check(kernels[-1]["launches"] > 0, f"{name}: no launch on a path")
+    # the SIMT machine: its main path is the Fig 9 grid; timed at
+    # vecadd/8w8t (one launch), its plain loop on the same launch (host
+    # clock: the loop reads the card every cycle)
+    cell = simt["named_cells"]["vecadd/8w8t"]
+    kernels.append({
+        "name": "simt_machine", "route": "cuda",
+        "source": "src/repro_torch/csrc/simt_machine.cu",
+        "replaces": "src/repro/core/simt/machine.py:646",
+        "launches": simt["launches"], "max_abs_err": 0.0,
+        "shape": "vecadd/8w8t", "ms": cell["kernel_ms"],
+        "plain_ms": simt["plain"]["plain_ms"]["vecadd/8w8t#0"][0],
+        "bound_ms": cell["bound"]["bound_ms"],
+        "bound_by": cell["bound"]["bound_by"], "library_ms": None,
+        "ns_per_cycle": cell["ns_per_cycle"]})
     print(f"[done] {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_card(), flush=True)

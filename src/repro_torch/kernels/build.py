@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use by ``nvcc`` into ``build/repro_torch/`` at the root of the
 checkout (listed in ``.gitignore``), then loaded with ``ctypes``.  No
-PyTorch headers are included, so a build takes seconds.  The library
-file name carries a digest of the source and flags, so an edited source
-is rebuilt and a stale library is never loaded.
+PyTorch headers are included, so a build takes seconds.  A source may
+add flags of its own (`EXTRA_FLAGS`).  The library file name carries a
+digest of the source and its flags, so an edited source is rebuilt and
+a stale library is never loaded.
 
 ``build()`` starts one ``nvcc`` per source, all at once, and waits for
 them together.  Nothing here runs at import time.
@@ -23,10 +24,15 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS: Tuple[str, ...] = ("rmsnorm", "flash_attention", "moe_dispatch",
-                            "ssm_scan")
+                            "ssm_scan", "simt_machine")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The SIMT machine must reproduce the JAX machine's floats bit for bit:
+# no fast math and no contracted multiply-adds
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "simt_machine": ("-ftz=true", "-prec-div=true", "-prec-sqrt=true",
+                     "-fmad=false")}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[Tuple[str, str], object] = {}
@@ -44,9 +50,13 @@ def _nvcc() -> str:
     return found
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -63,7 +73,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
             reports[name] = ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -29,7 +29,9 @@ SCRIPT = textwrap.dedent("""
     assert not bad, bad
     for want in ("serving.engine", "serving.kv_pool", "faults.plan",
                  "faults.chaos", "obs.tracing", "obs.flight", "obs.export",
-                 "obs.perf", "obs.server", "launch.serve"):
+                 "obs.perf", "obs.server", "launch.serve",
+                 "core.simt.machine", "runtime.spawn",
+                 "runtime.kernels_src.rodinia", "obs.demo"):
         assert "repro_torch." + want in names, (want, names)
 """)
 
