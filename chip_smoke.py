@@ -19,10 +19,12 @@ of JAX and nothing of the ``repro`` package.  In order:
    cells, ``benchmarks/fig9_rodinia.py``'s settings) through the Rodinia
    benches, each cell passing its numpy oracle and matching the
    committed ``benchmarks/baselines/BENCH_fig9_rodinia.json`` in its 16
-   counters and cycles, each cell's kernel time under the profiler; the
-   paper's four claims (``tests/test_paper_claims.py``) on the port's
-   own numbers, the Fig 8 rows and Fig 10's best configuration per
-   bench; it prints a ``{"simt": ...}`` line;
+   counters and cycles, each cell's kernel time under the profiler and
+   its SM clocks per simulated cycle (``nvidia-smi``'s SM clock sampled
+   through the grid); the paper's four claims
+   (``tests/test_paper_claims.py``) on the port's own numbers, the Fig 8
+   rows and Fig 10's best configuration per bench; it prints a
+   ``{"simt": ...}`` line;
 3. holds each kernel against its plain PyTorch version on the card at
    the main paths' shapes (the MoE dispatch bit-exact in its buffer,
    slots and counts, also at a 4096-token prefill, with and without
@@ -1247,6 +1249,34 @@ def simt_vs_plain(m) -> dict:
     return out
 
 
+class _SmClock:
+    """``nvidia-smi``'s SM clock (MHz) sampled every 100 ms while the
+    block runs: ``mhz`` is the median (None if nothing was read)."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "100", "-i", "0"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        vals = [float(v) for v in out.split() if v.strip().isdigit()]
+        self.mhz = statistics.median(vals) if vals else None
+        return False
+
+
+def _clocks(ns: float, mhz) -> float | None:
+    """SM clocks in `ns` nanoseconds at `mhz` (None if not read)."""
+    return ns * mhz / 1e3 if mhz else None
+
+
 def _profiled_cell(m, fn):
     """fn() under the profiler: (result, kernel ms, kernel launches, H2D
     ms, D2H ms), device times from ``torch.profiler``."""
@@ -1296,27 +1326,32 @@ def simt_phase(m) -> dict:
     stats, cells = {}, {}
     m["simt_ops"].launches = 0
     t0 = time.perf_counter()
-    for name, (kw, ml) in FIG9_BENCHES.items():
-        for w, t in FIG9_CONFIGS:
-            cell = f"{name}/{w}w{t}t"
-            ((res, ok), calls), dev = _profiled_cell(m, lambda: _recorded(
-                m, lambda: m["rodinia"].BENCHMARKS[name](
-                    _simt_config(m, w, t, ml), device="cuda", **kw)))
-            _check(ok, f"simt {cell} failed its numpy oracle")
-            want = {k: baseline[cell]["stats"][k] for k in keys}
-            got = {k: res.stats[k] for k in keys}
-            _check(got == want, f"simt {cell}: counters {got} != the "
-                   f"committed baseline's {want}")
-            stats[(name, w, t)] = res.stats
-            cells[cell] = {
-                "cycles": res.stats["cycles"], "launches": dev["kernel"][1],
-                "kernel_ms": dev["kernel"][0],
-                "ns_per_cycle": 1e6 * dev["kernel"][0] / res.stats["cycles"],
-                "h2d_ms": dev["HtoD"][0], "d2h_ms": dev["DtoH"][0],
-                "bound": _simt_bound(calls[0][0], res.stats, len(calls),
-                                     sum(len(c[1]) for c in calls))}
-    torch.cuda.synchronize()
+    with _SmClock() as clock:
+        for name, (kw, ml) in FIG9_BENCHES.items():
+            for w, t in FIG9_CONFIGS:
+                cell = f"{name}/{w}w{t}t"
+                ((res, ok), calls), dev = _profiled_cell(m, lambda: _recorded(
+                    m, lambda: m["rodinia"].BENCHMARKS[name](
+                        _simt_config(m, w, t, ml), device="cuda", **kw)))
+                _check(ok, f"simt {cell} failed its numpy oracle")
+                want = {k: baseline[cell]["stats"][k] for k in keys}
+                got = {k: res.stats[k] for k in keys}
+                _check(got == want, f"simt {cell}: counters {got} != the "
+                       f"committed baseline's {want}")
+                stats[(name, w, t)] = res.stats
+                cycles = res.stats["cycles"]
+                cells[cell] = {
+                    "cycles": cycles, "launches": dev["kernel"][1],
+                    "kernel_ms": dev["kernel"][0],
+                    "ns_per_cycle": 1e6 * dev["kernel"][0] / cycles,
+                    "h2d_ms": dev["HtoD"][0], "d2h_ms": dev["DtoH"][0],
+                    "bound": _simt_bound(calls[0][0], res.stats, len(calls),
+                                         sum(len(c[1]) for c in calls))}
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    mhz = clock.mhz
+    for c in cells.values():
+        c["sm_clocks_per_cycle"] = _clocks(c["ns_per_cycle"], mhz)
     grid_launches = m["simt_ops"].launches
     n_launch = sum(c["launches"] for c in cells.values())
     want = len(cells) + len(FIG9_CONFIGS)       # gaussian launches twice
@@ -1325,10 +1360,17 @@ def simt_phase(m) -> dict:
            f"profiled kernels, want {want}")
     total_cycles = sum(c["cycles"] for c in cells.values())
     kernel_ms = sum(c["kernel_ms"] for c in cells.values())
+    ns_cycle = 1e6 * kernel_ms / total_cycles
     print(f"[simt] Fig 9: {len(cells)}/42 cells match the baseline, "
           f"{total_cycles} cycles in {kernel_ms:.2f} kernel ms "
-          f"({1e6 * kernel_ms / total_cycles:.1f} ns/cycle), "
-          f"{grid_launches} launches, {wall:.2f} s wall", flush=True)
+          f"({ns_cycle:.1f} ns/cycle, {_clocks(ns_cycle, mhz)} SM clocks "
+          f"a cycle at {mhz} MHz), {grid_launches} launches, "
+          f"{wall:.2f} s wall", flush=True)
+    for c in NAMED_CELLS:
+        print(f"[simt] {c}: {cells[c]['kernel_ms']:.4f} kernel ms, "
+              f"{cells[c]['ns_per_cycle']:.1f} ns and "
+              f"{cells[c]['sm_clocks_per_cycle']} SM clocks a cycle",
+              flush=True)
 
     # the paper's claims (tests/test_paper_claims.py's grid: its bfs runs
     # are the Fig 9 bfs cells, saxpy re-walks its data 16 times)
@@ -1381,7 +1423,8 @@ def simt_phase(m) -> dict:
         "total_cycles": total_cycles, "launches": grid_launches,
         "kernel_ms": kernel_ms,
         "kernel_ms_per_launch": kernel_ms / grid_launches,
-        "ns_per_cycle": 1e6 * kernel_ms / total_cycles,
+        "ns_per_cycle": ns_cycle, "sm_mhz": mhz,
+        "sm_clocks_per_cycle": _clocks(ns_cycle, mhz),
         "h2d_ms_per_launch": sum(c["h2d_ms"] for c in cells.values())
         / grid_launches,
         "d2h_ms_per_launch": sum(c["d2h_ms"] for c in cells.values())
@@ -1395,7 +1438,8 @@ def simt_phase(m) -> dict:
                    "iii_best_bfs": "{}w{}t".format(*bfs_best),
                    "iv_dwarp_t32_over_t2": d32 / d2},
         "fig10_best": fig10,
-        "cell_ms": {c: [v["kernel_ms"], v["ns_per_cycle"]]
+        "cell_ms": {c: [v["kernel_ms"], v["ns_per_cycle"],
+                        v["sm_clocks_per_cycle"]]
                     for c, v in cells.items()}}
 
 
@@ -1495,7 +1539,10 @@ def main() -> int:
         "plain_ms": simt["plain"]["plain_ms"]["vecadd/8w8t#0"][0],
         "bound_ms": cell["bound"]["bound_ms"],
         "bound_by": cell["bound"]["bound_by"], "library_ms": None,
-        "ns_per_cycle": cell["ns_per_cycle"]})
+        "ns_per_cycle": cell["ns_per_cycle"],
+        "sm_clocks_per_cycle": cell["sm_clocks_per_cycle"],
+        "grid_ns_per_cycle": simt["ns_per_cycle"],
+        "grid_sm_clocks_per_cycle": simt["sm_clocks_per_cycle"]})
     print(f"[done] {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_card(), flush=True)

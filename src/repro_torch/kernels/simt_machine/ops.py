@@ -8,8 +8,10 @@ version is ``repro_torch.core.simt.machine.run_plain``; the machine's
 ``launches`` counts kernel launches.
 
 The kernel holds a Vortex warp's lanes in one CUDA warp, so it takes at
-most ``MAX_THREADS`` threads per warp; its state, all but dmem, lives in
-shared memory and must fit there.
+most ``MAX_THREADS`` threads per warp, and its scheduler's masks one
+32-bit word per lane, so at most ``MAX_WARPS`` warps.  Its state, all
+but dmem, and the program, decoded into 16 bytes a word, live in shared
+memory and must fit there.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.kernels import build
 
 SOURCE = "src/repro_torch/csrc/simt_machine.cu"
 MAX_THREADS = 32        # one CUDA warp holds the T lanes
+MAX_WARPS = 32 * 32     # a mask word of 32 warps in each of 32 lanes
 _INTS = ("W", "T", "D", "NB", "MW", "SW", "sets", "tag_shift", "banks",
          "miss_latency", "miss_pipeline", "max_cycles", "imem_len")
 _PTRS = ("imem", "pc", "active", "stalled_until", "at_barrier", "visible",
@@ -30,7 +33,7 @@ _PTRS = ("imem", "pc", "active", "stalled_until", "at_barrier", "visible",
          "bar_count", "bar_release", "dmem", "smem", "tags", "tvalid", "lru",
          "counters")
 _U32 = ("pc", "ipdom_pc")      # int64 tensors of u32 values in the State
-_TOO_BIG = -1                   # simt_run: the state exceeds shared memory
+_TOO_BIG = -1       # simt_run: the state and program exceed shared memory
 
 launches = 0
 
@@ -46,6 +49,10 @@ def _check(mc: MachineConfig, imem: torch.Tensor, st: State) -> None:
     if mc.threads > MAX_THREADS:
         raise ValueError(f"the SIMT kernel holds a warp's lanes in one CUDA "
                          f"warp: threads <= {MAX_THREADS}, got {mc.threads}")
+    if mc.warps > MAX_WARPS:
+        raise ValueError(f"the SIMT kernel keeps a warp mask in one CUDA "
+                         f"warp's registers: warps <= {MAX_WARPS}, got "
+                         f"{mc.warps}")
     if not 0 < mc.max_cycles < 2**31:
         raise ValueError(f"max_cycles {mc.max_cycles} must fit the int32 "
                          f"cycle counter")
@@ -104,7 +111,8 @@ def simt_machine(mc: MachineConfig, imem: torch.Tensor, st: State) -> State:
     if err == _TOO_BIG:
         need = build.function("simt_machine", "simt_smem_bytes",
                               [ctypes.POINTER(_Params)])
-        raise ValueError(f"the SIMT kernel keeps the state in shared memory: "
+        raise ValueError(f"the SIMT kernel keeps the state and the decoded "
+                         f"program ({imem.numel()} words) in shared memory: "
                          f"{need(ctypes.byref(p))} bytes for {mc} exceed "
                          f"what a block of this card can have")
     build.check(err, "simt_run")

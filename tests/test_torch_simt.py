@@ -6,14 +6,17 @@ plain PyTorch loop (``repro_torch.core.simt.machine.run_plain``, which
 ``run`` takes for CPU tensors); every ``State`` field and every counter
 must be equal, exactly.  Programs: those of ``test_simt_machine.py``,
 the ALUs on edge values, aliasing and sub-word stores, IPDOM stacks past
-their depth, every Rodinia bench at ``test_rodinia.py``'s sizes on two
-configurations, and the spawn functions with the launch log.
+their depth, idle runs cut by max_cycles, a barrier deadlock, wrapped
+addresses and pc, every Rodinia bench at ``test_rodinia.py``'s sizes on
+two configurations, and the spawn functions with the launch log.  The
+plain loop also shows the premise of the kernel's idle skip.
 
 On a card (``gpu`` marker, skipped without one; no JAX needed):
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_simt.py``
 holds the CUDA kernel (``machine.run`` on CUDA tensors) to the plain
 loop on CUDA tensors, exactly.
 """
+import dataclasses
 import json
 import struct
 import types
@@ -250,12 +253,105 @@ _spin:
 """,
     "alias_stores": edge_cases.ALIAS_STORES,
 })
+# runs of idle cycles, address and pc wraps: the kernel's fast paths
+SKIPS = {
+    # one warp misses twice at latency 200; max_cycles falls inside the
+    # second stall's idle run
+    "idle_cut": """
+    li t0, 0x200
+    lw t1, 0(t0)
+    lw t2, 64(t0)
+    lw t3, 128(t0)
+    sw t3, 256(t0)
+    halt
+""",
+    # every warp misses, then waits at a barrier that needs one warp more
+    # than there are: idle to max_cycles
+    "barrier_deadlock": """
+    nw a0
+    la a1, _wmain
+    wspawn a0, a1
+    j _wmain
+_wmain:
+    wid t1
+    slli t1, t1, 6
+    li t0, 0x200
+    add t0, t0, t1
+    lw t2, 0(t0)
+    li a0, 1
+    nw a1
+    addi a1, a1, 1
+    bar a0, a1
+    halt
+""",
+    # with 1000 dmem and 300 smem words: lane t's words 1000 t + 5 all
+    # wrap to word 5 (the highest lane wins), a byte store into word 0,
+    # word 1024 -> 24; smem words 300 + t -> t, a halfword store into them
+    "wrap_addresses": """
+    nt t0
+    tmc t0
+    tid t1
+    li t2, 4000
+    mul t3, t1, t2
+    addi t4, t1, 7
+    sw t4, 20(t3)
+    sb t1, 1(t3)
+    li t5, 0x1000
+    sw t1, 0(t5)
+    lw t6, 0x60(zero)
+    li a0, 0x10000000
+    slli a1, t1, 2
+    add a1, a0, a1
+    addi a2, t1, 50
+    sw a2, 1200(a1)
+    lw a3, 0(a1)
+    sh a3, 1202(a1)
+    lw a4, 0(a1)
+    slli a5, t1, 2
+    sw t6, 0x200(a5)
+    sw a3, 0x240(a5)
+    sw a4, 0x280(a5)
+    halt
+""",
+}
+
+
+def _pc_wrap() -> str:
+    """Three passes through one program: the jump back goes to word
+    256 n of an n-word program, which wraps to word 0 both as it is and
+    padded to PAD words."""
+    src = """
+    addi t1, t1, 1
+    li t0, 0x200
+    slli t4, t1, 2
+    add t4, t4, t0
+    sw t1, 0(t4)
+    li t3, 3
+    bge t1, t3, _done
+    li t2, {}
+    jalr zero, t2, 0
+_done:
+    halt
+"""
+    n = len(assemble(src.format(0x10000)))
+    assert PAD == 256 and len(assemble(src.format(4 * PAD * n))) == n
+    return src.format(4 * PAD * n)
+
+
+SKIPS["pc_wrap"] = _pc_wrap()
 EDGE_SRC, EDGE_IMAGE, _ = edge_cases.alu_edges()
 # (name, program, dmem image, config overrides)
 PROGRAMS = [(name, src, None, {}) for name, src in UNIT.items()] + [
     ("alu_edges", EDGE_SRC, EDGE_IMAGE, dict(miss_latency=1)),
     ("ipdom_overflow", edge_cases.IPDOM_OVERFLOW, None,
-     dict(ipdom_depth=2, max_cycles=3000))]
+     dict(ipdom_depth=2, max_cycles=3000)),
+    ("idle_cut", SKIPS["idle_cut"], None,
+     dict(miss_latency=200, max_cycles=330)),
+    ("barrier_deadlock", SKIPS["barrier_deadlock"], None,
+     dict(max_cycles=400)),
+    ("wrap_addresses", SKIPS["wrap_addresses"], None,
+     dict(dmem_words=1000, smem_words=300)),
+    ("pc_wrap", SKIPS["pc_wrap"], None, {})]
 
 
 @pytest.mark.parametrize("name,src,image,over", PROGRAMS,
@@ -289,6 +385,96 @@ def test_unit_program_results():
     got, st = words("barrier", 4)
     assert got == [55] * 4 and machine.stats_dict(st)["barrier_waits"] == 3
     assert words("div_by_zero", 2)[0] == [-1, 17]
+
+
+def test_skip_program_results():
+    """The idle, deadlock and wrap programs do what they say."""
+    def run(name, **over):
+        mc = MachineConfig(**{**MC, **over})
+        st = machine.run(mc, assemble(SKIPS[name]), device=CPU)
+        return st, machine.stats_dict(st)
+
+    st, d = run("idle_cut", miss_latency=200, max_cycles=330)
+    assert d["cycles"] == 330 and d["idle_cycles"] == 327
+    assert int(st.stalled_until[0]) > 330 and bool(st.active[0])
+    st, d = run("barrier_deadlock", max_cycles=400)
+    assert d["cycles"] == 400 and bool(st.at_barrier.all())
+    assert d["barrier_waits"] == MC["warps"]
+    st, _ = run("wrap_addresses", dmem_words=1000, smem_words=300)
+    w = lambda a, n=1: machine.read_words(st, a, n).tolist()  # noqa: E731
+    assert w(0, 6) == [3 << 8, 0, 0, 0, 0, 3 + 7] and w(0x60) == [3]
+    assert w(0x200, 4) == [3] * 4
+    assert w(0x280, 4) == [(t + 50) * 0x10001 for t in range(4)]
+    assert st.smem[:4].tolist() == w(0x280, 4)
+    st, _ = run("pc_wrap")
+    assert w(0x204, 3) == [1, 2, 3]
+
+
+def test_idle_runs_skip_exactly(monkeypatch):
+    """The premise of the kernel's idle skip, on the plain loop (exact
+    against the JAX machine): from an idle cycle c, the state at the
+    next wake c + k, the least stalled_until of an active warp not at a
+    barrier (max_cycles if there is none), differs from the state at c
+    only by k in `cycle` and idle_cycles, by k times the active warps in
+    occupancy_cycles, and in an all-false `visible`; the cycle at the
+    wake issues.  A small bfs at 2w2t with misses of 200 cycles; each
+    idle run is also continued with ``run_plain(..., state=...)``."""
+    launch = []
+
+    def capture(mc, program, dmem_image=None, **kw):
+        launch.append((program, dmem_image))
+        raise StopIteration
+
+    monkeypatch.setattr(machine, "run", capture)
+    mc = MachineConfig(warps=2, threads=2, miss_latency=200,
+                       max_cycles=3_000_000)
+    with pytest.raises(StopIteration):
+        rodinia.bfs(mc, device=CPU, n_nodes=16, avg_deg=2)
+    monkeypatch.undo()
+    prog, image = launch[0]
+
+    def snapshot(st):
+        return st._replace(**{f: getattr(st, f).clone() for f in FIELDS},
+                           stats={k: v.clone() for k, v in st.stats.items()})
+
+    def wake_of(st):
+        mask = st.active & ~st.at_barrier
+        assert not (mask & (st.stalled_until <= st.cycle)).any()
+        return min([mc.max_cycles]
+                   + st.stalled_until[mask].tolist())
+
+    def check(run, at):
+        c_w = int(at.cycle)
+        assert c_w == wake_of(run[0])
+        cont = machine.run_plain(dataclasses.replace(mc, max_cycles=c_w),
+                                 prog, state=run[0])
+        assert_same_state(at, cont, machine.stats_dict(at))
+        got = machine.stats_dict(at)
+        for st in run:
+            k, n = c_w - int(st.cycle), int(st.active.sum())
+            want = machine.stats_dict(st)
+            want.update(cycles=c_w, idle_cycles=want["idle_cycles"] + k,
+                        occupancy_cycles=want["occupancy_cycles"] + k * n)
+            assert got == want
+            for f in FIELDS:
+                if f not in ("cycle", "visible"):
+                    assert torch.equal(getattr(st, f), getattr(at, f)), f
+            assert not at.visible.any()
+
+    m = machine._Plain(mc, prog, machine.init_state(mc, image, device=CPU))
+    run, runs, n_active = [], 0, 1
+    while n_active > 0 and m.cycle < mc.max_cycles:
+        before = snapshot(m.state())
+        idle = m.stats["idle_cycles"]
+        n_active = m.step()
+        if m.stats["idle_cycles"] > idle:
+            run.append(before)
+            continue
+        if run:
+            check(run, before)
+            runs += 1
+            run = []
+    assert not run and n_active == 0 and runs > 10
 
 
 def test_alias_store_results():
@@ -533,8 +719,8 @@ def test_demo_runs_on_cpu(tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("wt", [(4, 4), (2, 8), (8, 32), (40, 4)],
-                         ids=["4w4t", "2w8t", "8w32t", "40w4t"])
+@pytest.mark.parametrize("wt", [(4, 4), (2, 8), (8, 32), (40, 4), (33, 4)],
+                         ids=["4w4t", "2w8t", "8w32t", "40w4t", "33w4t"])
 @pytest.mark.parametrize("name,src,image,over", PROGRAMS,
                          ids=[p[0] for p in PROGRAMS])
 def test_kernel_matches_plain(cuda, name, src, image, over, wt):
@@ -572,13 +758,24 @@ def test_kernel_matches_plain_rodinia(cuda, monkeypatch, name):
 
 
 @pytest.mark.gpu
-def test_kernel_continues_a_state(cuda):
+@pytest.mark.parametrize("name,src,over,cut", [
+    ("barrier", UNIT["barrier"], {}, 40),
+    # mid-stall: a warp stalled, `visible` holding some active warps
+    ("barrier_mid_stall", UNIT["barrier"], {}, 160),
+    ("idle_cut", SKIPS["idle_cut"], dict(miss_latency=200), 100)],
+    ids=["barrier", "barrier_mid_stall", "idle_cut"])
+def test_kernel_continues_a_state(cuda, name, src, over, cut):
     """A launch from a mid-run state (max_cycles cut) continues exactly
     as the plain loop does."""
-    mc = MachineConfig(warps=4, threads=4, max_cycles=40)
-    prog = assemble(UNIT["barrier"])
+    mc = MachineConfig(**{**MC, **over, "max_cycles": cut})
+    prog = assemble(src)
     half = machine.run(mc, prog, device=cuda)
-    full = MachineConfig(warps=4, threads=4, max_cycles=100_000)
+    if name != "barrier":
+        assert (half.active & (half.stalled_until > cut)).any()
+    if name == "barrier_mid_stall":
+        vis = half.visible[half.active]
+        assert vis.any() and not vis.all()
+    full = MachineConfig(**{**MC, **over})
     got = machine.run(full, prog, state=half)
     want = machine.run_plain(full, prog, state=half)
     assert_same_state(want, got, machine.stats_dict(want))
