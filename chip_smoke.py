@@ -7,10 +7,11 @@ Needs one CUDA card and a checkout of the repository around this file;
 without either it exits non-zero and prints no result.  Imports nothing
 of JAX and nothing of the ``repro`` package.  In order:
 
-1. builds the five CUDA sources (RMSNorm with its fused residual-add
-   form, flash-attention forward, the MoE dispatch, SSD intra-chunk, the
-   SIMT machine's cycle loop) from ``src/repro_torch/csrc/``, one
-   ``nvcc`` per source, in parallel;
+1. builds the six CUDA sources (RMSNorm with its fused residual-add
+   form and its backward, the flash-attention forward, its FA-2
+   backward, the MoE dispatch, SSD intra-chunk, the SIMT machine's cycle
+   loop) from ``src/repro_torch/csrc/``, one ``nvcc`` per source, in
+   parallel;
 2. drives the Vortex SIMT machine: the kernel (one launch per machine
    run) against the plain PyTorch loop on the card, every State field
    and counter bit-equal (vecadd and nn at 8w8t, gaussian at 4w16t at
@@ -75,16 +76,33 @@ of JAX and nothing of the ``repro`` package.  In order:
    (``call_ms``, host included); flash also at the long prefills; SSD
    also at 16 chunks of 256.
 
+7. trains ``h2o-danube-1.8b`` (the train phase, after the serve
+   models are freed): the two backward kernels (FA-2 flash, RMSNorm in
+   both forms) against their plain versions at danube's full-width
+   shapes (D 80, 32 / 8 heads, S 8192 under the 4096 window) and short
+   ragged ones, in bf16 and fp32, each run twice for identical bits;
+   reduced danube (window 16, S 64) one fp32 step on the card against
+   the CPU (loss, grad norm, every grad leaf, the updated params), 30
+   bf16 steps on one batch (loss below 0.7x its first value), and the
+   chaos resume under ``faults.training_plan(2)`` against a fault-free
+   run, bit for bit; then full-width danube through
+   ``launch.train.main`` (seq 8192, batch 2, microbatch 1, remat full,
+   3 steps: finite loss and grad norm, step ms, tokens/s, peak GB),
+   one step under the profiler, and each backward kernel timed against
+   its plain version and a library yardstick.
+
 It prints a ``{"simt": ...}`` line, a ``{"serve": ...}`` line, a
-``{"timings": ...}`` line, one ``{"kernels": [...]}`` line, the card's
-name and power limit, and ends with ``{"ok": true, "device": {...}}``.
-Any failed check raises.
+``{"timings": ...}`` line, a ``{"train": ...}`` line, one
+``{"kernels": [...]}`` line, the card's name and power limit, and ends
+with ``{"ok": true, "device": {...}}``.  Any failed check raises.
 """
 from __future__ import annotations
 
 import gc
 import json
+import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -99,10 +117,12 @@ TF32X3_FLOPS = 495e12 / 3          # fp32 products as 3 TF32 tensor-core passes
 PHI3, DEEPSEEK, ZAMBA = "phi3-mini-3.8b", "deepseek-moe-16b", "zamba2-7b"
 KERNELS = ("rmsnorm", "add_rmsnorm", "flash_attention", "moe_dispatch",
            "ssd_intra")
+BWD_KERNELS = ("flash_attention_bwd", "rmsnorm_bwd", "add_rmsnorm_bwd")
 OUR_KERNELS = {  # kernel: its CUDA functions' names, as the profiler shows
     "rmsnorm": r"(?<!add_)rmsnorm_kernel", "add_rmsnorm": r"add_rmsnorm_kernel",
     "flash_attention": r"flash_fwd_", "moe_dispatch": r"moe_dispatch_kernel",
-    "ssd_intra": r"ssd_intra_kernel"}
+    "ssd_intra": r"ssd_intra_kernel", "flash_attention_bwd": r"flash_bwd_",
+    "rmsnorm_bwd (both forms)": r"rmsnorm_(bwd|dscale)_kernel"}
 NORM_WIDTHS = (2048, 3072, 3584, 7168)  # deepseek, phi3, zamba2, its inner norm
 SEED = 0
 
@@ -120,11 +140,18 @@ def _imports():
     from repro_torch.core.simt import machine, power
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import Loader, SyntheticLM
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         flash_bwd_ref,
+                                                         flash_fwd_ref)
     from repro_torch.kernels.moe_dispatch import ops as dispatch_ops
     from repro_torch.kernels.moe_dispatch.ref import moe_dispatch_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_bwd_ref,
+                                                 rmsnorm_bwd_ref, rmsnorm_ref)
+    from repro_torch.launch import train as train_cli
     from repro_torch.kernels.simt_machine import ops as simt_ops
     from repro_torch.kernels.ssm_scan import ops as ssd_ops
     from repro_torch.kernels.ssm_scan.ref import ssd_intra_ref
@@ -135,7 +162,17 @@ def _imports():
     from repro_torch.runtime.kernels_src import edge_cases, rodinia
     from repro_torch.serving import kv_pool
     from repro_torch.serving.engine import Engine
+    from repro_torch.training import loop as train_loop
+    from repro_torch.training.resilient import train_with_recovery
     return dict(np=np, torch=torch, F=F, bridge=bridge, obs=obs,
+                CheckpointManager=CheckpointManager, ShapeConfig=ShapeConfig,
+                TrainConfig=TrainConfig, Loader=Loader,
+                SyntheticLM=SyntheticLM, flash_bwd_ref=flash_bwd_ref,
+                flash_fwd_ref=flash_fwd_ref,
+                add_rmsnorm_bwd_ref=add_rmsnorm_bwd_ref,
+                rmsnorm_bwd_ref=rmsnorm_bwd_ref, train_cli=train_cli,
+                train_loop=train_loop,
+                train_with_recovery=train_with_recovery,
                 faults=faults, kv_pool=kv_pool,
                 get_config=get_config, reduced_config=reduced_config,
                 build=build, fa_ops=fa_ops, attention_ref=attention_ref,
@@ -155,18 +192,24 @@ def _check(ok: bool, what: str) -> None:
 def _zero_counts(m) -> None:
     for mod in ("rms_ops", "fa_ops", "dispatch_ops", "ssd_ops"):
         m[mod].launches = 0
-    for by in (m["rms_ops"].launches_by_form, m["fa_ops"].launches_by_route):
+    m["rms_ops"].bwd_launches = m["fa_ops"].bwd_launches = 0
+    for by in (m["rms_ops"].launches_by_form, m["fa_ops"].launches_by_route,
+               m["rms_ops"].bwd_launches_by_form):
         for key in by:
             by[key] = 0
 
 
 def _counts(m) -> dict:
-    """Launches of each kernel of KERNELS (the RMSNorm wrapper counts
-    its plain and fused forms apart)."""
+    """Launches of each kernel of KERNELS and BWD_KERNELS (the RMSNorm
+    wrapper counts its plain and fused forms apart)."""
+    bwd = m["rms_ops"].bwd_launches_by_form
     return {**m["rms_ops"].launches_by_form,
             "flash_attention": m["fa_ops"].launches,
             "moe_dispatch": m["dispatch_ops"].launches,
-            "ssd_intra": m["ssd_ops"].launches}
+            "ssd_intra": m["ssd_ops"].launches,
+            "flash_attention_bwd": m["fa_ops"].bwd_launches,
+            "rmsnorm_bwd": bwd["rmsnorm"],
+            "add_rmsnorm_bwd": bwd["add_rmsnorm"]}
 
 
 def _time_ms(torch, fn, reps: int = 25, inner: int = 10) -> float:
@@ -1149,6 +1192,451 @@ def timing_phase(m) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# training: h2o-danube-1.8b, the backward kernels
+# ---------------------------------------------------------------------------
+
+DANUBE = "h2o-danube-1.8b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 8192, 2, 1, 3
+# Adam's first steps move every weight by about lr: at the CLI's default
+# 3e-4 with one warm-up step, the random full-width weights overshoot
+# and the loss rose over 3 steps (11.31, 12.79, 15.95 on an H100); the
+# run takes a tenth of that
+TRAIN_LR = 3e-5
+# danube's attention and norm at full width: [1, 8192, 32, 80] queries
+# against 8 kv heads under its 4096 window; [8192, 2560] norm rows
+FLASH_BWD_SHAPE = (1, TRAIN_SEQ, 32, 8, 80, 4096)
+NORM_BWD_SHAPE = (TRAIN_SEQ, 2560)
+# normalized error max |got - want| / max |want|: bf16 outputs of both
+# versions are fp32 sums rounded once (one bf16 ulp is 2^-8 of an
+# element); fp32 differs only in the order of the sums
+BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# the forward kernels at the train shapes, as kernel_phase holds them
+# (|got - want| <= tol + tol |want|): flash, then the two norm forms
+FWD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 1e-5)}
+
+
+def _rel_err(torch, got, want, tol: float, what: str) -> tuple:
+    """(max abs error, normalized error); fails above `tol` normalized
+    or on a non-finite output."""
+    g, w = got.float(), want.float()
+    _check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    err = float((g - w).abs().max())
+    rel = err / max(float(w.abs().max()), 1e-30)
+    _check(rel <= tol, f"{what}: normalized error {rel} above {tol}")
+    return err, rel
+
+
+def _pairs(S: int, window) -> int:
+    """(query, key) pairs on the causal / window mask."""
+    w = window or S
+    return sum(min(i + 1, w) for i in range(S))
+
+
+def flash_bwd_inputs(torch, g, B, S, H, KV, D, dt):
+    q, k, v, do = (torch.randn(B, S, h, D, generator=g, device="cuda")
+                   .to(dt) for h in (H, KV, KV, H))
+    return q, k, v, do
+
+
+def train_kernel_phase(m) -> dict:
+    """Each backward kernel against its plain version on the same
+    inputs, in bf16 and fp32: flash at danube's full width (S 8192,
+    window 4096, so the window binds) and at a short ragged S with and
+    without a window; the norms at danube's [8192, 2560] rows and a
+    short block, both forms.  Two runs of each must give the same bits.
+    The forward kernels are held against their plain versions at the
+    same shapes (FWD_TOL; the fused norm's sum bit-exact): the forward's
+    output must be the same bits with and without the LSE, and the LSE
+    within 1e-4 of the plain one.  Their worst errors are returned under
+    ``forward``."""
+    torch, fa, rms = m["torch"], m["fa_ops"], m["rms_ops"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    out = {name: {"max_abs_err": 0.0, "normalized_err": {}}
+           for name in BWD_KERNELS}
+    fwd = out["forward"] = {"flash_attention": 0.0, "rmsnorm": 0.0,
+                            "add_rmsnorm": 0.0}
+    B, S, H, KV, D, W = FLASH_BWD_SHAPE
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).replace("torch.", "")
+        tol = BWD_TOL[name]
+        flash_tol, norm_tol = FWD_TOL[name]
+        for s_len, w in ((S, W), (200, 64), (130, None)):
+            q, k, v, do = flash_bwd_inputs(torch, g, B, s_len, H, KV, D, dt)
+            o, lse = fa.flash_attention_cuda(q, k, v, window=w,
+                                             with_lse=True)
+            _check(torch.equal(o, fa.flash_attention_cuda(q, k, v,
+                                                          window=w)),
+                   f"flash {name} S={s_len}: out changes with the LSE")
+            o_ref, lse_ref = m["flash_fwd_ref"](q, k, v, window=w)
+            what = f"flash {name} S={s_len} H={H} KV={KV} D={D} window={w}"
+            fwd["flash_attention"] = max(fwd["flash_attention"], _max_err(
+                torch, o, o_ref, flash_tol, what))
+            _max_err(torch, lse, lse_ref, 1e-4, f"{what} lse")
+            del o_ref
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=w)
+            again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                window=w)
+            torch.cuda.synchronize()
+            _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                   f"flash_bwd {name} S={s_len}: two runs differ")
+            want = m["flash_bwd_ref"](q, k, v, o, lse, do, window=w)
+            for grad, a, b in zip(("dq", "dk", "dv"), got, want):
+                what = f"flash_bwd {name} S={s_len} window={w} {grad}"
+                err, rel = _rel_err(torch, a, b, tol, what)
+                rec = out["flash_attention_bwd"]
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                rec["normalized_err"][what] = rel
+            del q, k, v, do, o, lse, lse_ref, got, again, want
+        for rows, d in (NORM_BWD_SHAPE, (33, 2560)):
+            x, dy, ds = (torch.randn(rows, d, generator=g, device="cuda")
+                         .to(dt) for _ in range(3))
+            sc = torch.randn(d, generator=g, device="cuda").to(dt)
+            what = f"{name} [{rows},{d}]"
+            y = rms.rmsnorm_cuda(x, sc)
+            s2, y2 = rms.add_rmsnorm_cuda(x, ds, sc)
+            torch.cuda.synchronize()
+            fwd["rmsnorm"] = max(fwd["rmsnorm"], _max_err(
+                torch, y, m["rmsnorm_ref"](x, sc), norm_tol,
+                f"rmsnorm {what}"))
+            _check(torch.equal(s2, x + ds),
+                   f"add_rmsnorm {what}: sum not bit-exact")
+            fwd["add_rmsnorm"] = max(fwd["add_rmsnorm"], _max_err(
+                torch, y2, m["rmsnorm_ref"](x + ds, sc), norm_tol,
+                f"add_rmsnorm {what}"))
+            del y, s2, y2
+            for kname, fused in (("rmsnorm_bwd", False),
+                                 ("add_rmsnorm_bwd", True)):
+                got = rms.rmsnorm_bwd_cuda(x, ds if fused else None, dy, sc)
+                again = rms.rmsnorm_bwd_cuda(x, ds if fused else None, dy,
+                                             sc)
+                torch.cuda.synchronize()
+                _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                       f"{kname} {name} [{rows},{d}]: two runs differ")
+                want = (m["add_rmsnorm_bwd_ref"](x, ds, dy, sc) if fused
+                        else m["rmsnorm_bwd_ref"](x, sc, dy))
+                for grad, a, b in zip(("dx", "dscale"), got, want):
+                    what = f"{kname} {name} [{rows},{d}] {grad}"
+                    err, rel = _rel_err(torch, a, b, tol, what)
+                    out[kname]["max_abs_err"] = max(
+                        out[kname]["max_abs_err"], err)
+                    out[kname]["normalized_err"][what] = rel
+    return out
+
+
+def _train_setup(m, cfg, tc, device, params=None, seq=64, batch=2):
+    state = m["train_loop"].init_train_state(cfg, tc, device=device,
+                                             params=params)
+    shape = m["ShapeConfig"]("t", seq_len=seq, global_batch=batch,
+                             kind="train")
+    loader = m["Loader"](m["SyntheticLM"](cfg, shape, seed=tc.seed),
+                         device=device, model_dtype=state.params.embed.dtype)
+    return state, m["train_loop"].make_train_step(cfg, tc), loader
+
+
+def train_reduced_phase(m) -> dict:
+    """Reduced danube (window 16, S 64 > window) on the card: one fp32
+    step against the same step on the CPU (kernels vs plain versions:
+    loss, grad norm, every grad leaf, the updated params); 30 bf16 steps
+    on one fixed batch (the loss must fall below 0.7x its first value);
+    and the chaos resume (crashes and corrupt checkpoints of
+    ``faults.training_plan(2)``) against a fault-free run, bit for bit."""
+    torch, tl, bridge = m["torch"], m["train_loop"], m["bridge"]
+    TC = m["TrainConfig"]
+    out = {}
+    # (a) one fp32 step, card vs CPU; the card runs the kernels (remat
+    # full: every forward kernel twice, every backward kernel once)
+    cfg = m["reduced_config"](DANUBE).replace(dtype="float32")
+    tc = TC(warmup_steps=2, total_steps=10, remat="full")
+    cpu, step_c, load_c = _train_setup(m, cfg, tc, "cpu")
+    model = bridge.from_numpy(bridge.to_numpy(cpu.params), cfg,
+                              device="cuda")
+    gpu, step_g, load_g = _train_setup(m, cfg, tc, "cuda", params=model)
+    acc = tl._make_accumulate(cfg, tc)
+    batch = next(load_c)
+    batch_g = {k: v.cuda() for k, v in batch.items()}
+    grads_c, met_c = acc(cpu.params, batch)
+    _zero_counts(m)
+    grads_g, met_g = acc(gpu.params, batch_g)
+    torch.cuda.synchronize()
+    n = _counts(m)
+    L = cfg.num_layers
+    # layer 0's first norm has no residual to add (the plain form); the
+    # final norm's sum is unused, so its backward takes no ds
+    _check(n["flash_attention"] == 2 * L and n["flash_attention_bwd"] == L
+           and n["rmsnorm"] == 2 and n["add_rmsnorm"] == 4 * L - 1
+           and n["rmsnorm_bwd"] == 2 and n["add_rmsnorm_bwd"] == 2 * L - 1,
+           f"reduced fp32 step launches {n}")
+    loss_err = abs(float(met_g["loss"]) - float(met_c["loss"])) \
+        / abs(float(met_c["loss"]))
+    _check(loss_err <= 1e-5, f"reduced step loss: relative error {loss_err}")
+    worst = 0.0
+    for name, want in grads_c.items():
+        _, rel = _rel_err(torch, grads_g[name].cpu(), want, 1e-4,
+                          f"reduced step grad {name}")
+        worst = max(worst, rel)
+    cpu2, mc = step_c(cpu, batch)
+    gpu2, mg = step_g(gpu, batch_g)
+    gn_err = abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) \
+        / float(mc["grad_norm"])
+    _check(gn_err <= 1e-4, f"reduced step grad norm: relative {gn_err}")
+    # Adam's first step moves a weight by lr g' / (|g'| + eps), g' the
+    # clipped grad: by about lr wherever |g'| >> eps, and a rounding
+    # difference dg of the grad moves that by lr eps |dg| / g'^2.  Where
+    # |g'| > 100 eps this is far below 2e-5 (the grads agree to 2e-6 of
+    # their largest), so the params must agree to 2e-5 there.  The rest,
+    # grads within rounding of 0 whose step's sign the rounding decides,
+    # is left out and its share reported
+    clip = min(1.0, tc.grad_clip / float(mc["grad_norm"]))
+    on_gpu = dict(gpu2.params.named_parameters())
+    diffs, kept = [], []
+    for name, p in cpu2.params.named_parameters():
+        diffs.append((on_gpu[name].detach().cpu() - p.detach()).abs()
+                     .flatten())
+        kept.append((grads_c[name].abs() * clip > 100 * tc.eps).flatten())
+    diffs, kept = torch.cat(diffs), torch.cat(kept)
+    perr = float(diffs[kept].max())
+    left_out = float((~kept).float().mean())
+    _check(perr <= 2e-5,
+           f"reduced step params: max abs error {perr} where |g'| > "
+           f"100 eps ({left_out} of them left out)")
+    out["card_vs_cpu"] = {"loss": [float(met_g["loss"]),
+                                   float(met_c["loss"])],
+                          "loss_rel_err": loss_err,
+                          "grad_worst_normalized_err": worst,
+                          "grad_norm_rel_err": gn_err,
+                          "params_max_abs_err": perr,
+                          "params_share_left_out": left_out,
+                          "launches": n}
+    del cpu, gpu, cpu2, gpu2, grads_c, grads_g, model
+
+    # (b) 30 bf16 steps on one fixed batch, as tests/test_system.py's
+    # test_loss_decreases_tiny_model asks of the JAX trainer
+    cfg = m["reduced_config"](DANUBE).replace(num_layers=2)
+    tc = TC(learning_rate=1e-3, warmup_steps=2, total_steps=30,
+            remat="none")
+    st, step, loader = _train_setup(m, cfg, tc, "cuda", seq=64, batch=2)
+    batch = next(loader)
+    losses = []
+    for _ in range(30):
+        st, met = step(st, batch)
+        losses.append(float(met["loss"]))
+    _check(all(map(math.isfinite, losses)) and losses[-1]
+           < 0.7 * losses[0], f"reduced danube loss {losses[0]} -> "
+           f"{losses[-1]} (must fall below 0.7x)")
+    out["loss_30_steps"] = [losses[0], losses[-1]]
+    del st
+
+    # (c) the chaos resume: crashes at step polls 4, 6, 9 and corrupt
+    # checkpoints at saves 3 and 7 of training_plan(2); every step
+    # checkpoints, a crash restores the newest verified one
+    cfg = m["reduced_config"](DANUBE).replace(num_layers=2)
+    tc = TC(total_steps=10, warmup_steps=1, learning_rate=1e-3)
+    st, step, loader = _train_setup(m, cfg, tc, "cuda", seq=64, batch=2)
+    ref, _ = m["train_with_recovery"](st, step, loader, total_steps=10)
+    st, step, loader = _train_setup(m, cfg, tc, "cuda", seq=64, batch=2)
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    if ckdir.exists():
+        shutil.rmtree(ckdir)
+    inj = m["faults"].FaultInjector(m["faults"].training_plan(2,
+                                                               horizon=10))
+    mgr = m["CheckpointManager"](str(ckdir), keep=3, injector=inj)
+    got, restarts = m["train_with_recovery"](
+        st, step, loader, total_steps=10, manager=mgr, checkpoint_every=1,
+        injector=inj, max_restarts=4, backoff_base_s=0.0)
+    shutil.rmtree(ckdir)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(ref.params.named_parameters(),
+                   got.params.named_parameters()))
+    same = same and all(torch.equal(ref.opt.master[k], got.opt.master[k])
+                        for k in ref.opt.master)
+    _check(restarts == 3 and inj.remaining() == 0 and same
+           and int(got.opt.step) == 10,
+           f"chaos resume: restarts {restarts}, faults left "
+           f"{inj.remaining()}, bit-equal {same}")
+    out["chaos_resume"] = {"restarts": restarts, "bit_equal": same}
+    return out
+
+
+def train_cli_phase(m) -> dict:
+    """Full-width h2o-danube-1.8b through ``launch.train.main``: bf16,
+    random weights from seed 0, seq 8192 (the 4096 window binds), batch
+    2 in microbatches of 1, remat full (the default), lr TRAIN_LR,
+    TRAIN_STEPS steps.
+    Every step's loss and grad norm must be finite and > 0; the kernels'
+    launches on this path are counted."""
+    torch = m["torch"]
+    argv = ["--arch", DANUBE, "--device", "cuda", "--steps",
+            str(TRAIN_STEPS), "--seq", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--microbatch", str(TRAIN_MICRO), "--lr",
+            str(TRAIN_LR), "--log-every", "1"]
+    hist = []
+    _zero_counts(m)
+    t0 = time.perf_counter()
+    _check(m["train_cli"].main(argv, history=hist) == 0, "train CLI failed")
+    wall = time.perf_counter() - t0
+    counts = _counts(m)
+    _check(len(hist) == TRAIN_STEPS and all(
+        math.isfinite(h["loss"]) and h["loss"] > 0
+        and math.isfinite(h["grad_norm"]) and h["grad_norm"] > 0
+        for h in hist), f"full-width danube steps: {hist}")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    steps = [{"step": h["step"], "loss": h["loss"],
+              "grad_norm": h["grad_norm"], "step_ms": 1e3 * h["step_s"],
+              "tokens_per_s": tokens / h["step_s"],
+              "peak_gb": h["peak_gb"]} for h in hist]
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                 "add_rmsnorm", "rmsnorm_bwd", "add_rmsnorm_bwd"):
+        _check(counts[name] > 0, f"no {name} launch in the train path")
+    routes = dict(m["fa_ops"].launches_by_route)
+    _check(routes == {"wgmma": counts["flash_attention"], "fma": 0},
+           f"bf16 training ran flash on routes {routes}")
+    _free(torch)
+    return {"wall_s": wall, "steps": steps, "launches": counts,
+            "flash_launches_by_route": routes}
+
+
+def train_profile(m) -> dict:
+    """One full-width train step (after one warm-up step) under
+    ``torch.profiler``: wall, device ms, busy share, kernels, host syncs,
+    the kernels with most device time, each hand-written kernel's device
+    ms and launches, and the backward kernels' share of device time."""
+    torch, tl = m["torch"], m["train_loop"]
+    from torch.profiler import ProfilerActivity, profile
+    cfg = m["get_config"](DANUBE)
+    tc = m["TrainConfig"](microbatch=TRAIN_MICRO, remat="full")
+    st, step, loader = _train_setup(m, cfg, tc, "cuda", seq=TRAIN_SEQ,
+                                    batch=TRAIN_BATCH)
+    st, _ = step(st, next(loader))
+    batch = next(loader)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, met = step(st, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    _check(math.isfinite(float(met["loss"])), "profiled step: loss")
+    events = prof.key_averages()
+    kern = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    dev = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    ours = {k: [sum(e.self_device_time_total for e in kern
+                    if re.search(pat, e.key)) / 1e3,
+                sum(e.count for e in kern if re.search(pat, e.key))]
+            for k, pat in OUR_KERNELS.items()}
+    bwd_ms = ours["flash_attention_bwd"][0] + ours[
+        "rmsnorm_bwd (both forms)"][0]
+    n_kernels = sum(e.count for e in kern)
+    syncs = {key: sum(e.count for e in events if e.key == key)
+             for key in ("aten::_local_scalar_dense",
+                         "cudaStreamSynchronize")}
+    del st, batch, prof, events, kern
+    _free(torch)
+    return {"wall_ms": wall, "device_ms": dev, "busy_share": dev / wall,
+            "kernels": n_kernels,
+            "host_syncs": syncs,
+            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                    for e in top],
+            "ours": ours, "backward_kernels_ms": bwd_ms,
+            "backward_kernels_share": bwd_ms / dev}
+
+
+def train_timing(m) -> dict:
+    """Each backward kernel at danube's full-width shapes (bf16), its
+    plain version and the library yardstick, and the kernel's bound.
+    Flash (calls of 2-70 ms): CUDA events around eager calls; the host's
+    share is well under 1% for the kernel, a few % for the yardstick's
+    autograd call (the profiler dropped some of these long kernels'
+    events in one run, reading 30 ms for a 44 ms kernel).  The norms
+    (~0.05 ms): the kernel and its plain version as CUDA-graph replays,
+    the yardstick (autograd's backward cannot be captured) as the sum
+    of its kernels' device times under the profiler; ``*call_ms`` are
+    CUDA events around eager calls, host included.
+    Yardsticks, timed only and never on the path: flash, the backward of
+    ``scaled_dot_product_attention`` at S 8192 causal with no window
+    (it takes no window; its kv heads repeated to 32); the norms, the
+    backward of ``F.rms_norm`` (after ``torch.add`` for the fused
+    form)."""
+    torch, F, fa, rms = m["torch"], m["F"], m["fa_ops"], m["rms_ops"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    bf = torch.bfloat16
+    out = {}
+    B, S, H, KV, D, W = FLASH_BWD_SHAPE
+    q, k, v, do = flash_bwd_inputs(torch, g, B, S, H, KV, D, bf)
+    o, lse = fa.flash_attention_cuda(q, k, v, window=W, with_lse=True)
+    qt, kt, vt = (t.transpose(1, 2).repeat_interleave(H // t.shape[2], 1)
+                  .detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    kernel = lambda: fa.flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, o, lse, do, window=W)
+    plain = lambda: m["flash_bwd_ref"](  # noqa: E731
+        q, k, v, o, lse, do, window=W)
+    library = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, (qt, kt, vt), dot, retain_graph=True)
+    pairs = _pairs(S, W)
+    out["flash_attention_bwd"] = {
+        "shape": [B, S, H, KV, D], "window": W, "dtype": "bfloat16",
+        "pairs": pairs, "library_pairs": _pairs(S, None),
+        "ms": _time_ms(torch, kernel, reps=5, inner=2),
+        "plain_ms": _time_ms(torch, plain, reps=3, inner=1),
+        "library_ms": _time_ms(torch, library, reps=5, inner=4),
+        # necessary work: S, dP, dV, dQ, dK products, 2 D flops each per
+        # pair and head (the kernel recomputes S and dP: 14 D)
+        **_bound(2 * (4 * S * H * D + 4 * S * KV * D) + 4 * B * H * S,
+                 10 * D * pairs * H, BF16_FLOPS)}
+    del q, k, v, do, o, lse, qt, kt, vt, lib_out, dot
+    rows, d = NORM_BWD_SHAPE
+    x, h, dy, ds = (torch.randn(rows, d, generator=g, device="cuda").to(bf)
+                    for _ in range(4))
+    sc = torch.randn(d, generator=g, device="cuda").to(bf)
+    xg, hg, scg = (t.detach().requires_grad_() for t in (x, h, sc))
+    y1 = F.rms_norm(xg, (d,), scg, 1e-5)
+    s2 = torch.add(xg, hg)
+    y2 = F.rms_norm(s2, (d,), scg, 1e-5)
+    for kname, fused in (("rmsnorm_bwd", False), ("add_rmsnorm_bwd", True)):
+        kernel = (lambda f=fused: rms.rmsnorm_bwd_cuda(
+            x, ds if f else None, dy, sc))
+        plain = (lambda f=fused: m["add_rmsnorm_bwd_ref"](x, ds, dy, sc)
+                 if f else m["rmsnorm_bwd_ref"](x, sc, dy))
+        library = (lambda f=fused: torch.autograd.grad(
+            (s2, y2), (xg, hg, scg), (ds, dy), retain_graph=True) if f
+            else torch.autograd.grad(y1, (xg, scg), dy, retain_graph=True))
+        n_in = 3 if fused else 2                # x (s), dy, [ds]
+        out[kname] = {
+            "shape": [rows, d], "dtype": "bfloat16",
+            "ms": _device_ms(torch, kernel),
+            "plain_ms": _device_ms(torch, plain),
+            "library_ms": _profiled_ms(torch, library),
+            "call_ms": _time_ms(torch, kernel),
+            "plain_call_ms": _time_ms(torch, plain),
+            "library_call_ms": _time_ms(torch, library),
+            **_bound(2 * ((n_in + 1) * rows * d + 2 * d),
+                     9 * rows * d, FP32_FLOPS)}
+    return out
+
+
+def train_phase(m) -> dict:
+    out = {"kernels": train_kernel_phase(m)}
+    print(f"[train] backward kernels vs plain: "
+          f"{json.dumps(out['kernels'])}", flush=True)
+    out["reduced"] = train_reduced_phase(m)
+    print(f"[train] reduced danube: {json.dumps(out['reduced'])}",
+          flush=True)
+    out["train"] = train_cli_phase(m)
+    for s in out["train"]["steps"]:
+        print(f"[train] full-width {DANUBE} step {s['step']}: loss "
+              f"{s['loss']:.4f} gnorm {s['grad_norm']:.3f} "
+              f"{s['step_ms']:.1f} ms {s['tokens_per_s']:.0f} tok/s "
+              f"peak {s['peak_gb']:.2f} GB", flush=True)
+    out["profile"] = train_profile(m)
+    out["timings"] = train_timing(m)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the SIMT machine: one kernel launch per machine run
 # ---------------------------------------------------------------------------
 
@@ -1492,6 +1980,9 @@ def main() -> int:
 
     timings = timing_phase(m)
     print(json.dumps({"timings": timings}), flush=True)
+
+    train = train_phase(m)
+    print(json.dumps({"train": train}), flush=True)
     sources = {  # name: (source, replaces, index of the main-path shape)
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/kernel.py:31", 2),
@@ -1504,16 +1995,19 @@ def main() -> int:
                          "src/repro/kernels/moe_dispatch/kernel.py:51", 1),
         "ssd_intra": ("src/repro_torch/csrc/ssm_scan.cu",
                       "src/repro/kernels/ssm_scan/kernel.py:60", 0)}
-    paths = [p for p in serve if isinstance(serve[p], dict)
-             and "launches" in serve[p]]
+    paths = {p: serve[p] for p in serve if isinstance(serve[p], dict)
+             and "launches" in serve[p]}
+    paths["train"] = train["train"]
     kernels = []
     for name, (source, replaces, main_shape) in sources.items():
         t = timings[name][main_shape]
-        by_path = {p: serve[p]["launches"][name] for p in paths}
+        by_path = {p: paths[p]["launches"][name] for p in paths}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path, "max_abs_err": errs[name],
+            "launches_by_path": by_path,
+            "max_abs_err": max(errs[name],
+                               train["kernels"]["forward"].get(name, 0.0)),
             "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "call_ms": t["call_ms"],
@@ -1523,9 +2017,30 @@ def main() -> int:
             kernels[-1]["routes"] = {str(dt).replace("torch.", ""): r
                                      for dt, r in routes.items()}
             kernels[-1]["launches_by_route"] = {
-                r: sum(serve[p]["flash_launches_by_route"][r] for p in paths)
+                r: sum(paths[p]["flash_launches_by_route"][r] for p in paths)
                 for r in routes.values()}
         _check(kernels[-1]["launches"] > 0, f"{name}: no launch on a path")
+    # the backward kernels: the train path (full-width danube) is their
+    # main path; timed at its shapes
+    bwd_sources = {
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "src/repro/models/attention.py:193"),
+        "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                        "src/repro/models/common.py:65"),
+        "add_rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                            "src/repro/models/common.py:65")}
+    for name, (source, replaces) in bwd_sources.items():
+        t = train["timings"][name]
+        by_path = {p: paths[p]["launches"][name] for p in paths}
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": train["kernels"][name]["max_abs_err"],
+            "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "call_ms": t.get("call_ms")})
+        _check(by_path["train"] > 0, f"{name}: no launch on the train path")
     # the SIMT machine: its main path is the Fig 9 grid; timed at
     # vecadd/8w8t (one launch), its plain loop on the same launch (host
     # clock: the loop reads the card every cycle)

@@ -1,7 +1,7 @@
 """Model configuration for the PyTorch port: a copy of
-``repro.configs.base`` (the model dataclasses only; the dry-run shape
-and training configs come with later slices).  Configs are frozen
-dataclasses so they hash and can key caches.
+``repro.configs.base`` (the model dataclasses, ``ShapeConfig`` and
+``TrainConfig``; the dry-run's shape cells come with a later slice).
+Configs are frozen dataclasses so they hash and can key caches.
 """
 from __future__ import annotations
 
@@ -88,3 +88,48 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input-shape configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+# ---------------------------------------------------------------------------
+# Training hyperparameters (the JAX package's defaults)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatch: Optional[int] = None   # grad-accum microbatch (None = off)
+    remat: str = "full"                # full | dots | none
+    seed: int = 0
+    # fault tolerance
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    # skip the optimizer update when the global grad norm is non-finite
+    # or exceeds this threshold (0.0 = spike skipping disabled; non-finite
+    # grads are still applied as-is when disabled, preserving old behavior)
+    grad_skip_threshold: float = 0.0
+    # gradient compression across the pod (DP) axis
+    grad_compression: str = "none"     # none | int8

@@ -2,6 +2,8 @@
 
 A copy of ``repro.configs.registry`` that lists only the architectures
 whose family the port runs (the dense, MoE and hybrid-SSM families).
+h2o-danube-1.8b is the dense config the port trains at full width on
+one card.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from repro_torch.configs.base import ModelConfig
 # arch id -> module name (one file per architecture the port runs)
 _ARCH_MODULES = {
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini_3_8b",
+    "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",

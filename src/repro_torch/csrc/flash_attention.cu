@@ -56,6 +56,12 @@
 // stores 16-byte words of the rows < S and columns < D through shared
 // memory.
 //
+// Both routes write the fp32 row log-sum-exp of the scaled scores,
+// lse[b, h, i] = m_i + log(l_i) (natural log), when the caller passes a
+// buffer (training: the backward in flash_attention_bwd.cu recomputes P
+// from it); with a null pointer nothing else changes, so the serve
+// paths' outputs are the same bits with and without it.
+//
 // fp32: the first kernel of the port (no tensor cores: TF32 would break
 // the 2e-5 tolerance of the fp32 route).  One block per (b, h, 32-query
 // tile); each kv tile (32 keys) staged in shared memory as fp32; each
@@ -100,6 +106,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;         // [B, H, S] or nullptr
   int S, Sk, H, KV;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
   int causal, window;  // window <= 0: none
@@ -251,6 +258,8 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(Args a) {
     const int qp = q0 + warp * kRows + rr;
     if (qp >= a.S) continue;
     const float denom = fmaxf(l[rr], 1e-30f);
+    if (a.lse != nullptr && lane == 0)
+      a.lse[((size_t)b * a.H + h) * a.S + qp] = m[rr] + logf(denom);
     T* orow = o + (((size_t)b * a.S + qp) * a.H + h) * D;
 #pragma unroll
     for (int i = 0; i < NV; ++i)
@@ -529,6 +538,7 @@ constexpr int kThreads = 128 * WG + (WG == 2 ? 128 : 32);
 
 struct TileArgs {
   __nv_bfloat16* o;
+  float* lse;         // [B, H, S] or nullptr
   int S, Sk, H, KV, D, causal, window;
   float scale_log2;   // 1/sqrt(D) * log2(e): softmax in base 2
 };
@@ -621,7 +631,11 @@ __device__ __forceinline__ void online_softmax(float (&sc)[N / 2],
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     alpha[r] = fast_exp2((m[r] - mx[r]) * a.scale_log2);
     m[r] = mx[r];
-    mb[r] = mx[r] * a.scale_log2;
+    // a row with no key on the mask yet (a window's first tiles): its
+    // masked scores must give p = 0.  With mb = -1e30 * scale_log2 the
+    // fma below leaves that product's rounding error, up to ~1e21, and
+    // exp2 of it is inf (then inf * 0 = NaN at the next rescale)
+    mb[r] = mx[r] == kNegInf ? 0.f : mx[r] * a.scale_log2;
     l[r] *= alpha[r];
   }
 #pragma unroll
@@ -764,6 +778,19 @@ __device__ __forceinline__ void consume(const TileArgs& a, Barriers& bars,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  // the row LSE in natural-log units of the scaled scores: m is the
+  // raw-score max, l sums exp2((s - m) * scale_log2); only real rows
+  // (< S) are stored, not TMA's zero-filled padding
+  if (a.lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = qw + r0 + 8 * r;
+      if (qp < a.S)
+        a.lse[(static_cast<size_t>(b) * a.H + h) * a.S + qp] =
+            m[r] * a.scale_log2 * 0.6931471805599453f +
+            logf(fmaxf(l[r], 1e-30f));
+    }
   }
   constexpr int kPitch = NB * kBox + 8;   // elements; against conflicts
   static_assert(kTile * kPitch * 2 <= kStages * kTileBytes,
@@ -940,8 +967,8 @@ int dispatch_bf16_tiles(const Args& a, int B, int D, cudaStream_t s) {
       !encode(&km, a.k, D, a.KV, a.Sk, B, a.ksh, a.kss, a.ksb, rows) ||
       !encode(&vm, a.v, D, a.KV, a.Sk, B, a.vsh, a.vss, a.vsb, rows))
     return cudaErrorInvalidValue;
-  const TileArgs t{static_cast<__nv_bfloat16*>(a.o), a.S, a.Sk, a.H, a.KV,
-                   D, a.causal, a.window, a.scale * kLog2e};
+  const TileArgs t{static_cast<__nv_bfloat16*>(a.o), a.lse, a.S, a.Sk, a.H,
+                   a.KV, D, a.causal, a.window, a.scale * kLog2e};
   switch (D) {
     case 16: return launch_wgmma<1, 1, WG>(qm, km, vm, t, B, s);
     case 32: return launch_wgmma<1, 2, WG>(qm, km, vm, t, B, s);
@@ -974,21 +1001,22 @@ int dispatch_bf16(const Args& a, int B, int D, cudaStream_t s) {
 
 // q: [B, S, H, D], k/v: [B, Sk, KV, D], each with unit stride on D and
 // the given element strides on (B, seq, head), 16-byte aligned base
-// pointers and strides; o: contiguous [B, S, H, D].  D a multiple of 16
+// pointers and strides; o: contiguous [B, S, H, D]; lse: contiguous fp32
+// [B, H, S] or nullptr (not written).  D a multiple of 16
 // up to 128; H % KV == 0.  dtype: 0 fp32 (FMA route), 1 bf16 (wgmma/TMA
 // route).  window <= 0 means no window.  Returns cudaGetLastError(), or
 // an error without launching when the arguments (or a tensor map) are
 // refused.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int S,
-    int Sk, int H, int KV, int D, long long qsb, long long qss,
-    long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, int causal, int window,
-    float scale, int dtype, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int B, int S, int Sk, int H, int KV, int D, long long qsb,
+    long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh, int causal,
+    int window, float scale, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return cudaSuccess;
   if (KV <= 0 || H % KV != 0 || Sk <= 0) return cudaErrorInvalidValue;
-  Args a{q, k, v, o, S, Sk, H, KV, qsb, qss, qsh, ksb, kss, ksh,
-         vsb, vss, vsh, causal, window, scale};
+  Args a{q, k, v, o, static_cast<float*>(lse), S, Sk, H, KV, qsb, qss,
+         qsh, ksb, kss, ksh, vsb, vss, vsh, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_fp32(a, B, D, s);
   if (dtype == 1) return dispatch_bf16(a, B, D, s);

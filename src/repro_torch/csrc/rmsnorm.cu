@@ -21,6 +21,21 @@
 // elements, more threads for wider rows), reduces with warp shuffles and
 // one pass through shared memory, and writes s and y from the
 // registers: the second pass reads no memory.
+//
+// Backward (rmsnorm_bwd_kernel + rmsnorm_dscale_kernel; no Pallas
+// counterpart: it replaces JAX's autodiff of
+// src/repro/models/common.py:65 rmsnorm, which the JAX trainer
+// differentiates): dx = r * (dy*g - x * r^2 * sum(dy*g*x) / d) with
+// r = rsqrt(mean(x^2) + eps) recomputed from the saved input (s for
+// the fused form, whose dx = dh is ds plus that, the norm's part
+// rounded to the dtype first as autograd of the plain version rounds
+// it), and dscale = sum over rows of dy * x * r in fp32.  Bound by
+// memory like the forward (x, dy, ds read once, dx written once).  A
+// row is still one block's, held in registers; each block walks a
+// strided set of rows and keeps its columns' dscale sums in registers,
+// then writes them as one fp32 partial row; a second kernel adds the
+// partial rows column by column in a fixed order.  No float atomics:
+// the result is the same bits on every run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -167,6 +182,177 @@ int launch(const void* x, const void* h, const void* scale, void* s,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+// Rows blockIdx.x, blockIdx.x + gridDim.x, ... of dx; this block's
+// partial dscale sums go to part[blockIdx.x * d ...] (fp32).  ds may be
+// null (plain form).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_bwd_kernel(const uint4* __restrict__ x, const uint4* __restrict__ dy,
+                   const uint4* __restrict__ ds,
+                   const uint4* __restrict__ scale, uint4* __restrict__ dx,
+                   float* __restrict__ part, int rows, int nvec, int d,
+                   float eps) {
+  constexpr int N = Pack<T>::N;
+  uint4 gv[VEC];
+  float acc[VEC][N];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int i = threadIdx.x + j * blockDim.x;
+    if (i < nvec) gv[j] = __ldg(scale + i);
+#pragma unroll
+    for (int k = 0; k < N; ++k) acc[j][k] = 0.f;
+  }
+  // two reduction buffers, by row parity: a thread writes one row's
+  // partials only after every thread has read the row before's
+  __shared__ float red[2][2][kMaxThreads / 32];
+  int parity = 0;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x, parity ^= 1) {
+    const size_t base = (size_t)row * nvec;
+    uint4 xv[VEC], dv[VEC], sv[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int i = threadIdx.x + j * blockDim.x;
+      if (i < nvec) {
+        xv[j] = __ldg(x + base + i);
+        dv[j] = __ldg(dy + base + i);
+        if (ds != nullptr) sv[j] = __ldg(ds + base + i);
+      }
+    }
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int i = threadIdx.x + j * blockDim.x;
+      if (i < nvec) {
+        const T* e = reinterpret_cast<const T*>(&xv[j]);
+        const T* o = reinterpret_cast<const T*>(&dv[j]);
+        const T* g = reinterpret_cast<const T*>(&gv[j]);
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float v = to_f(e[k]);
+          ss += v * v;
+          dot += to_f(o[k]) * to_f(g[k]) * v;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    }
+    if (threadIdx.x % 32 == 0) {
+      red[parity][0][threadIdx.x / 32] = ss;
+      red[parity][1][threadIdx.x / 32] = dot;
+    }
+    __syncthreads();
+    float tss = 0.f, tdot = 0.f;
+    for (int w = 0; w < (int)blockDim.x / 32; ++w) {
+      tss += red[parity][0][w];
+      tdot += red[parity][1][w];
+    }
+    const float r = rsqrtf(tss / (float)d + eps);
+    const float c = r * r * tdot / (float)d;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int i = threadIdx.x + j * blockDim.x;
+      if (i < nvec) {
+        uint4 out;
+        const T* e = reinterpret_cast<const T*>(&xv[j]);
+        const T* o = reinterpret_cast<const T*>(&dv[j]);
+        const T* g = reinterpret_cast<const T*>(&gv[j]);
+        const T* a = reinterpret_cast<const T*>(&sv[j]);
+        T* res = reinterpret_cast<T*>(&out);
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float v = to_f(e[k]), dyv = to_f(o[k]);
+          acc[j][k] += dyv * (v * r);
+          const T dn = from_f<T>(r * (dyv * to_f(g[k]) - v * c));
+          res[k] = ds != nullptr ? from_f<T>(to_f(dn) + to_f(a[k])) : dn;
+        }
+        dx[base + i] = out;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int i = threadIdx.x + j * blockDim.x;
+    if (i < nvec) {
+      float* p = part + (size_t)blockIdx.x * d + (size_t)i * N;
+#pragma unroll
+      for (int k = 0; k < N; k += 4)
+        *reinterpret_cast<float4*>(p + k) =
+            make_float4(acc[j][k], acc[j][k + 1], acc[j][k + 2],
+                        acc[j][k + 3]);
+    }
+  }
+}
+
+// dscale[c] = sum over b of part[b][c], in a fixed order: a block holds
+// 32 columns x 8 row groups; group ty adds rows ty, ty + 8, ... and the
+// 8 group sums are added in order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+rmsnorm_dscale_kernel(const float* __restrict__ part, T* __restrict__ dscale,
+                      int nb, int d) {
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + tx;
+  float sum = 0.f;
+  if (c < d)
+    for (int b = ty; b < nb; b += 8) sum += part[(size_t)b * d + c];
+  __shared__ float grp[8][32];
+  grp[ty][tx] = sum;
+  __syncthreads();
+  if (ty == 0 && c < d) {
+    float tot = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) tot += grp[k][tx];
+    dscale[c] = from_f<T>(tot);
+  }
+}
+
+template <typename T, int VEC>
+void launch_bwd_vec(const void* x, const void* dy, const void* ds,
+                    const void* scale, void* dx, float* part, int rows,
+                    int nvec, int d, int nb, float eps, int threads,
+                    cudaStream_t stream) {
+  rmsnorm_bwd_kernel<T, VEC><<<nb, threads, 0, stream>>>(
+      static_cast<const uint4*>(x), static_cast<const uint4*>(dy),
+      static_cast<const uint4*>(ds), static_cast<const uint4*>(scale),
+      static_cast<uint4*>(dx), part, rows, nvec, d, eps);
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* dy, const void* ds,
+               const void* scale, void* dx, float* part, void* dscale,
+               int rows, int d, int nb, float eps, cudaStream_t stream) {
+  const int nvec = d / Pack<T>::N;
+  int threads = kMinThreads;
+  while (threads < kMaxThreads && nvec > kVec * threads) threads *= 2;
+  const int per = (nvec + threads - 1) / threads;
+  if (per > kMaxVec) return cudaErrorInvalidValue;
+  if (per <= 1) {
+    launch_bwd_vec<T, 1>(x, dy, ds, scale, dx, part, rows, nvec, d, nb, eps,
+                         threads, stream);
+  } else if (per <= 2) {
+    launch_bwd_vec<T, 2>(x, dy, ds, scale, dx, part, rows, nvec, d, nb, eps,
+                         threads, stream);
+  } else if (per <= 4) {
+    launch_bwd_vec<T, 4>(x, dy, ds, scale, dx, part, rows, nvec, d, nb, eps,
+                         threads, stream);
+  } else {
+    launch_bwd_vec<T, 8>(x, dy, ds, scale, dx, part, rows, nvec, d, nb, eps,
+                         threads, stream);
+  }
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  rmsnorm_dscale_kernel<T><<<(d + 31) / 32, 256, 0, stream>>>(
+      part, static_cast<T*>(dscale), nb, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, h, s, y: [rows, d] contiguous; scale: [d]; all 16-byte aligned with
@@ -183,5 +369,26 @@ extern "C" int rmsnorm_fwd(const void* x, const void* h, const void* scale,
   if (dtype == 0) return launch<float>(x, h, scale, s, y, rows, d, eps, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, h, scale, s, y, rows, d, eps, st);
+  return cudaErrorInvalidValue;
+}
+
+// Backward of rmsnorm_fwd.  x: the saved input ([rows, d]; s of the
+// fused form), dy: [rows, d], ds: [rows, d] or nullptr (plain form),
+// scale: [d]; dx: [rows, d] (dh = dx of the fused form), dscale: [d] in
+// the dtype; part: [nb, d] fp32 scratch, nb blocks (1 <= nb <= rows).
+// The same layout rules as rmsnorm_fwd.  Returns cudaGetLastError().
+extern "C" int rmsnorm_bwd(const void* x, const void* dy, const void* ds,
+                           const void* scale, void* dx, void* part,
+                           void* dscale, int rows, int d, int nb, float eps,
+                           int dtype, void* stream) {
+  if (rows <= 0 || nb <= 0 || nb > rows) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  if (dtype == 0)
+    return launch_bwd<float>(x, dy, ds, scale, dx, p, dscale, rows, d, nb,
+                             eps, st);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, dy, ds, scale, dx, p, dscale, rows,
+                                     d, nb, eps, st);
   return cudaErrorInvalidValue;
 }

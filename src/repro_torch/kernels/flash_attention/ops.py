@@ -10,6 +10,15 @@ Two routes, chosen by dtype and never swapped for one another: bf16
 runs the Hopper kernel (wgmma tiles fed by TMA), fp32 the FMA kernel
 (exact to 2e-5; tensor cores would round to TF32).  ``launches`` counts
 kernel launches only, ``launches_by_route`` the same per route.
+
+Gradients: on CUDA, when grad mode is on and q, k or v requires grad,
+the call runs as a ``torch.autograd.Function`` that saves (q, k, v,
+out, lse): the forward kernel also writes the fp32 row log-sum-exp, and
+the backward is the hand-written FA-2 kernel
+(``csrc/flash_attention_bwd.cu``, ``flash_attention_bwd_cuda``,
+counted in ``bwd_launches``).  On the CPU plain autograd runs through
+``attention_ref``.  ``ref.flash_fwd_ref`` / ``ref.flash_bwd_ref`` are
+the kernels' plain versions in the tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -23,15 +32,37 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
 HEAD_DIMS = tuple(range(16, 129, 16))    # bf16 rows of 16-byte words
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.float32: "fma", torch.bfloat16: "wgmma"}
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-_ARGTYPES = ([_P] * 4 + [_I] * 6 + [_L] * 9
+_ARGTYPES = ([_P] * 5 + [_I] * 6 + [_L] * 9
              + [_I, _I, ctypes.c_float, _I, _P])
+_BWD_ARGTYPES = ([_P] * 10 + [_I] * 6 + [_L] * 9
+                 + [_I, _I, ctypes.c_float, _I, _P])
 
 launches = 0
 launches_by_route = {route: 0 for route in ROUTES.values()}
+bwd_launches = 0
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                              causal=ctx.causal,
+                                              window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -40,16 +71,18 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B,S,H,D]; k,v: [B,Sk,KV,D] -> [B,S,H,D]."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, causal, window)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
 flash_attention = obs.instrument_kernel("flash_attention", _flash_attention)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: Optional[int] = None) -> torch.Tensor:
-    global launches
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int]) -> None:
+    """Raise unless q, k, v are what the kernels take."""
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError("flash_attention kernel needs CUDA tensors on one "
@@ -74,10 +107,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "and 16-byte aligned pointers and strides")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         with_lse: bool = False):
+    """The forward kernel: out [B,S,H,D]; with `with_lse`, (out, lse)
+    with lse the fp32 row log-sum-exp [B,H,S] (out is the same bits
+    either way)."""
+    global launches
+    _check(q, k, v, window)
+    B, S, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  B, S, Sk, H, KV, D,
                  q.stride(0), q.stride(1), q.stride(2),
                  k.stride(0), k.stride(1), k.stride(2),
@@ -87,4 +136,48 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(err, "flash_attention_fwd")
     launches += 1
     launches_by_route[ROUTES[q.dtype]] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None):
+    """The FA-2 backward kernel: (dq, dk, dv) in q's dtype, contiguous,
+    from the forward's out and fp32 lse [B,H,S].  out and do may be
+    strided (they are made contiguous)."""
+    global bwd_launches
+    _check(q, k, v, window)
+    B, S, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    out, do = out.contiguous(), do.contiguous()
+    lse = lse.contiguous()
+    for name, t in (("out", out), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} does not match q "
+                             f"{tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype}, want fp32 {(B, H, S)}")
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, KV, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Sk, KV, D), dtype=q.dtype, device=q.device)
+    fn = build.function("flash_attention_bwd", "flash_attention_bwd",
+                        _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 B, S, Sk, H, KV, D,
+                 q.stride(0), q.stride(1), q.stride(2),
+                 k.stride(0), k.stride(1), k.stride(2),
+                 v.stride(0), v.stride(1), v.stride(2),
+                 int(causal), int(window or 0), 1.0 / (D ** 0.5),
+                 _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    build.check(err, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv

@@ -17,7 +17,7 @@ from typing import Tuple
 import torch
 
 from repro_torch import obs
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.moe_dispatch.ref import moe_dispatch_ref
 
 SOURCE = "src/repro_torch/csrc/moe_dispatch.cu"
@@ -39,6 +39,7 @@ moe_dispatch = obs.instrument_kernel("moe_dispatch", _moe_dispatch)
 def moe_dispatch_cuda(eidx: torch.Tensor, x: torch.Tensor, E: int, C: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     global launches
+    refuse_grad("moe_dispatch", x)
     if x.device.type != "cuda" or eidx.device != x.device:
         raise ValueError("moe_dispatch kernel needs CUDA tensors on one "
                          f"device, got {x.device} and {eidx.device}")

@@ -7,6 +7,14 @@ Two forms of one kernel: ``rmsnorm(x, scale)`` and the fused
 with torch's add) and ``y = rmsnorm(s)``.  ``launches`` counts kernel
 launches of both forms, ``launches_by_form`` each form's (the CPU path
 never bumps either).
+
+Gradients: on CUDA, when grad mode is on and an input requires grad,
+each form runs as a ``torch.autograd.Function`` whose backward is the
+hand-written backward kernel (``rmsnorm_bwd``); ``bwd_launches`` /
+``bwd_launches_by_form`` count its launches (one per call: the row pass
+and the dscale sum).  On the CPU plain autograd runs through the plain
+versions; ``ref.rmsnorm_bwd_ref`` / ``ref.add_rmsnorm_bwd_ref`` are the
+backward kernel's plain versions in the tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -24,10 +32,51 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 MAX_ROW_BYTES = 512 * 8 * 16   # csrc/rmsnorm.cu: kMaxThreads x kMaxVec words
+BWD_BLOCKS_PER_SM = 8          # row blocks of the backward (dscale partials)
 
 launches = 0
 launches_by_form = {"rmsnorm": 0, "add_rmsnorm": 0}
+bwd_launches = 0
+bwd_launches_by_form = {"rmsnorm": 0, "add_rmsnorm": 0}
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _RmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _launch(x, None, scale, eps)[1]
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd_cuda(x, None, dy, scale, ctx.eps)
+        return dx, dscale, None
+
+
+class _AddRmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, h, scale, eps):
+        ctx.set_materialize_grads(False)
+        s, y = _launch(x, h, scale, eps)
+        ctx.save_for_backward(s, scale)
+        ctx.eps = eps
+        return s, y
+
+    @staticmethod
+    def backward(ctx, ds, dy):
+        if dy is None:      # only the sum took a gradient
+            return ds, ds, None, None
+        s, scale = ctx.saved_tensors
+        dh, dscale = rmsnorm_bwd_cuda(s, ds, dy, scale, ctx.eps)
+        return dh, dh, dscale, None
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -35,6 +84,8 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     """x: [..., d]; scale: [d] -> [..., d] in x's dtype."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
+    if _needs_grad(x, scale):
+        return _RmsNorm.apply(x, scale, eps)
     return rmsnorm_cuda(x, scale, eps)
 
 
@@ -46,6 +97,8 @@ def _add_rmsnorm(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
     """x, h: [..., d]; scale: [d] -> (x + h, rmsnorm(x + h))."""
     if x.device.type == "cpu":
         return add_rmsnorm_ref(x, h, scale, eps)
+    if _needs_grad(x, h, scale):
+        return _AddRmsNorm.apply(x, h, scale, eps)
     return add_rmsnorm_cuda(x, h, scale, eps)
 
 
@@ -62,11 +115,11 @@ def add_rmsnorm_cuda(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
     return _launch(x, h, scale, eps)
 
 
-def _launch(x: torch.Tensor, h: Optional[torch.Tensor], scale: torch.Tensor,
-            eps: float) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-    global launches
-    form = "rmsnorm" if h is None else "add_rmsnorm"
-    ins = [x, scale] + ([] if h is None else [h])
+def _check(form: str, x: torch.Tensor, ins, scale: torch.Tensor,
+           like_x) -> None:
+    """Raise unless `ins` are CUDA tensors of one device and dtype (fp32
+    or bf16), `scale` is [d], every tensor of `like_x` has x's shape and
+    every row fits the kernel."""
     if x.device.type != "cuda" or any(t.device != x.device for t in ins):
         raise ValueError(f"{form} kernel needs CUDA tensors on one device, "
                          f"got {[str(t.device) for t in ins]}")
@@ -74,10 +127,10 @@ def _launch(x: torch.Tensor, h: Optional[torch.Tensor], scale: torch.Tensor,
         raise TypeError(f"{form} kernel takes fp32 or bf16 tensors of one "
                         f"dtype, got {[t.dtype for t in ins]}")
     d = x.shape[-1]
-    if scale.shape != (d,) or (h is not None and h.shape != x.shape):
+    if scale.shape != (d,) or any(t.shape != x.shape for t in like_x):
         raise ValueError(f"{form}: x {tuple(x.shape)}, scale "
-                         f"{tuple(scale.shape)}"
-                         + ("" if h is None else f", h {tuple(h.shape)}"))
+                         f"{tuple(scale.shape)}, others "
+                         f"{[tuple(t.shape) for t in like_x]}")
     if not all(t.is_contiguous() for t in ins):
         raise ValueError(f"{form} kernel needs contiguous inputs")
     row = d * x.element_size()
@@ -88,6 +141,15 @@ def _launch(x: torch.Tensor, h: Optional[torch.Tensor], scale: torch.Tensor,
         raise ValueError(f"{form} kernel holds rows of at most "
                          f"{MAX_ROW_BYTES} bytes in registers, got d={d} "
                          f"in {x.dtype}")
+
+
+def _launch(x: torch.Tensor, h: Optional[torch.Tensor], scale: torch.Tensor,
+            eps: float) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    global launches
+    form = "rmsnorm" if h is None else "add_rmsnorm"
+    ins = [x, scale] + ([] if h is None else [h])
+    _check(form, x, ins, scale, [] if h is None else [h])
+    d = x.shape[-1]
     y = torch.empty_like(x)
     s = None if h is None else torch.empty_like(x)
     fn = build.function("rmsnorm", "rmsnorm_fwd", _ARGTYPES)
@@ -100,3 +162,38 @@ def _launch(x: torch.Tensor, h: Optional[torch.Tensor], scale: torch.Tensor,
     launches += 1
     launches_by_form[form] += 1
     return s, y
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, ds: Optional[torch.Tensor],
+                     dy: torch.Tensor, scale: torch.Tensor,
+                     eps: float = 1e-5
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel: (dx, dscale) of ``rmsnorm(x, scale)`` for
+    ``ds`` None, else (dh, dscale) of the fused form, x being its saved
+    sum s.  dy and ds may be strided (they are made contiguous)."""
+    global bwd_launches
+    form = "rmsnorm" if ds is None else "add_rmsnorm"
+    dy = dy.contiguous()
+    ds = None if ds is None else ds.contiguous()
+    ins = [x, dy, scale] + ([] if ds is None else [ds])
+    _check(form, x, ins, scale, [dy] + ([] if ds is None else [ds]))
+    d = x.shape[-1]
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    if rows == 0:
+        return dx, dscale.zero_()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nb = min(rows, BWD_BLOCKS_PER_SM * sms)
+    part = torch.empty((nb, d), dtype=torch.float32, device=x.device)
+    fn = build.function("rmsnorm", "rmsnorm_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), dy.data_ptr(),
+                 None if ds is None else ds.data_ptr(), scale.data_ptr(),
+                 dx.data_ptr(), part.data_ptr(), dscale.data_ptr(), rows, d,
+                 nb, float(eps), _DTYPES[x.dtype],
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, f"rmsnorm_bwd ({form})")
+    bwd_launches += 1
+    bwd_launches_by_form[form] += 1
+    return dx, dscale

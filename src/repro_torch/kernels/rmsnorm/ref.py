@@ -18,3 +18,31 @@ def add_rmsnorm_ref(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
     """The residual add and the norm after it: (s = x + h, rmsnorm(s))."""
     s = x + h
     return s, rmsnorm_ref(s, scale, eps)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-5):
+    """The backward of ``rmsnorm_ref``: (dx in x's dtype, dscale in
+    scale's dtype), with r = rsqrt(mean(x^2) + eps) recomputed from x and
+    dscale = sum over rows of dy * x * r in fp32."""
+    xf = x.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    dyf = dy.float()
+    dscale = (dyf * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+    dxhat = dyf * scale.float()
+    dx = r * (dxhat - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def add_rmsnorm_bwd_ref(s: torch.Tensor, ds, dy, scale: torch.Tensor,
+                        eps: float = 1e-5):
+    """The backward of ``add_rmsnorm_ref`` from its saved sum s: (dh,
+    dscale), where dh (= dx) is ds plus the norm's gradient, that one
+    rounded to s's dtype first as autograd of the plain version rounds
+    it.  Either of ds, dy may be None (that output took no gradient);
+    dscale is None when dy is."""
+    if dy is None:
+        return ds, None
+    dn, dscale = rmsnorm_bwd_ref(s, scale, dy, eps)
+    return (dn if ds is None else ds + dn), dscale

@@ -18,7 +18,7 @@ from typing import Tuple
 import torch
 
 from repro_torch import obs
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.ssm_scan.ref import ssd_intra_ref
 
 SOURCE = "src/repro_torch/csrc/ssm_scan.cu"
@@ -43,6 +43,7 @@ ssd_intra = obs.instrument_kernel("ssd_intra", _ssd_intra)
 def ssd_intra_cuda(cum: torch.Tensor, xdt: torch.Tensor, Bc: torch.Tensor,
                    Cc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
+    refuse_grad("ssd_intra", cum, xdt, Bc, Cc)
     ts = (cum, xdt, Bc, Cc)
     if cum.device.type != "cuda" or any(t.device != cum.device for t in ts):
         raise ValueError("ssd_intra kernel needs CUDA tensors on one device, "

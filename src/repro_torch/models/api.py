@@ -13,6 +13,7 @@ shared attention of ``long_context`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
@@ -44,9 +45,12 @@ def build_params(cfg: ModelConfig,
 def forward(params: Model, batch: Dict[str, Any], cfg: ModelConfig, *,
             mode: str = "train", caches: Optional[Dict[str, Any]] = None,
             rows: Optional[torch.Tensor] = None,
-            long_context: bool = False):
+            long_context: bool = False, remat: str = "full"):
     """Returns (logits, aux_loss, new_caches).  'chunk' and 'decode'
-    write `caches` in place for the slot ids in `rows` (all when None)."""
+    write `caches` in place for the slot ids in `rows` (all when None).
+    'train' runs with autograd (the other modes under ``no_grad``); for
+    the dense and MoE families `remat` is 'full', 'dots' or 'none', as
+    in ``repro.models.api.forward``."""
     bridge.model_class(cfg)             # other families raise
     if mode == "chunk" and not supports_chunked_prefill(cfg):
         raise NotImplementedError(
@@ -55,12 +59,12 @@ def forward(params: Model, batch: Dict[str, Any], cfg: ModelConfig, *,
         raise NotImplementedError(
             "long_context (zamba2's windowed shared attention) comes with "
             "a later slice of the port")
-    with torch.no_grad():
+    with contextlib.nullcontext() if mode == "train" else torch.no_grad():
         if cfg.family == "hybrid":
             return zamba.zamba_forward(params, batch, cfg, mode=mode,
                                        caches=caches, rows=rows)
         return transformer.lm_forward(params, batch, cfg, mode=mode,
-                                      caches=caches, rows=rows)
+                                      caches=caches, rows=rows, remat=remat)
 
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:

@@ -39,6 +39,44 @@ def add_rmsnorm(x: torch.Tensor, h: Optional[torch.Tensor],
     return _add_rmsnorm_op(x, h, scale, eps)
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """``table[tokens]`` with a deterministic backward: the rows of the
+    gradient are sorted by token (a stable sort), each token's rows are
+    summed in fp32 in that order (``torch.segment_reduce``, one thread
+    per segment and column, no atomics) and written once.  Autograd of
+    plain indexing would scatter-add them (``index_put_`` with
+    accumulate), which this keeps out of the training path so that two
+    runs of a step give the same bits."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, dx):
+        (tokens,) = ctx.saved_tensors
+        flat = tokens.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        uniq, counts = torch.unique_consecutive(flat[order],
+                                                return_counts=True)
+        rows = dx.reshape(-1, dx.shape[-1])[order].float()
+        sums = torch.segment_reduce(rows, "sum", lengths=counts, axis=0)
+        grad = torch.zeros(ctx.table_shape, dtype=ctx.table_dtype,
+                           device=dx.device)
+        grad[uniq] = sums.to(ctx.table_dtype)
+        return grad, None
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; under grad, with the deterministic backward of
+    ``_EmbedLookup``."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbedLookup.apply(table, tokens)
+    return table[tokens]
+
+
 def rope_freqs(head_dim: int, theta: float,
                device: torch.device) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,

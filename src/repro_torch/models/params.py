@@ -14,7 +14,7 @@ so the bridge needs no name heuristics.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, Mapping, Tuple, Union
+from typing import Any, Dict, Iterator, List, Mapping, Tuple, Union
 
 import torch
 from torch import nn
@@ -102,6 +102,18 @@ class ParamTree(nn.Module):
         for name, mod in self._modules.items():
             out[name] = mod.layer(i)
         return out
+
+    def layers(self) -> List[Dict[str, Any]]:
+        """Every layer of this stacked tree, as ``layer(i)`` gives them,
+        but from one ``torch.unbind`` per leaf: its backward stacks the
+        layers' grads in one op, where n ``select`` backwards would each
+        write a zero-filled copy of the whole stack."""
+        per = {name: torch.unbind(getattr(self, name))
+               for name in self.specs}
+        subs = {name: mod.layers() for name, mod in self._modules.items()}
+        return [{**{name: t[i] for name, t in per.items()},
+                 **{name: sub[i] for name, sub in subs.items()}}
+                for i in range(self.n)]
 
     def leaves(self, prefix: str = ""
                ) -> Iterator[Tuple[str, nn.Parameter, Leaf, int]]:

@@ -9,17 +9,28 @@ loop over that axis.  In the 'decode' and 'chunk' modes each layer
 writes its slice of the stacked KV cache IN PLACE (the JAX scan carries
 the cache and returns an updated copy); 'prefill' returns a new stacked
 cache.  The MoE layers' aux losses are summed over layers and stages.
+
+'train' runs with autograd: the layer weights are views from one
+``torch.unbind`` per stacked leaf, the embedding lookup has a
+deterministic backward (``common.embed_lookup``), and ``remat`` follows
+``repro.models.transformer._block``: 'full' recomputes each block in the
+backward (``torch.utils.checkpoint``, non-reentrant), 'dots' does too
+but keeps the outputs of the plain matrix products (the policy of
+``dots_with_no_batch_dims_saveable``), 'none' keeps every activation.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention
 from repro_torch.models import params as P
-from repro_torch.models.common import add_rmsnorm, padded_vocab
+from repro_torch.models.common import (add_rmsnorm, embed_lookup,
+                                       padded_vocab)
 from repro_torch.models.mlp import mlp_forward
 from repro_torch.models.moe import moe_forward, moe_spec
 
@@ -87,10 +98,47 @@ class DecoderLM(P.Model):
         super().__init__(lm_spec(cfg), cfg, dtype=dtype, device=device)
 
 
+REMAT = ("full", "dots", "none")
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat 'dots': keep the outputs of
+    the 2-D matrix products (x @ W), recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block(x, y, lp, positions, cfg: ModelConfig, kind: str, mode: str,
+           cache=None, keep=None):
+    """One layer: the pending residual y is added by norm1's kernel.
+    Returns (x, y, aux or None, new_cache)."""
+    x, h = add_rmsnorm(x, y, lp["norm1"], cfg.norm_eps)
+    h, nc = attention.attn_forward(lp["attn"], h, positions, cfg=cfg,
+                                   mode=mode, cache=cache, keep=keep)
+    x, h2 = add_rmsnorm(x, h, lp["norm2"], cfg.norm_eps)
+    if kind == "moe":
+        y, aux = moe_forward(lp["moe"], h2, cfg)
+    else:
+        y, aux = mlp_forward(lp["mlp"], h2), None
+    return x, y, aux, nc
+
+
+def _train_block(x, y, lp, positions, cfg, kind, remat):
+    def run(x, y, lp, positions):
+        return _block(x, y, lp, positions, cfg, kind, "train")[:3]
+    if remat == "none":
+        return run(x, y, lp, positions)
+    kw = {} if remat == "full" else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_matmuls)}
+    return ckpt.checkpoint(run, x, y, lp, positions, use_reentrant=False,
+                           **kw)
+
+
 def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig, *, mode: str = "train",
                caches: Optional[Dict[str, Any]] = None,
-               rows: Optional[torch.Tensor] = None):
+               rows: Optional[torch.Tensor] = None, remat: str = "full"):
     """Returns (logits [B,S,Vp], aux_loss, new_caches).
 
     mode 'decode': tokens [B,1], positions from caches["len"].
@@ -98,10 +146,13 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
     Both write the caches in place for the slot ids in `rows` (all when
     None); every slot still attends over its own new keys.  The returned
     dict holds the same tensors and the new len.
+    mode 'train': autograd through every layer, `remat` one of REMAT.
     """
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     tokens = batch["tokens"].to(params.device).long()
     B, S = tokens.shape
-    x = params.embed[tokens]
+    x = embed_lookup(params.embed, tokens)
     dev = x.device
     plan = stage_plan(cfg)
 
@@ -128,28 +179,25 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
     # each block's output y is added to the residual stream by the
     # kernel of the next norm (the next layer's norm1, or the final norm)
     y = None
-    for name, n, kind, _dff in plan:
+    for name, _n, kind, _dff in plan:
         stage: P.ParamTree = params[name]
         new_k, new_v = [], []
-        for i in range(n):
-            lp = stage.layer(i)
-            cache = None
-            if lens is not None:
-                kv = caches[name]
-                cache = {"k": kv["k"][i], "v": kv["v"][i], "len": lens}
-            x, h = add_rmsnorm(x, y, lp["norm1"], cfg.norm_eps)
-            h, nc = attention.attn_forward(lp["attn"], h, positions,
-                                           cfg=cfg, mode=mode, cache=cache,
-                                           keep=keep)
-            x, h2 = add_rmsnorm(x, h, lp["norm2"], cfg.norm_eps)
-            if kind == "moe":
-                y, aux_i = moe_forward(lp["moe"], h2, cfg)
-                aux = aux + aux_i
+        for i, lp in enumerate(stage.layers()):
+            if mode == "train":
+                x, y, aux_i = _train_block(x, y, lp, positions, cfg, kind,
+                                           remat)
             else:
-                y = mlp_forward(lp["mlp"], h2)
-            if mode == "prefill":
-                new_k.append(nc["k"])
-                new_v.append(nc["v"])
+                cache = None
+                if lens is not None:
+                    kv = caches[name]
+                    cache = {"k": kv["k"][i], "v": kv["v"][i], "len": lens}
+                x, y, aux_i, nc = _block(x, y, lp, positions, cfg, kind,
+                                         mode, cache, keep)
+                if mode == "prefill":
+                    new_k.append(nc["k"])
+                    new_v.append(nc["v"])
+            if aux_i is not None:
+                aux = aux + aux_i
         if mode == "prefill":
             new_caches[name] = {"k": torch.stack(new_k),
                                 "v": torch.stack(new_v)}

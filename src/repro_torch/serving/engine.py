@@ -397,11 +397,13 @@ class Engine:
     def _write_slot(self, slot: int, one_caches: Dict[str, Any],
                     prompt_len: int) -> None:
         """Copy a prefilled batch=1 cache into pool slot `slot` (k/v at
-        offset 0, cropped to max_len); positions past it keep their
+        offset 0, cropped to the pool's capacity: max_len, or the window
+        of a ring cache, whose first `window` positions are kept as the
+        JAX engine's crop keeps them); positions past it keep their
         contents, masked by the slot's len and overwritten by decode."""
         for name, pool, src in self._pool_leaves(self.caches, one_caches):
             if name in ("k", "v"):
-                n = min(src.shape[2], self.max_len)
+                n = min(src.shape[2], pool.shape[2])
                 pool[:, slot, :n] = src[:, 0, :n].to(pool.dtype)
             else:
                 pool[:, slot] = src[:, 0].to(pool.dtype)

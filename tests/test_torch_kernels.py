@@ -1,8 +1,9 @@
 """The port's kernels: plain versions against the JAX package's Pallas
 kernels (interpret mode) and oracles on the CPU; the CUDA kernels
 (RMSNorm plain and fused with the residual add, flash attention, the
-MoE dispatch, SSD intra-chunk) against the plain versions on a card
-(``gpu`` marker, skipped here).  The MoE and SSD plain versions' CPU
+MoE dispatch, SSD intra-chunk, and the backward kernels of RMSNorm and
+flash attention) against the plain versions on a card (``gpu`` marker,
+skipped here).  The MoE and SSD plain versions' CPU
 parity tests are in ``test_torch_moe.py`` and ``test_torch_hybrid.py``.
 
 JAX is imported inside the CPU parity tests only, so the ``gpu`` tests
@@ -17,12 +18,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref, flash_bwd_ref, flash_fwd_ref)
 from repro_torch.kernels.moe_dispatch import ops as dispatch_ops  # noqa: E402
 from repro_torch.kernels.moe_dispatch.ref import moe_dispatch_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
-    add_rmsnorm_ref, rmsnorm_ref)
+    add_rmsnorm_bwd_ref, add_rmsnorm_ref, rmsnorm_bwd_ref, rmsnorm_ref)
 from repro_torch.kernels.ssm_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import ssd_intra_ref  # noqa: E402
 
@@ -231,7 +233,11 @@ def test_add_rmsnorm_kernel_matches_plain(cuda, R, d, dtype):
     (1, 200, 4, 4, 112, True, None), (1, 65, 4, 4, 112, True, 40),
     (1, 256, 4, 4, 96, True, 40), (1, 1024, 32, 8, 128, True, None),
     (1, 1000, 32, 8, 112, True, None), (1, 2048, 16, 16, 96, True, 200),
-    (2, 1024, 16, 4, 64, True, None)])
+    (2, 1024, 16, 4, 64, True, None),
+    # a window that leaves some rows no key in their first kv tile (the
+    # bf16 kernel once gave those rows NaN at D = 16, 64, 80)
+    (1, 256, 8, 2, 64, True, 64), (1, 200, 8, 2, 80, True, 64),
+    (1, 96, 2, 2, 16, True, 10), (1, 1024, 32, 8, 80, True, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain(cuda, B, S, H, KV, D, causal, window,
                                     dtype):
@@ -434,3 +440,150 @@ def test_kernel_timing_never_syncs_in_graph_capture(cuda):
     assert snap["kernels.rmsnorm.launches"]["value"] == 3
     assert snap["kernels.rmsnorm.time_s"]["count"] == 2
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# backward kernels (training): FA-2 and RMSNorm, against their plain
+# versions on the same inputs; fp32 at 1e-4, bf16 at 2e-2 (the kernel
+# and the plain version both sum in fp32 and round once to bf16)
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_CASES = [  # B, S, H, KV, D, causal, window
+    (1, 128, 4, 2, 80, True, None),      # danube's head_dim, GQA
+    (1, 200, 8, 2, 80, True, 64),        # the window binds, ragged S
+    (2, 96, 4, 4, 96, True, None), (1, 130, 4, 1, 112, True, 33),
+    (1, 64, 4, 4, 128, True, None), (1, 96, 2, 2, 16, True, 10),
+    (1, 64, 4, 2, 32, True, None), (1, 70, 2, 2, 48, False, None),
+    (1, 64, 2, 1, 64, True, 1), (1, 1024, 32, 8, 80, True, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_matches_plain(cuda, B, S, H, KV, D, causal,
+                                        window, dtype):
+    """dq, dk, dv of the kernel against flash_bwd_ref on the same q, k,
+    v, out, lse and dO; the forward kernel's LSE against the plain
+    one; two runs give the same bits; one launch counted."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tdt = DTYPES[dtype]
+    q = torch.randn(B, S, H, D, generator=g, device=cuda).to(tdt)
+    k = torch.randn(B, S, KV, D, generator=g, device=cuda).to(tdt)
+    v = torch.randn(B, S, KV, D, generator=g, device=cuda).to(tdt)
+    do = torch.randn(B, S, H, D, generator=g, device=cuda).to(tdt)
+    out, lse = fa_ops.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, with_lse=True)
+    assert torch.equal(out, fa_ops.flash_attention_cuda(
+        q, k, v, causal=causal, window=window))
+    _, lse_ref = flash_fwd_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+    n0 = fa_ops.bwd_launches
+    got = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                          causal=causal, window=window)
+    again = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                            causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.bwd_launches == n0 + 2
+    want = flash_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                         window=window)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == tdt and torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_autograd_on_cuda_runs_the_kernels(cuda):
+    """Grads through the wrapper on CUDA: the forward writes the LSE,
+    the backward kernel runs once, and the grads equal the plain
+    autograd of attention_ref (fp32)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(1, 96, h, 80, generator=g, device=cuda,
+                           requires_grad=True) for h in (8, 2, 2))
+    do = torch.randn(1, 96, 8, 80, generator=g, device=cuda)
+    n0, b0 = fa_ops.launches, fa_ops.bwd_launches
+    got = torch.autograd.grad(fa_ops.flash_attention(q, k, v, window=40),
+                              (q, k, v), do)
+    assert (fa_ops.launches, fa_ops.bwd_launches) == (n0 + 1, b0 + 1)
+    want = torch.autograd.grad(attention_ref(q, k, v, window=40),
+                               (q, k, v), do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_rmsnorm_autograd_on_cuda_runs_the_kernels(cuda):
+    """Grads through both forms' wrappers on CUDA: each call is its
+    autograd Function, the backward kernel runs once per form that took
+    a gradient through y (none when only the sum did), and the grads
+    equal the plain autograd of the plain versions (fp32)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x, h = (torch.randn(5, 2560, generator=g, device=cuda,
+                        requires_grad=True) for _ in range(2))
+    w = torch.randn(2560, generator=g, device=cuda, requires_grad=True)
+    dy, ds = (torch.randn(5, 2560, generator=g, device=cuda)
+              for _ in range(2))
+    before = dict(rms_ops.bwd_launches_by_form)
+    y = rms_ops.rmsnorm(x, w)
+    s, y2 = rms_ops.add_rmsnorm(x, h, w)
+    assert type(y.grad_fn).__name__ == "_RmsNormBackward"
+    assert type(y2.grad_fn).__name__ == "_AddRmsNormBackward"
+    got = torch.autograd.grad((y * dy).sum() + (s * ds).sum()
+                              + (y2 * dy).sum(), (x, h, w))
+    s_only = torch.autograd.grad((rms_ops.add_rmsnorm(x, h, w)[0]
+                                  * ds).sum(), (x, h))
+    assert rms_ops.bwd_launches_by_form == {
+        "rmsnorm": before["rmsnorm"] + 1,
+        "add_rmsnorm": before["add_rmsnorm"] + 1}
+    sr, yr2 = add_rmsnorm_ref(x, h, w)
+    want = torch.autograd.grad((rmsnorm_ref(x, w) * dy).sum()
+                               + (sr * ds).sum() + (yr2 * dy).sum(),
+                               (x, h, w))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    assert torch.equal(s_only[0], ds) and torch.equal(s_only[1], ds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [1, 33, 4096])
+@pytest.mark.parametrize("d", [2560, 3072, 64, 1000, 16384])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, R, d, dtype, fused):
+    """dx (dh of the fused form) and dscale against the plain backward;
+    two runs give the same bits (no float atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tdt = DTYPES[dtype]
+    x, dy, ds = (torch.randn(R, d, generator=g, device=cuda).to(tdt)
+                 for _ in range(3))
+    w = torch.randn(d, generator=g, device=cuda).to(tdt)
+    before = dict(rms_ops.bwd_launches_by_form)
+    got = rms_ops.rmsnorm_bwd_cuda(x, ds if fused else None, dy, w)
+    again = rms_ops.rmsnorm_bwd_cuda(x, ds if fused else None, dy, w)
+    torch.cuda.synchronize()
+    form = "add_rmsnorm" if fused else "rmsnorm"
+    assert rms_ops.bwd_launches_by_form[form] == before[form] + 2
+    want = (add_rmsnorm_bwd_ref(x, ds, dy, w) if fused
+            else rmsnorm_bwd_ref(x, w, dy))
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == tdt and torch.equal(a, b)
+        # dscale sums R rows: its tolerance grows with sqrt(R)
+        t = tol * (1 + (R ** 0.5 if a.dim() == 1 else 0))
+        torch.testing.assert_close(a.float(), c.float(), atol=t, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_kernels_without_backward_refuse_grad_on_cuda(cuda):
+    x = torch.randn(8, 64, device=cuda, requires_grad=True)
+    eidx = torch.zeros(8, 2, dtype=torch.int64, device=cuda)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        dispatch_ops.moe_dispatch(eidx, x, 2, 8)
+    with torch.no_grad():
+        dispatch_ops.moe_dispatch(eidx, x, 2, 8)
+    cum = torch.zeros(1, 1, 8, 2, device=cuda, requires_grad=True)
+    args = (torch.zeros(1, 1, 8, 2, 64, device=cuda),
+            torch.zeros(1, 1, 8, 64, device=cuda),
+            torch.zeros(1, 1, 8, 64, device=cuda))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ssd_ops.ssd_intra(cum, *args)

@@ -1,8 +1,10 @@
 """The port's serving stack against the JAX package: sampling, the
 scheduler's mask algebra, and the serving-contract workloads of
 tests/test_serving.py through both engines on the same fp32 weights
-(reduced phi3, 2 layers; reduced deepseek-moe-16b, 2 layers, and
-zamba2-7b, 4 layers), plus the serve CLI on the CPU."""
+(reduced phi3, 2 layers; reduced deepseek-moe-16b, 2 layers,
+zamba2-7b, 4 layers, and h2o-danube-1.8b, 2 layers, whose 16-token
+window is shorter than max_len 64, so its ring cache wraps), plus the
+serve CLI on the CPU."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -83,14 +85,21 @@ def test_contract_workload_matches_jax_engine(weights, name):
 
 FAMILY_RUNS = [("deepseek-moe-16b", "chunked"), ("deepseek-moe-16b", "legacy"),
                ("deepseek-moe-16b", "prefix_cache"), ("zamba2-7b", "legacy"),
-               ("zamba2-7b", "sequential")]
+               ("zamba2-7b", "sequential"),
+               # danube's ring cache: auto mode prefills legacy (as the
+               # JAX engine does for a window below max_len); 'legacy'
+               # has a 20-token prompt, past the 16-token window
+               ("h2o-danube-1.8b", "sequential"),
+               ("h2o-danube-1.8b", "recycling"),
+               ("h2o-danube-1.8b", "legacy")]
 
 
 @pytest.fixture(scope="module")
 def family_weights():
     """{arch: (jax cfg, port cfg, jax params, port model)}, built once."""
     out = {}
-    for arch, layers in (("deepseek-moe-16b", 2), ("zamba2-7b", 4)):
+    for arch, layers in (("deepseek-moe-16b", 2), ("zamba2-7b", 4),
+                         ("h2o-danube-1.8b", 2)):
         jcfg = jax_reduced_config(arch).replace(num_layers=layers,
                                                 dtype="float32")
         cfg = reduced_config(arch).replace(num_layers=layers,
@@ -115,6 +124,18 @@ def test_family_workload_matches_jax_engine(family_weights, arch, name):
     assert all(len(t) == max_new + 1 for t in got[0])
     if name == "prefix_cache":
         assert got[2]["serving.prefix_cache.hits"] == 4
+
+
+def test_danube_ring_wraps_in_decode_like_jax_engine(family_weights):
+    """24 decode steps take every slot past the 16-token window, so
+    decode writes wrap around the ring: same tokens as the JAX engine."""
+    jcfg, cfg, jparams, model = family_weights["h2o-danube-1.8b"]
+    prompts = [[5, 9, 2], list(range(1, 21)), [7, 1, 3, 8]]
+    kw = dict(n_slots=2)
+    want = _run(JaxEngine, jcfg, jparams, prompts, 24, **kw)
+    got = _run(Engine, cfg, model, prompts, 24, **kw)
+    assert got == want
+    assert all(len(t) == 25 for t in got[0])
 
 
 def test_max_new_contract_and_finish_reason(weights):
