@@ -89,7 +89,10 @@ of JAX and nothing of the ``repro`` package.  In order:
    ``launch.train.main`` (seq 8192, batch 2, microbatch 1, remat full,
    3 steps: finite loss and grad norm, step ms, tokens/s, peak GB),
    one step under the profiler, and each backward kernel timed against
-   its plain version and a library yardstick.
+   its plain version and a library yardstick (flash also on the same
+   work as SDPA's causal backward, at S 4096 where its window cannot
+   bind); the build's registers, stack and spill bytes of every FA-2
+   backward instance are printed and carried in the kernels line.
 
 It prints a ``{"simt": ...}`` line, a ``{"serve": ...}`` line, a
 ``{"timings": ...}`` line, a ``{"train": ...}`` line, one
@@ -1205,6 +1208,9 @@ TRAIN_LR = 3e-5
 # danube's attention and norm at full width: [1, 8192, 32, 80] queries
 # against 8 kv heads under its 4096 window; [8192, 2560] norm rows
 FLASH_BWD_SHAPE = (1, TRAIN_SEQ, 32, 8, 80, 4096)
+# danube's heads at S 4096: its 4096 window cannot bind, so the kernel
+# and SDPA's causal backward (the yardstick) do the same pairs
+SAME_WORK_SHAPE = (1, 4096, 32, 8, 80, 4096)
 NORM_BWD_SHAPE = (TRAIN_SEQ, 2560)
 # normalized error max |got - want| / max |want|: bf16 outputs of both
 # versions are fp32 sums rounded once (one bf16 ulp is 2^-8 of an
@@ -1556,38 +1562,47 @@ def train_timing(m) -> dict:
     CUDA events around eager calls, host included.
     Yardsticks, timed only and never on the path: flash, the backward of
     ``scaled_dot_product_attention`` at S 8192 causal with no window
-    (it takes no window; its kv heads repeated to 32); the norms, the
-    backward of ``F.rms_norm`` (after ``torch.add`` for the fused
-    form)."""
+    (it takes no window; its kv heads repeated to 32), and on the same
+    work at SAME_WORK_SHAPE, where the 4096 window cannot bind, so the
+    kernel and SDPA's causal backward do the same pairs (``same_work``);
+    the norms, the backward of ``F.rms_norm`` (after ``torch.add`` for
+    the fused form)."""
     torch, F, fa, rms = m["torch"], m["F"], m["fa_ops"], m["rms_ops"]
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     bf = torch.bfloat16
     out = {}
-    B, S, H, KV, D, W = FLASH_BWD_SHAPE
-    q, k, v, do = flash_bwd_inputs(torch, g, B, S, H, KV, D, bf)
-    o, lse = fa.flash_attention_cuda(q, k, v, window=W, with_lse=True)
-    qt, kt, vt = (t.transpose(1, 2).repeat_interleave(H // t.shape[2], 1)
-                  .detach().requires_grad_() for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2)
-    kernel = lambda: fa.flash_attention_bwd_cuda(  # noqa: E731
-        q, k, v, o, lse, do, window=W)
-    plain = lambda: m["flash_bwd_ref"](  # noqa: E731
-        q, k, v, o, lse, do, window=W)
-    library = lambda: torch.autograd.grad(  # noqa: E731
-        lib_out, (qt, kt, vt), dot, retain_graph=True)
-    pairs = _pairs(S, W)
-    out["flash_attention_bwd"] = {
-        "shape": [B, S, H, KV, D], "window": W, "dtype": "bfloat16",
-        "pairs": pairs, "library_pairs": _pairs(S, None),
-        "ms": _time_ms(torch, kernel, reps=5, inner=2),
-        "plain_ms": _time_ms(torch, plain, reps=3, inner=1),
-        "library_ms": _time_ms(torch, library, reps=5, inner=4),
-        # necessary work: S, dP, dV, dQ, dK products, 2 D flops each per
-        # pair and head (the kernel recomputes S and dP: 14 D)
-        **_bound(2 * (4 * S * H * D + 4 * S * KV * D) + 4 * B * H * S,
-                 10 * D * pairs * H, BF16_FLOPS)}
-    del q, k, v, do, o, lse, qt, kt, vt, lib_out, dot
+    flash = {}
+    for key, (B, S, H, KV, D, W) in (("", FLASH_BWD_SHAPE),
+                                     ("same_work", SAME_WORK_SHAPE)):
+        q, k, v, do = flash_bwd_inputs(torch, g, B, S, H, KV, D, bf)
+        o, lse = fa.flash_attention_cuda(q, k, v, window=W, with_lse=True)
+        qt, kt, vt = (t.transpose(1, 2).repeat_interleave(H // t.shape[2], 1)
+                      .detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2)
+        kernel = lambda: fa.flash_attention_bwd_cuda(  # noqa: E731
+            q, k, v, o, lse, do, window=W)
+        plain = lambda: m["flash_bwd_ref"](  # noqa: E731
+            q, k, v, o, lse, do, window=W)
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (qt, kt, vt), dot, retain_graph=True)
+        pairs = _pairs(S, W)
+        row = {
+            "shape": [B, S, H, KV, D], "window": W, "dtype": "bfloat16",
+            "pairs": pairs, "library_pairs": _pairs(S, None),
+            "ms": _time_ms(torch, kernel, reps=5, inner=4),
+            "library_ms": _time_ms(torch, library, reps=5, inner=4),
+            # necessary work: S, dP, dV, dQ, dK products, 2 D flops each
+            # per pair and head (the kernel recomputes S and dP: 14 D)
+            **_bound(2 * (4 * S * H * D + 4 * S * KV * D) + 4 * B * H * S,
+                     10 * D * pairs * H, BF16_FLOPS)}
+        if key:
+            flash[key] = row
+        else:
+            row["plain_ms"] = _time_ms(torch, plain, reps=3, inner=1)
+            flash.update(row)
+        del q, k, v, do, o, lse, qt, kt, vt, lib_out, dot
+    out["flash_attention_bwd"] = flash
     rows, d = NORM_BWD_SHAPE
     x, h, dy, ds = (torch.randn(rows, d, generator=g, device="cuda").to(bf)
                     for _ in range(4))
@@ -1931,6 +1946,41 @@ def simt_phase(m) -> dict:
                     for c, v in cells.items()}}
 
 
+def ptxas_usage(report: str, pattern: str = r"flash_bwd_") -> dict:
+    """Registers, stack frame and spill bytes of each kernel in an ``nvcc
+    -Xptxas -v`` report whose name matches `pattern`, by a short name
+    (kernel<type, template ints>); ``warnings``: ptxas's warnings that
+    mention wgmma, and its notes that it serialized wgmma instructions."""
+    out: dict = {"warnings": [ln.strip() for ln in report.splitlines()
+                              if "wgmma" in ln and ("arning" in ln
+                                                    or "serialized" in ln)]}
+    fn = None
+    for ln in report.splitlines():
+        hit = re.search(r"Compiling entry function '(\S+)'", ln)
+        if hit:
+            name = re.search(r"(flash_bwd_[a-z_]+)I(.*)", hit.group(1))
+            fn = None
+            if name and re.search(pattern, name.group(1)):
+                rest = name.group(2)
+                dt = ("bf16," if rest.startswith("13__nv_bfloat16") else
+                      "fp32," if rest.startswith("f") else "")
+                ints = re.findall(r"Li(\d+)E", rest.split("Ev")[0])
+                fn = f"{name.group(1)}<{dt}{','.join(ints)}>"
+                out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+        if spill:
+            out[fn].update(zip(("stack_frame", "spill_stores",
+                                "spill_loads"), map(int, spill.groups())))
+        regs = re.search(r"Used (\d+) registers", ln)
+        if regs:
+            out[fn]["registers"] = int(regs.group(1))
+    return out
+
+
 def _card() -> str:
     try:
         res = subprocess.run(
@@ -1966,6 +2016,9 @@ def main() -> int:
         print(f"[build] {name}: {regs}", file=sys.stderr)
     print(f"[build] {len(reports)} kernels in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    bwd_ptxas = ptxas_usage(reports["flash_attention_bwd"])
+    print(f"[build] flash_attention_bwd registers and spills: "
+          f"{json.dumps(bwd_ptxas)}", flush=True)
 
     simt = simt_phase(m)
     print(json.dumps({"simt": simt}), flush=True)
@@ -2040,6 +2093,8 @@ def main() -> int:
             "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "call_ms": t.get("call_ms")})
+        if name == "flash_attention_bwd":
+            kernels[-1].update(same_work=t["same_work"], ptxas=bwd_ptxas)
         _check(by_path["train"] > 0, f"{name}: no launch on the train path")
     # the SIMT machine: its main path is the Fig 9 grid; timed at
     # vecadd/8w8t (one launch), its plain loop on the same launch (host

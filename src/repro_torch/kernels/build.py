@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use by ``nvcc`` into ``build/repro_torch/`` at the root of the
 checkout (listed in ``.gitignore``), then loaded with ``ctypes``.  No
 PyTorch headers are included, so a build takes seconds.  A source may
-add flags of its own (`EXTRA_FLAGS`).  The library file name carries a
-digest of the source and its flags, so an edited source is rebuilt and
-a stale library is never loaded.
+add flags of its own (`EXTRA_FLAGS`) and include headers from
+``csrc/`` (``#include "x.cuh"``).  The library file name carries a
+digest of the source, every header it includes from ``csrc/`` and its
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.
 
 ``build()`` starts one ``nvcc`` per source, all at once, and waits for
 them together.  Nothing here runs at import time.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -55,10 +58,32 @@ def flags(name: str) -> Tuple[str, ...]:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header it includes, directly or
+    through another header, from ``csrc/`` (quoted includes)."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.is_file():
+                todo.append(dep)
+    return found
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:

@@ -16,7 +16,9 @@ the call runs as a ``torch.autograd.Function`` that saves (q, k, v,
 out, lse): the forward kernel also writes the fp32 row log-sum-exp, and
 the backward is the hand-written FA-2 kernel
 (``csrc/flash_attention_bwd.cu``, ``flash_attention_bwd_cuda``,
-counted in ``bwd_launches``).  On the CPU plain autograd runs through
+counted in ``bwd_launches``), on the same two routes: bf16 on wgmma
+tiles fed by TMA (P and dS rounded to bf16 before their products), fp32
+on FMA.  On the CPU plain autograd runs through
 ``attention_ref``.  ``ref.flash_fwd_ref`` / ``ref.flash_bwd_ref`` are
 the kernels' plain versions in the tests and ``chip_smoke.py``.
 """

@@ -10,6 +10,7 @@ JAX is imported inside the CPU parity tests only, so the ``gpu`` tests
 also run on a machine without JAX:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels.py``.
 """
+import shutil
 import types
 
 import numpy as np
@@ -174,6 +175,34 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         ssd_ops.ssd_intra_cuda(cum, torch.zeros(1, 1, 8, 2, 4),
                                torch.zeros(1, 1, 8, 4),
                                torch.zeros(1, 1, 8, 4))
+
+
+def test_lib_path_covers_included_headers(tmp_path, monkeypatch):
+    """Both flash sources include csrc/hopper.cuh: an edit of that header,
+    or of a header it includes, changes both libraries' paths (so a
+    stale library is never loaded) and leaves a source that includes
+    neither alone."""
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = ("flash_attention", "flash_attention_bwd", "rmsnorm")
+    assert [p.name for p in build.sources("flash_attention_bwd")] == [
+        "flash_attention_bwd.cu", "hopper.cuh"]
+
+    def paths():
+        return [build.lib_path(n) for n in names]
+
+    hdr, inner = csrc / "hopper.cuh", csrc / "inner.cuh"
+    first = paths()
+    hdr.write_text(hdr.read_text() + '\n#include "inner.cuh"\n')
+    inner.write_text("// one\n")
+    second = paths()
+    inner.write_text("// two\n")
+    third = paths()
+    for a, b in ((first, second), (second, third)):
+        assert a[0] != b[0] and a[1] != b[1] and a[2] == b[2]
+    assert len({p.name for p in first + second + third}) == 7
 
 
 # the model widths (deepseek, phi3, zamba2, zamba2's inner norm) and
@@ -444,8 +473,10 @@ def test_kernel_timing_never_syncs_in_graph_capture(cuda):
 
 # ---------------------------------------------------------------------------
 # backward kernels (training): FA-2 and RMSNorm, against their plain
-# versions on the same inputs; fp32 at 1e-4, bf16 at 2e-2 (the kernel
-# and the plain version both sum in fp32 and round once to bf16)
+# versions on the same inputs; fp32 at 1e-4; bf16 at 2e-2 (the flash
+# kernel rounds P and dS to bf16 before the dV, dK and dQ products, as
+# the tensor cores take them, where the plain version keeps them in fp32;
+# both sum in fp32 and round once to bf16)
 # ---------------------------------------------------------------------------
 
 FLASH_BWD_CASES = [  # B, S, H, KV, D, causal, window
@@ -454,22 +485,43 @@ FLASH_BWD_CASES = [  # B, S, H, KV, D, causal, window
     (2, 96, 4, 4, 96, True, None), (1, 130, 4, 1, 112, True, 33),
     (1, 64, 4, 4, 128, True, None), (1, 96, 2, 2, 16, True, 10),
     (1, 64, 4, 2, 32, True, None), (1, 70, 2, 2, 48, False, None),
-    (1, 64, 2, 1, 64, True, 1), (1, 1024, 32, 8, 80, True, 256)]
+    (1, 64, 2, 1, 64, True, 1), (1, 1024, 32, 8, 80, True, 256),
+    (2, 333, 4, 2, 80, True, None),      # ragged last query and key tiles
+    (1, 300, 4, 2, 80, True, 40),        # a window below 64
+    (1, 384, 4, 1, 96, True, 128),       # a window of exactly 128
+    (1, 40, 4, 2, 80, True, None),       # S < 64
+    (2, 17, 2, 1, 128, False, 8),        # S < 64, no causal mask
+    (1, 150, 4, 2, 64, False, 50),       # a window, no causal mask
+    (1, 256, 32, 1, 80, True, 100)]      # KV = 1, G = 32
+
+
+def _qkv(g, B, S, H, KV, D, dtype, fused, device):
+    """q [B,S,H,D], k and v [B,S,KV,D]: separate contiguous tensors, or
+    strided views of one fused [B, S, (H + 2 KV) D] projection."""
+    if not fused:
+        return tuple(torch.randn(B, S, h, D, generator=g, device=device)
+                     .to(dtype) for h in (H, KV, KV))
+    qkv = torch.randn(B, S, (H + 2 * KV) * D, generator=g,
+                      device=device).to(dtype)
+    q, k, v = qkv.split((H * D, KV * D, KV * D), dim=-1)
+    return (q.unflatten(-1, (H, D)), k.unflatten(-1, (KV, D)),
+            v.unflatten(-1, (KV, D)))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("B,S,H,KV,D,causal,window", FLASH_BWD_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_bwd_kernel_matches_plain(cuda, B, S, H, KV, D, causal,
-                                        window, dtype):
+                                        window, dtype, fused):
     """dq, dk, dv of the kernel against flash_bwd_ref on the same q, k,
     v, out, lse and dO; the forward kernel's LSE against the plain
-    one; two runs give the same bits; one launch counted."""
+    one; two runs give the same bits; one launch counted.  `fused`: q, k
+    and v are strided views of one projection."""
     g = torch.Generator(device=cuda).manual_seed(1)
     tdt = DTYPES[dtype]
-    q = torch.randn(B, S, H, D, generator=g, device=cuda).to(tdt)
-    k = torch.randn(B, S, KV, D, generator=g, device=cuda).to(tdt)
-    v = torch.randn(B, S, KV, D, generator=g, device=cuda).to(tdt)
+    q, k, v = _qkv(g, B, S, H, KV, D, tdt, fused, cuda)
+    assert fused == (not q.is_contiguous())
     do = torch.randn(B, S, H, D, generator=g, device=cuda).to(tdt)
     out, lse = fa_ops.flash_attention_cuda(q, k, v, causal=causal,
                                            window=window, with_lse=True)

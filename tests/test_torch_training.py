@@ -77,7 +77,9 @@ def _np(x):
 
 FLASH_BWD_CASES = [  # (B, S, H, KV, D, window)
     (2, 32, 4, 2, 16, None), (1, 40, 4, 1, 32, 7), (2, 24, 8, 2, 16, 24),
-    (1, 48, 2, 2, 16, 5)]
+    (1, 48, 2, 2, 16, 5),
+    (1, 13, 8, 1, 16, None),   # S below one chunk, KV 1
+    (1, 40, 4, 2, 16, 16)]     # a window of exactly one chunk
 
 
 @pytest.mark.parametrize("B,S,H,KV,D,window", FLASH_BWD_CASES)
