@@ -34,9 +34,14 @@ of JAX and nothing of the ``repro`` package.  In order:
    head_dim 112, and in bf16 at long prefills of 4096 tokens and a
    ragged S = 200; SSD at chunks of 1, 64, 65, 128 and 256 tokens, at
    16 chunks of 256 and with steep decay, and its worst error /
-   tolerance against an fp64 plain version over three seeds), and
-   reduced fp32 phi3, deepseek-moe-16b and zamba2-7b prefills on the
-   card (kernels) against the same models on the CPU (plain versions);
+   tolerance against an fp64 plain version over three seeds; flash
+   non-causal with Sk != S at whisper's encoder and cross-attention
+   shapes, also from buffers whose rows past S hold NaN, causal at D 64
+   and 128 with GQA at qwen's, minitron's and internvl's shapes, and
+   RMSNorm at d 384 to 8192), and reduced fp32 phi3, deepseek-moe-16b,
+   zamba2-7b, xlstm-125m, whisper-tiny and internvl2-76b prefills on
+   the card (kernels) against the same models on the CPU (plain
+   versions);
 4. serves three models at full published width in bf16, one on the
    card at a time, with random weights from a seeded generator:
    ``phi3-mini-3.8b`` (a) chunked prefill, 4 requests on 2 slots behind
@@ -54,7 +59,17 @@ of JAX and nothing of the ``repro`` package.  In order:
    (c') paged, as (a'), then (c) again, (d) legacy, as (b);
    ``zamba2-7b`` (e) legacy, prompts of exactly 64 and 128 tokens, so
    no pad enters the recurrent state, and its engine must refuse the
-   paged layout.
+   paged layout; then, each on an otherwise empty card,
+   ``qwen2.5-32b`` (~65.5 GB of weights) and ``minitron-4b`` chunked
+   and legacy, as (a) and (b), and ``olmoe-1b-7b`` chunked; and the
+   families the serving engine does not run (in neither package)
+   through ``api.forward``, a 64-token prompt then 8 greedy decode
+   steps: ``xlstm-125m``, ``whisper-tiny`` with 1500 stub frames and
+   the ``internvl2-76b`` backbone with 256 stub patches, its depth cut
+   to 24 of 80 layers (full width; the whole model is 139 GB in bf16),
+   each also with its prefill + decode against a longer prefill
+   (cosine >= 0.99).  Every path's tokens are printed as a digest
+   (``token_digest``), so that runs can be compared path by path.
    Each path runs with every kernel's launch count set to 0 just before
    it and read just after (flash's per route too: bf16 serving must
    run it on the wgmma route only);
@@ -73,8 +88,10 @@ of JAX and nothing of the ``repro`` package.  In order:
    per call (``ms``, from CUDA-graph replays; for the plain MoE
    dispatch, which syncs with the host and cannot be captured, the sum
    of its kernels' times under the profiler) and time per eager call
-   (``call_ms``, host included); flash also at the long prefills; SSD
-   also at 16 chunks of 256.
+   (``call_ms``, host included); flash also at the long prefills and at
+   the new paths' shapes (whisper's encoder and cross-attention, D 128
+   with GQA against SDPA's ``enable_gqa``), RMSNorm also at d 384,
+   5120 and 8192; SSD also at 16 chunks of 256.
 
 7. trains ``h2o-danube-1.8b`` (the train phase, after the serve
    models are freed): the two backward kernels (FA-2 flash, RMSNorm in
@@ -118,6 +135,9 @@ BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 TF32X3_FLOPS = 495e12 / 3          # fp32 products as 3 TF32 tensor-core passes
 PHI3, DEEPSEEK, ZAMBA = "phi3-mini-3.8b", "deepseek-moe-16b", "zamba2-7b"
+QWEN, MINITRON, OLMOE = "qwen2.5-32b", "minitron-4b", "olmoe-1b-7b"
+XLSTM, WHISPER, INTERNVL = "xlstm-125m", "whisper-tiny", "internvl2-76b"
+INTERNVL_LAYERS = 24    # of 80: the full backbone is 139 GB in bf16
 KERNELS = ("rmsnorm", "add_rmsnorm", "flash_attention", "moe_dispatch",
            "ssd_intra")
 BWD_KERNELS = ("flash_attention_bwd", "rmsnorm_bwd", "add_rmsnorm_bwd")
@@ -353,6 +373,39 @@ def ssd_inputs(torch, g, nc, Q, H=112, P=64, N=64, rate=0.1):
 # phases
 # ---------------------------------------------------------------------------
 
+def dispatch_checks(m, g, arch: str, Ts) -> None:
+    """The MoE dispatch against its plain version, bit-exact, at `arch`'s
+    widths, for each token count T in `Ts`, bf16 and fp32: C tight (one
+    average expert's load, so popular experts drop pairs), the model's
+    capacity, and ample (C = T: no expert can overflow)."""
+    torch = m["torch"]
+    cfg = m["get_config"](arch)
+    E, k, d = cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model
+    drops = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for T in Ts:
+            x, eidx = dispatch_inputs(torch, g, T, d, E, k, dt)
+            for kind, C in (("tight", max(1, T * k // E)),
+                            ("model", m["moe_capacity"](T, cfg)),
+                            ("ample", T)):
+                got = m["dispatch_ops"].moe_dispatch_cuda(eidx, x, E, C)
+                torch.cuda.synchronize()
+                want = m["moe_dispatch_ref"](eidx, x, E, C)
+                for name, a, b in zip(("buf", "dest_tk", "counts"), got,
+                                      want):
+                    _check(a.dtype == b.dtype and torch.equal(a, b),
+                           f"moe_dispatch {arch} {dt} T={T} C={C}: {name} "
+                           f"not bit-exact")
+                drops[f"{T}/{kind}"] = int((got[1] == E * C).sum())
+                del got, want
+            del x, eidx
+    _check(all(drops[f"{T}/ample"] == 0 for T in Ts)
+           and all(drops[f"{T}/tight"] > 0 for T in Ts if T >= 64),
+           f"moe_dispatch {arch}: dropped pairs {drops}")
+    print(f"[kernels] moe_dispatch {arch} (E {E}, top-{k}, d {d}) dropped "
+          f"pairs (last dtype): {drops}", flush=True)
+
+
 def kernel_phase(m) -> dict:
     """Each kernel against its plain version at the main paths' shapes."""
     torch = m["torch"]
@@ -407,33 +460,11 @@ def kernel_phase(m) -> dict:
         del q, k, v, got, want
     # the MoE dispatch at deepseek's widths (E = 64, top-6, d = 2048):
     # decode, chunk and bucket token counts and a 4096-token prefill
-    # (N = 24576 pairs); C tight (one average expert's load, so popular
-    # experts drop pairs), the model's capacity, and ample (C = T: no
-    # expert can overflow)
-    cfg = m["get_config"](DEEPSEEK)
-    drops = {}
-    for dt in (torch.bfloat16, torch.float32):
-        for T in (1, 2, 64, 128, 4096):
-            x, eidx = dispatch_inputs(torch, g, T, 2048, 64, 6, dt)
-            for kind, C in (("tight", max(1, T * 6 // 64)),
-                            ("model", m["moe_capacity"](T, cfg)),
-                            ("ample", T)):
-                got = m["dispatch_ops"].moe_dispatch_cuda(eidx, x, 64, C)
-                torch.cuda.synchronize()
-                want = m["moe_dispatch_ref"](eidx, x, 64, C)
-                for name, a, b in zip(("buf", "dest_tk", "counts"), got,
-                                      want):
-                    _check(a.dtype == b.dtype and torch.equal(a, b),
-                           f"moe_dispatch {dt} T={T} C={C}: {name} not "
-                           f"bit-exact")
-                drops[f"{T}/{kind}"] = int((got[1] == 64 * C).sum())
-                del got, want
-            del x, eidx
-    _check(all(drops[f"{T}/ample"] == 0 for T in (1, 2, 64, 128, 4096))
-           and all(drops[f"{T}/tight"] > 0 for T in (64, 128, 4096)),
-           f"moe_dispatch: dropped pairs {drops}")
-    print(f"[kernels] moe_dispatch dropped pairs (last dtype): {drops}",
-          flush=True)
+    # (N = 24576 pairs); then at olmoe-1b-7b's (E = 64, top-8, d = 2048)
+    # on its serve path's token counts, from a generator of its own
+    dispatch_checks(m, g, DEEPSEEK, (1, 2, 64, 128, 4096))
+    dispatch_checks(m, torch.Generator(device="cuda").manual_seed(SEED + 6),
+                    OLMOE, (1, 2, 32, 64, 128, 4096))
     # SSD at zamba2's prefill chunks, one-token chunks, its 4096-token
     # context (16 chunks of 256), and steep decay (cum steps to -10: exp
     # past the diagonal overflows, so a mask applied after exp gives NaN)
@@ -463,7 +494,122 @@ def kernel_phase(m) -> dict:
             del y1, s1
         del args, y, s, yr, sr
     ssd_error_survey(m)
+    errs["new_shapes"], errs["noncausal_normalized"] = new_shape_checks(m)
+    for key, e in errs["new_shapes"].items():
+        name = key.split()[0]
+        errs[name] = max(errs[name], e)
     return errs
+
+
+# (S, Sk, H, KV, D, causal) of the flash calls on the paths that
+# whisper-tiny, qwen2.5-32b, minitron-4b and internvl2-76b add
+FLASH_NEW = {
+    "whisper encoder [1,1500,6,64] non-causal":
+        (1500, 1500, 6, 6, 64, False),
+    "whisper cross [1,64,6,64]x[1,1500,6,64]":
+        (64, 1500, 6, 6, 64, False),
+    "whisper cross [1,65,6,64]x[1,1500,6,64]":
+        (65, 1500, 6, 6, 64, False),
+    "whisper decoder [1,64,6,64] causal": (64, 64, 6, 6, 64, True),
+    "qwen [1,128,40,128] kv 8 causal": (128, 128, 40, 8, 128, True),
+    "minitron [1,128,24,128] kv 8 causal": (128, 128, 24, 8, 128, True),
+    "internvl [1,320,64,128] kv 8 causal": (320, 320, 64, 8, 128, True)}
+# (rows, d) of the norms those paths add: whisper (d 384; 1500 encoder
+# rows), xlstm (d 768, the mLSTM's inner 1536), minitron 3072, qwen
+# 5120, internvl 8192
+NORM_NEW = ((2, 384), (64, 384), (1500, 384), (64, 768), (64, 1536),
+            (128, 3072), (2, 5120), (128, 5120), (2, 8192), (320, 8192))
+
+
+# non-causal flash spreads each row's softmax over all Sk keys, so |o|
+# is small (RMS about 0.04 at Sk 1500) and an absolute bound is loose:
+# these rows are also held to max |got - want| / max |want| (bf16: a
+# few roundings of the output, 2^-9 of an element each; fp32: the order
+# of the sums), and the plain version with the last SPREAD_DROP keys
+# left out (a kernel that loses a ragged last kv tile: 28 keys is the
+# least last tile of any route at Sk 1500) must read above the bound
+SPREAD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+SPREAD_DROP = 28
+
+
+def _spread_check(m, q, k, v, got, want, name, what) -> dict:
+    """{"normalized_err", "control"} of one non-causal call (SPREAD_TOL)."""
+    torch = m["torch"]
+    tol = SPREAD_TOL[name]
+    _, rel = _rel_err(torch, got, want, tol, f"flash {what} {name}")
+    Sk = k.shape[1] - SPREAD_DROP
+    cut = m["attention_ref"](q, k[:, :Sk], v[:, :Sk], causal=False)
+    ctrl = float((cut.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+    _check(ctrl > tol, f"flash {what} {name}: the plain version without "
+           f"its last {SPREAD_DROP} keys reads {ctrl}, not above {tol}")
+    return {"normalized_err": rel, "control": ctrl}
+
+
+def new_shape_checks(m) -> tuple:
+    """Flash and RMSNorm against their plain versions at the shapes the
+    new paths give them, bf16 and fp32: flash non-causal with Sk != S
+    (whisper's encoder and cross-attention), causal at D 64 and 128
+    with GQA; the encoder shape again with q, k and v cut from buffers
+    whose rows past S hold NaN, so a load past S or a key past Sk that
+    is not masked shows.  Returns ({"<kernel> <shape> <dtype>": max abs
+    error}, {"<shape> <dtype>": _spread_check of each non-causal
+    call})."""
+    torch, fa = m["torch"], m["fa_ops"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    out, spread = {}, {}
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        name = str(dt).replace("torch.", "")
+        for what, (S, Sk, H, KV, D, causal) in FLASH_NEW.items():
+            q = torch.randn(1, S, H, D, generator=g, device="cuda").to(dt)
+            k, v = (torch.randn(1, Sk, KV, D, generator=g, device="cuda")
+                    .to(dt) for _ in range(2))
+            got = fa.flash_attention_cuda(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            want = m["attention_ref"](q, k, v, causal=causal)
+            out[f"flash_attention {what} {name}"] = _max_err(
+                torch, got, want, tol, f"flash {what} {name}")
+            if not causal:
+                spread[f"{what} {name}"] = _spread_check(
+                    m, q, k, v, got, want, name, what)
+            del q, k, v, got, want
+        # NaN past row 1500 of each buffer: the kernel reads [:1500]
+        bufs = [torch.full((1, 1600, 6, 64), float("nan"), device="cuda",
+                           dtype=dt) for _ in range(3)]
+        for b in bufs:
+            b[:, :1500] = torch.randn(1, 1500, 6, 64, generator=g,
+                                      device="cuda").to(dt)
+        q, k, v = (b[:, :1500] for b in bufs)
+        got = fa.flash_attention_cuda(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        want = m["attention_ref"](q, k, v, causal=False)
+        what = "encoder, NaN past S and Sk"
+        out[f"flash_attention {what} {name}"] = _max_err(
+            torch, got, want, tol, f"flash {what} {name}")
+        spread[f"{what} {name}"] = _spread_check(m, q, k, v, got, want,
+                                                 name, what)
+        del bufs, q, k, v, got, want
+        norm_tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+        for rows, d in NORM_NEW:
+            x, h = (torch.randn(rows, d, generator=g, device="cuda")
+                    .to(dt) for _ in range(2))
+            w = torch.randn(d, generator=g, device="cuda").to(dt)
+            got = m["rms_ops"].rmsnorm_cuda(x, w)
+            s2, y = m["rms_ops"].add_rmsnorm_cuda(x, h, w)
+            torch.cuda.synchronize()
+            what = f"[{rows},{d}] {name}"
+            out[f"rmsnorm {what}"] = _max_err(
+                torch, got, m["rmsnorm_ref"](x, w), norm_tol,
+                f"rmsnorm {what}")
+            _check(torch.equal(s2, x + h),
+                   f"add_rmsnorm {what}: sum not bit-exact")
+            out[f"add_rmsnorm {what}"] = _max_err(
+                torch, y, m["rmsnorm_ref"](x + h, w), norm_tol,
+                f"add_rmsnorm {what}")
+    print(f"[kernels] flash non-causal, max |err| / max |want| (bound "
+          f"{SPREAD_TOL}) and the same without the last {SPREAD_DROP} "
+          f"keys: {json.dumps(spread)}", flush=True)
+    return out, spread
 
 
 def _share(torch, got, want) -> float:
@@ -558,6 +704,35 @@ def reduced_model_phase(m) -> dict:
         out[arch] = {"max_abs_err": _max_err(torch, got.cpu(), want, 1e-3,
                                              f"reduced fp32 {arch}"),
                      "launches": n}
+    # the xlstm, audio and vlm families, with their stub frontends'
+    # embeddings: launches per prefill (xlstm: each block's norm and
+    # each cell's inner norm, no attention; whisper: E encoder and L
+    # decoder layers, flash for the encoder, the decoder's self- and
+    # cross-attention; the vlm backbone as a dense decoder)
+    for arch, layers in ((XLSTM, 8), (WHISPER, 2), (INTERNVL, 2)):
+        cfg = m["reduced_config"](arch).replace(num_layers=layers,
+                                                dtype="float32")
+        cpu = api.build_params(cfg, torch.Generator().manual_seed(SEED),
+                               device="cpu")
+        gpu = bridge.from_numpy(bridge.to_numpy(cpu), cfg, device="cuda")
+        batch = api.synthesize_batch(
+            cfg, m["ShapeConfig"]("p", 64 + cfg.num_patch_tokens, 2,
+                                  "prefill"),
+            torch.Generator().manual_seed(SEED), device="cpu")
+        want, _, _ = api.forward(cpu, batch, cfg, mode="prefill")
+        _zero_counts(m)
+        got, _, _ = api.forward(gpu, batch, cfg, mode="prefill")
+        n = _counts(m)
+        E = cfg.encoder_layers
+        expect = {XLSTM: (0, 1 + layers, layers),
+                  WHISPER: (E + 2 * layers, 2, 2 * E + 3 * layers),
+                  INTERNVL: (layers, 1, 2 * layers)}[arch]
+        _check((n["flash_attention"], n["rmsnorm"], n["add_rmsnorm"])
+               == expect, f"{arch}: launches {n} per prefill, want "
+               f"flash, rmsnorm, add_rmsnorm {expect}")
+        out[arch] = {"max_abs_err": _max_err(torch, got.cpu(), want, 1e-3,
+                                             f"reduced fp32 {arch}"),
+                     "launches": n}
     return out
 
 
@@ -611,6 +786,7 @@ def _serve(m, cfg, params, prompts, max_new, reasons=("max_new",),
            "decode_ticks": snap["serving.decode_ticks"]["value"],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "out": [res[r] for r in rids],
+           "tokens_digest": token_digest([res[r] for r in rids]),
            "reasons": [eng.requests[r].finish_reason for r in rids],
            "launches": launches, "flash_launches_by_route": routes}
     if eng.kv_layout == "paged":
@@ -623,6 +799,14 @@ def _serve(m, cfg, params, prompts, max_new, reasons=("max_new",),
         extra["after"] = after(eng)
     out.update(extra)
     return out
+
+
+def token_digest(out) -> str:
+    """A digest of a path's tokens (a list of per-request token lists):
+    the first 16 hex digits of the SHA-256 of their JSON, so that two
+    runs can be compared by their printed lines."""
+    import hashlib
+    return hashlib.sha256(json.dumps(out).encode()).hexdigest()[:16]
 
 
 def serve_paged(m, cfg, params, prompts, contiguous) -> tuple:
@@ -835,20 +1019,26 @@ def first_token_logits(m, cfg, params, prompt):
     return chunked, legacy
 
 
-def decode_vs_prefill(m, cfg, params, prompt) -> float:
+def decode_vs_prefill(m, cfg, params, prompt, extra=None) -> float:
     """Cosine of prefill(L) + one decode step against the last logits of
-    prefill(L + 1): the SSD kernel, ssd_decode_step, the conv state and
-    the shared block's KV cache together."""
+    prefill(L + 1): for zamba2 the SSD kernel, ssd_decode_step, the conv
+    state and the shared block's KV cache together; for xlstm the
+    chunked mLSTM against its sequential cell; for whisper and the vlm
+    backbone the flash prefill against the cached decode.  `extra`: the
+    stub frontend's embeddings, given to both prefills."""
     torch, api = m["torch"], m["api"]
+    extra = extra or {}
     L = len(prompt) - 1
     toks = torch.tensor([prompt])
-    _, _, caches = api.forward(params, {"tokens": toks[:, :L]}, cfg,
-                               mode="prefill")
-    caches = api.grow_caches(cfg, caches, L + 8)
-    caches["len"] = torch.tensor([L], dtype=torch.int32, device="cuda")
+    first, _, caches = api.forward(params, dict(extra, tokens=toks[:, :L]),
+                                   cfg, mode="prefill")
+    ctx = first.shape[1]            # L, or L + the patches
+    caches = api.grow_caches(cfg, caches, ctx + 8)
+    caches["len"] = torch.tensor([ctx], dtype=torch.int32, device="cuda")
     step, _, _ = api.forward(params, {"tokens": toks[:, L:]}, cfg,
                              mode="decode", caches=caches)
-    full, _, _ = api.forward(params, {"tokens": toks}, cfg, mode="prefill")
+    full, _, _ = api.forward(params, dict(extra, tokens=toks), cfg,
+                             mode="prefill")
     a, b = step[0, -1].float(), full[0, -1].float()
     _check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
            f"{cfg.name}: non-finite logits")
@@ -964,17 +1154,70 @@ def moe_layer_profile(m, cfg, params) -> dict:
     return out
 
 
-def _build_model(m, arch):
+def _build_model(m, arch, layers=None):
+    """The full-width model of `arch` in bf16 from seed 0 (depth cut to
+    `layers` when given), with the free memory before and the peak
+    after its init printed."""
     torch = m["torch"]
     cfg = m["get_config"](arch)
+    full = cfg.num_layers
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    free, total = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = m["api"].build_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     torch.cuda.synchronize()
-    print(f"[serve] {arch} full width, {cfg.num_layers} layers, "
+    depth = (f"{cfg.num_layers} layers" if layers is None else
+             f"{cfg.num_layers} of {full} layers (depth cut)")
+    print(f"[serve] {arch} full width, {depth}, "
           f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f}B params "
-          f"bf16, init {time.perf_counter() - t0:.3f}s", flush=True)
+          f"bf16, init {time.perf_counter() - t0:.3f}s; free before "
+          f"{free / 1e9:.2f} of {total / 1e9:.2f} GB, peak after "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     return cfg, params
+
+
+def forward_path(m, cfg, params, prompt, extra, steps: int = 8) -> dict:
+    """The main path of a family the serving engine does not run (in
+    neither package): ``api.forward`` prefill of `prompt` (with the stub
+    frontend's embeddings `extra`), then `steps` greedy decode steps on
+    the grown caches; every launch count zeroed just before, read just
+    after.  Each step's logits must be finite."""
+    torch, api = m["torch"], m["api"]
+    gc.collect()
+    _zero_counts(m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    logits, _, caches = api.forward(params, dict(extra, tokens=toks), cfg,
+                                    mode="prefill")
+    ctx = logits.shape[1]
+    caches = api.grow_caches(cfg, caches, ctx + steps)
+    out = []
+    for i in range(steps + 1):
+        last = logits[0, -1].float()
+        _check(bool(torch.isfinite(last).all()),
+               f"{cfg.name}: non-finite logits at step {i}")
+        out.append(int(last.argmax()))
+        if i == steps:
+            break
+        logits, _, caches = api.forward(
+            params, {"tokens": torch.tensor([[out[-1]]], dtype=torch.int32,
+                                            device="cuda")},
+            cfg, mode="decode", caches=caches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"arch": cfg.name, "mode": "api.forward",
+            "layers": cfg.num_layers, "prompt_tokens": len(prompt),
+            "context": ctx, "tokens": len(out), "wall_s": wall,
+            "tokens_per_s": len(out) / wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "out": [out], "tokens_digest": token_digest([out]),
+            "launches": _counts(m),
+            "flash_launches_by_route": dict(m["fa_ops"].launches_by_route)}
 
 
 def _free(torch) -> None:
@@ -1065,10 +1308,65 @@ def serve_phase(m) -> dict:
     del params
     _free(torch)
 
-    _check(out["phi3_chunked"]["prefix_cache_hits"] > 0,
-           "no prefix-cache hit in phi3 chunked")
-    _check(out["deepseek_chunked"]["prefix_cache_hits"] > 0,
-           "no prefix-cache hit in deepseek chunked")
+    # the dense configs at full width and depth: qwen2.5-32b (QKV bias,
+    # rope theta 1e6, ~64 GB of weights) first, on an empty card, then
+    # minitron-4b (a 256000-entry vocabulary); both head_dim 128
+    for key, arch in (("qwen", QWEN), ("minitron", MINITRON)):
+        cfg, params = _build_model(m, arch)
+        pa, pb = prompts(cfg)
+        out[f"{key}_chunked"] = _serve(m, cfg, params, pa, 8,
+                                       prefill_mode="chunked",
+                                       prefix_cache_entries=32)
+        out[f"{key}_legacy"] = _serve(m, cfg, params, pb, 8,
+                                      prefill_mode="legacy")
+        peaks = [out[f"{key}_{mode}"]["peak_mem_gb"]
+                 for mode in ("chunked", "legacy")]
+        print(f"[serve] {arch}: max_memory_allocated {peaks[0]:.2f} GB "
+              f"chunked, {peaks[1]:.2f} GB legacy", flush=True)
+        del params
+        _free(torch)
+
+    # olmoe-1b-7b chunked: 64 experts, top 8, no shared expert
+    cfg, params = _build_model(m, OLMOE)
+    pa, _ = prompts(cfg)
+    out["olmoe_chunked"] = _serve(m, cfg, params, pa, 8,
+                                  prefill_mode="chunked",
+                                  prefix_cache_entries=32)
+    del params
+    _free(torch)
+
+    # the families the serving engine does not run: prefill + 8 greedy
+    # decode steps through api.forward, stub frames and patches from
+    # api.synthesize_batch; a generator of their own
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    for key, arch, layers in (("xlstm", XLSTM, None),
+                              ("whisper", WHISPER, None),
+                              ("internvl", INTERNVL, INTERNVL_LAYERS)):
+        cfg, params = _build_model(m, arch, layers)
+        extra = {k: v for k, v in m["api"].synthesize_batch(
+            cfg, m["ShapeConfig"]("p", 64 + cfg.num_patch_tokens, 1,
+                                  "prefill"), g, device="cuda").items()
+            if k != "tokens"}
+        prompt = rng.integers(0, cfg.vocab_size, 65).tolist()
+        out[f"{key}_forward"] = forward_path(m, cfg, params, prompt[:64],
+                                             extra)
+        cos = decode_vs_prefill(m, cfg, params, prompt, extra)
+        _check(cos >= 0.99,
+               f"{arch} prefill+decode vs prefill cosine {cos}")
+        out[f"{key}_decode_vs_prefill_cosine"] = cos
+        if layers is not None:
+            out[f"{key}_forward"]["depth_cut"] = (
+                f"{layers} of {m['get_config'](arch).num_layers} layers")
+        run = out[f"{key}_forward"]
+        print(f"[serve] {arch} ({cfg.num_layers} layers): tokens "
+              f"{run['out'][0]}, decode vs prefill cosine {cos:.6f}, peak "
+              f"{run['peak_mem_gb']:.2f} GB", flush=True)
+        del params, extra
+        _free(torch)
+
+    for key in ("phi3", "deepseek", "qwen", "minitron", "olmoe"):
+        _check(out[f"{key}_chunked"]["prefix_cache_hits"] > 0,
+               f"no prefix-cache hit in {key} chunked")
     norms = ("rmsnorm", "add_rmsnorm")
     expect = {"phi3_chunked": norms, "phi3_chunked_paged": norms,
               "phi3_chunked_again": norms,
@@ -1080,7 +1378,15 @@ def serve_phase(m) -> dict:
               "deepseek_chunked_paged": norms + ("moe_dispatch",),
               "deepseek_chunked_again": norms + ("moe_dispatch",),
               "deepseek_legacy": norms + ("flash_attention", "moe_dispatch"),
-              "zamba_legacy": norms + ("flash_attention", "ssd_intra")}
+              "zamba_legacy": norms + ("flash_attention", "ssd_intra"),
+              "qwen_chunked": norms,
+              "qwen_legacy": norms + ("flash_attention",),
+              "minitron_chunked": norms,
+              "minitron_legacy": norms + ("flash_attention",),
+              "olmoe_chunked": norms + ("moe_dispatch",),
+              "xlstm_forward": norms,
+              "whisper_forward": norms + ("flash_attention",),
+              "internvl_forward": norms + ("flash_attention",)}
     for path, names in expect.items():
         for name in names:
             _check(out[path]["launches"][name] > 0,
@@ -1090,6 +1396,10 @@ def serve_phase(m) -> dict:
                == {"wgmma": out[path]["launches"]["flash_attention"],
                    "fma": 0},
                f"{path}: flash routes {out[path]['flash_launches_by_route']}")
+    out["tokens_digests"] = {p: v["tokens_digest"] for p, v in out.items()
+                             if isinstance(v, dict) and "tokens_digest" in v}
+    print(f"[serve] tokens digests: {json.dumps(out['tokens_digests'])}",
+          flush=True)
     return out
 
 
@@ -1143,6 +1453,41 @@ def timing_phase(m) -> dict:
                      lambda: F.scaled_dot_product_attention(
                          qt, kt, vt, is_causal=True)),
             **_bound(2 * 4 * S * H * D, 4 * D * pairs * H, BF16_FLOPS)})
+    # the flash calls the new paths add: whisper's encoder (non-causal,
+    # S 1500) and cross-attention (64 queries on 1500 keys), qwen's and
+    # internvl's legacy buckets (D 128, GQA); SDPA does the same GQA
+    # attention with enable_gqa.  Marked "new" (not main-path shapes)
+    for S, Sk, H, KV, D, causal in ((1500, 1500, 6, 6, 64, False),
+                                    (64, 1500, 6, 6, 64, False),
+                                    (128, 128, 40, 8, 128, True),
+                                    (320, 320, 64, 8, 128, True)):
+        q = torch.randn(1, S, H, D, generator=g, device="cuda").to(bf)
+        k = torch.randn(1, Sk, KV, D, generator=g, device="cuda").to(bf)
+        v = torch.randn(1, Sk, KV, D, generator=g, device="cuda").to(bf)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = S * (S + 1) // 2 if causal else S * Sk
+        out["flash_attention"].append({
+            "shape": [[1, S, H, D], [1, Sk, KV, D]], "dtype": "bfloat16",
+            "causal": causal, "new": True,
+            **_times(torch,
+                     lambda: m["fa_ops"].flash_attention_cuda(
+                         q, k, v, causal=causal),
+                     lambda: m["attention_ref"](q, k, v, causal=causal),
+                     lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, is_causal=causal,
+                         enable_gqa=KV != H)),
+            **_bound(2 * (2 * S * H * D + 2 * Sk * KV * D),
+                     4 * D * pairs * H, BF16_FLOPS)})
+        del q, k, v, qt, kt, vt
+    for rows, d in ((1500, 384), (128, 5120), (320, 8192)):
+        x = torch.randn(rows, d, generator=g, device="cuda").to(bf)
+        s = torch.randn(d, generator=g, device="cuda").to(bf)
+        out["rmsnorm"].append({
+            "shape": [rows, d], "dtype": "bfloat16", "new": True,
+            **_times(torch, lambda: m["rms_ops"].rmsnorm_cuda(x, s),
+                     lambda: m["rmsnorm_ref"](x, s),
+                     lambda: F.rms_norm(x, (d,), s, 1e-5)),
+            **_bound(2 * (2 * rows * d + d), 4 * rows * d, FP32_FLOPS)})
     # MoE dispatch: deepseek decode (T=2), chunk (2 x 32), legacy bucket
     # at the model's capacity.  The plain version syncs with the host
     # (bincount), so its device time is from the profiler.  No library
@@ -2065,7 +2410,13 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "call_ms": t["call_ms"],
             "plain_call_ms": t["plain_call_ms"]})
+        kernels[-1]["new_shapes"] = {
+            "max_abs_err": {k: v for k, v in errs["new_shapes"].items()
+                            if k.split()[0] == name},
+            "timings": [t for t in timings[name] if t.get("new")]}
         if name == "flash_attention":
+            kernels[-1]["new_shapes"]["normalized_err"] = \
+                errs["noncausal_normalized"]
             routes = m["fa_ops"].ROUTES
             kernels[-1]["routes"] = {str(dt).replace("torch.", ""): r
                                      for dt, r in routes.items()}

@@ -2,18 +2,22 @@
 
 ``from_numpy`` loads the numpy tree of ``repro.models.api.build_params``
 (the caller does the ``jax -> np.asarray`` step, so nothing here sees
-JAX) into the family's model (``transformer.DecoderLM`` for dense and
-MoE, ``zamba.ZambaLM`` for hybrid); ``to_numpy`` gives the tree back.
-The model keeps the JAX tree's paths and stacked [L, ...] leaves, every
-weight as ``x @ W`` [d_in, d_out].
+JAX) into the family's model (``transformer.DecoderLM`` for dense, MoE
+and the VLM backbone, ``zamba.ZambaLM`` for hybrid, ``xlstm_lm.XlstmLM``
+for xlstm, ``whisper.WhisperLM`` for audio); ``to_numpy`` gives the
+tree back.  The model keeps the JAX tree's paths and stacked [L, ...]
+leaves (a stage of no layers has [0, ...] leaves), every weight as
+``x @ W`` [d_in, d_out].
 
 ``init_params`` is the port's own initializer.  Each leaf's init comes
 from its ``params.Leaf`` in the family's spec, which mirrors the JAX
-initializers (``repro/models/{common,attention,mlp,moe,ssm,zamba}.py``):
-norms and ``D`` 1, biases, ``A_log`` and ``dt_bias`` 0, the embedding
-N(0, 0.02), every other weight N(0, 1/fan_in) with the JAX fan-in (W
-for the depthwise convs).  Draws are fp32 from a ``torch.Generator``;
-the router, ``A_log``, ``D`` and ``dt_bias`` stay fp32 in a bf16 model.
+initializers (``repro/models/{common,attention,mlp,moe,ssm,zamba,
+whisper,xlstm}.py``): norms and ``D`` 1, biases, ``A_log`` and
+``dt_bias`` 0, the xLSTM forget-gate biases 3 (mLSTM) and 1 (sLSTM),
+the embedding N(0, 0.02), every other weight N(0, 1/fan_in) with the
+JAX fan-in (W for the depthwise convs).  Draws are fp32 from a
+``torch.Generator``; the router, ``A_log``, ``D``, ``dt_bias`` and the
+xLSTM gate weights and biases stay fp32 in a bf16 model.
 A stacked leaf is filled one layer at a time, so a full-width model
 never holds an fp32 copy of a whole stack.
 """
@@ -27,22 +31,24 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer, zamba
+from repro_torch.models import transformer, whisper, xlstm_lm, zamba
 from repro_torch.models.common import dtype_of
 from repro_torch.models.params import Model
 
-FAMILIES = ("dense", "moe", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "xlstm", "audio")
 
 
 def model_class(cfg: ModelConfig):
-    """The model class of `cfg`'s family; the families not ported yet
-    raise ``NotImplementedError``."""
-    if cfg.family not in FAMILIES:
+    """The model class of `cfg`'s family (an unknown family raises
+    ``NotImplementedError``)."""
+    classes = {"dense": transformer.DecoderLM, "moe": transformer.DecoderLM,
+               "vlm": transformer.DecoderLM, "hybrid": zamba.ZambaLM,
+               "xlstm": xlstm_lm.XlstmLM, "audio": whisper.WhisperLM}
+    if cfg.family not in classes:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (the port runs "
-            f"{', '.join(FAMILIES)}; xlstm, audio and vlm come with later "
-            "slices)")
-    return zamba.ZambaLM if cfg.family == "hybrid" else transformer.DecoderLM
+            f"family {cfg.family!r} is not ported (the port runs "
+            f"{', '.join(FAMILIES)})")
+    return classes[cfg.family]
 
 
 def _leaves(tree: Dict[str, Any], prefix: str = ""
@@ -104,12 +110,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     model = _empty_model(cfg, device, dtype)
     dev = model.device
     for _name, p, leaf, n in model.leaves():
-        if leaf.init in ("ones", "zeros"):
-            p.data.fill_(1.0 if leaf.init == "ones" else 0.0)
+        if leaf.init == "fill":
+            p.data.fill_(leaf.value)
             continue
         std = (0.02 if leaf.init == "embed"
                else 1.0 / math.sqrt(max(leaf.fan_in, 1)))
-        for t in ([p.data[i] for i in range(n)] if n else [p.data]):
+        for t in ([p.data[i] for i in range(n)] if n is not None
+                  else [p.data]):
             w = torch.randn(tuple(leaf.shape), generator=generator,
                             device=dev, dtype=torch.float32)
             t.copy_(w.mul_(std))

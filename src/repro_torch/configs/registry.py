@@ -1,9 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-A copy of ``repro.configs.registry`` that lists only the architectures
-whose family the port runs (the dense, MoE and hybrid-SSM families).
-h2o-danube-1.8b is the dense config the port trains at full width on
-one card.
+A copy of ``repro.configs.registry``: the same ten architectures in the
+same order, and the same reduced configs.
 """
 from __future__ import annotations
 
@@ -12,13 +10,18 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-# arch id -> module name (one file per architecture the port runs)
+# arch id -> module name (one file per assigned architecture)
 _ARCH_MODULES = {
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini_3_8b",
+    "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "minitron-4b": "repro_torch.configs.minitron_4b",
+    "internvl2-76b": "repro_torch.configs.internvl2_76b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -4,11 +4,14 @@ The twin of ``repro.launch.serve``.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch phi3-mini-3.8b --requests 3 --max-new 8
 
-``--arch`` takes the architectures the port runs: ``phi3-mini-3.8b``
-(dense), ``olmoe-1b-7b`` and ``deepseek-moe-16b`` (MoE), ``zamba2-7b``
-(hybrid SSM, legacy prefill only).  Runs on the GPU (``--device
-cuda``, the default) at the config's full width, or on the CPU with
-``--device cpu`` (use ``--reduced`` there).
+``--arch`` takes every architecture of the registry; the engine serves
+the dense (``phi3-mini-3.8b``, ``qwen2.5-32b``, ``h2o-danube-1.8b``,
+``minitron-4b``), MoE (``olmoe-1b-7b``, ``deepseek-moe-16b``) and
+hybrid SSM (``zamba2-7b``, legacy prefill only) configs, and refuses
+``xlstm-125m``, ``whisper-tiny`` and ``internvl2-76b``, which the JAX
+engine cannot serve either (``models.api.forward`` runs them).  Runs
+on the GPU (``--device cuda``, the default) at the config's full
+width, or on the CPU with ``--device cpu`` (use ``--reduced`` there).
 Without a GPU and without ``--device cpu`` it raises.  Weights are
 random, from ``--seed``.  Each request prints ``max_new + 1`` tokens
 (the prefill token plus the decodes).

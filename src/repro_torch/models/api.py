@@ -1,28 +1,33 @@
-"""Public model API: the twin of ``repro.models.api`` for the dense, MoE
-and hybrid-SSM families.
+"""Public model API: the twin of ``repro.models.api``.
 
   build_params(cfg, generator, device, dtype) -> model (seeded init)
   forward(params, batch, cfg, mode, caches)   -> (logits, aux, new_caches)
-  init_caches(cfg, batch, max_len, device)    -> stacked decode caches
+  init_caches(cfg, batch, max_len, device)    -> decode caches
   grow_caches(cfg, caches, max_len)           -> caches padded to max_len
+  input_specs(cfg, shape)                     -> {name: TensorSpec}
+  synthesize_batch(cfg, shape, generator)     -> a random batch of them
 
-Families: dense / moe -> ``transformer``; hybrid (zamba2) -> ``zamba``.
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-The other families, int8 KV caches (``kv_quant``) and the windowed
-shared attention of ``long_context`` raise ``NotImplementedError``.
+Families: dense / moe / vlm -> ``transformer``; hybrid (zamba2) ->
+``zamba``; xlstm -> ``xlstm_lm``; audio (whisper) -> ``whisper``.  The
+modality frontends are stubs, as in the JAX package: a vlm batch
+carries patch embeddings, an audio batch frame embeddings
+(``input_specs``).  Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``.  Int8 KV caches (``kv_quant``) and the
+windowed shared attention of ``long_context`` raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import bridge
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer, zamba
+from repro_torch.models import transformer, whisper, xlstm_lm, zamba
 from repro_torch.models.common import dtype_of
 from repro_torch.models.params import Model
 
@@ -59,10 +64,20 @@ def forward(params: Model, batch: Dict[str, Any], cfg: ModelConfig, *,
         raise NotImplementedError(
             "long_context (zamba2's windowed shared attention) comes with "
             "a later slice of the port")
+    if rows is not None and cfg.family in ("xlstm", "audio"):
+        raise NotImplementedError(
+            f"per-slot writes (rows) for family {cfg.family!r}: the "
+            "serving engine does not run it, in either package")
     with contextlib.nullcontext() if mode == "train" else torch.no_grad():
         if cfg.family == "hybrid":
             return zamba.zamba_forward(params, batch, cfg, mode=mode,
                                        caches=caches, rows=rows)
+        if cfg.family == "xlstm":
+            return xlstm_lm.xlstm_lm_forward(params, batch, cfg, mode=mode,
+                                             caches=caches)
+        if cfg.family == "audio":
+            return whisper.whisper_forward(params, batch, cfg, mode=mode,
+                                           caches=caches)
         return transformer.lm_forward(params, batch, cfg, mode=mode,
                                       caches=caches, rows=rows, remat=remat)
 
@@ -93,8 +108,73 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     if cfg.family == "hybrid":
         return zamba.init_zamba_caches(cfg, batch, max_len, dtype=dt,
                                        device=dev)
+    if cfg.family == "xlstm":
+        return xlstm_lm.init_xlstm_caches(cfg, batch, dtype=dt, device=dev)
+    if cfg.family == "audio":
+        return whisper.init_whisper_caches(cfg, batch, max_len, dtype=dt,
+                                           device=dev)
     return transformer.init_lm_caches(cfg, batch, max_len, dtype=dt,
                                       device=dev)
+
+
+class TensorSpec(NamedTuple):
+    """The shape and dtype of one model input (``jax.ShapeDtypeStruct``
+    in the JAX package)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig
+                ) -> Dict[str, TensorSpec]:
+    """Every model input of a cell, as ``repro.models.api.input_specs``:
+
+    train:   tokens [B,S] + labels [B,S] (+ stub frontend embeddings)
+    prefill: tokens [B,S]                (+ stub frontend embeddings)
+    decode:  tokens [B,1]
+
+    A vlm batch's text is seq_len - num_patch_tokens long, so seq_len is
+    the whole context the backbone sees; an audio batch carries
+    encoder_ctx frames."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = dtype_of(cfg.dtype)
+    tok = torch.int32
+    if shape.kind == "decode":
+        return {"tokens": TensorSpec((B, 1), tok)}
+    specs: Dict[str, TensorSpec] = {}
+    if cfg.family == "vlm":
+        specs["tokens"] = TensorSpec((B, S - cfg.num_patch_tokens), tok)
+        specs["patch_embeds"] = TensorSpec(
+            (B, cfg.num_patch_tokens, cfg.d_model), dt)
+    elif cfg.family == "audio":
+        specs["tokens"] = TensorSpec((B, S), tok)
+        specs["frames"] = TensorSpec((B, cfg.encoder_ctx, cfg.d_model), dt)
+    else:
+        specs["tokens"] = TensorSpec((B, S), tok)
+    if shape.kind == "train":
+        specs["labels"] = TensorSpec((B, S), tok)
+    return specs
+
+
+def synthesize_batch(cfg: ModelConfig, shape: ShapeConfig,
+                     generator: Optional[torch.Generator] = None, *,
+                     device: DeviceLike = None
+                     ) -> Dict[str, torch.Tensor]:
+    """A random batch matching ``input_specs``, drawn in order from
+    `generator` (seed 0 on `device` when None): token ids uniform in
+    [0, vocab), embeddings N(0, 1) in fp32, then cast."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, s in input_specs(cfg, shape).items():
+        if s.dtype == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab_size, s.shape,
+                                      generator=generator, device=dev,
+                                      dtype=s.dtype)
+        else:
+            out[name] = torch.randn(s.shape, generator=generator,
+                                    device=dev).to(s.dtype)
+    return out
 
 
 def grow_caches(cfg: ModelConfig, caches: Dict[str, Any],

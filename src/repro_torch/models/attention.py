@@ -246,31 +246,46 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                  positions: torch.Tensor, *, cfg: ModelConfig, mode: str,
                  cache: Optional[Dict[str, Any]] = None,
                  keep: Optional[torch.Tensor] = None,
-                 window: Optional[int] = None):
+                 window: Optional[int] = None,
+                 kv_override: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None,
+                 bidirectional: bool = False, use_rope: bool = True):
     """Returns (out [B,S,d], new_cache).
 
     mode: 'train' | 'prefill' | 'chunk' | 'decode'.  'chunk' and
     'decode' write the cache in place, except for the slot ids in
     `keep`, whose caches come out unchanged; 'prefill' returns a new
     cache holding this call's k, v.  `window` overrides the config's
-    sliding window (zamba's shared block passes it).
+    sliding window (zamba's shared block passes it).  `kv_override`:
+    (k, v) [B,Skv,KV,D] given, as whisper's cross-attention gives the
+    encoder's: no K/V projection, no cache write, every key attended
+    (decode too).  `bidirectional` drops the causal mask (whisper's
+    encoder); `use_rope` False leaves q and k unrotated.
     """
     B, S, _ = x.shape
     hq, kvh, hd = attn_dims(cfg)
     wdw = window if window is not None else cfg.sliding_window
 
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = common.apply_rope(q.reshape(B, S, hq, hd), positions, cfg.rope_theta)
-    k = common.apply_rope(k.reshape(B, S, kvh, hd), positions,
-                          cfg.rope_theta)
-    v = v.reshape(B, S, kvh, hd)
+    if kv_override is None:
+        k = x @ p["wk"]
+        v = x @ p["wv"]
+        if "bq" in p:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        k = k.reshape(B, S, kvh, hd)
+        v = v.reshape(B, S, kvh, hd)
+        if use_rope:
+            k = common.apply_rope(k, positions, cfg.rope_theta)
+    else:
+        if "bq" in p:
+            q = q + p["bq"]
+        k, v = kv_override
+    q = q.reshape(B, S, hq, hd)
+    if use_rope:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
 
     new_cache = cache
-    if mode in ("chunk", "decode"):
+    if mode in ("chunk", "decode") and kv_override is None:
         assert cache is not None
         kc, vc = cache["k"], cache["v"]
         lens = _lens(cache["len"], B, kc.device)
@@ -289,14 +304,20 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
             kc[keep[:, None], pos[keep]] = saved[0]
             vc[keep[:, None], pos[keep]] = saved[1]
         new_cache = {"k": kc, "v": vc, "len": cache["len"] + S}
+    elif mode == "decode":
+        # cross-attention while decoding: every encoder position
+        out = decode_attention(q, k, v, k.shape[1])
     elif mode in ("prefill", "train"):
-        out = flash_attention(q, k, v, causal=True, window=wdw)
-        if mode == "prefill":
+        out = flash_attention(
+            q, k, v, causal=kv_override is None and not bidirectional,
+            window=wdw)
+        if mode == "prefill" and kv_override is None:
             new_cache = {"k": k, "v": v,
                          "len": torch.tensor(S, dtype=torch.int32,
                                              device=x.device)}
     else:
-        raise ValueError(f"unknown attention mode {mode!r}")
+        raise ValueError(f"unknown attention mode {mode!r}"
+                         + (" with kv_override" if kv_override else ""))
 
     y = out.reshape(B, S, hq * hd) @ p["wo"]
     return y, new_cache

@@ -6,6 +6,7 @@ CPU tensors.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -96,6 +97,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def stack_layers(layers, shape, like: torch.Tensor) -> torch.Tensor:
+    """Per-layer tensors stacked on a new leading axis; no layers: a
+    [0, *shape] tensor in `like`'s dtype (as a scan over no layers
+    gives)."""
+    if layers:
+        return torch.stack(layers)
+    return like.new_zeros((0,) + tuple(shape))
+
+
+def _sinusoid(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """[..., dim]: sin then cos of fp32 `pos` over dim / 2 timescales."""
+    log_timescale = math.log(10_000.0) / (dim // 2 - 1)
+    inv = torch.exp(-log_timescale * torch.arange(
+        dim // 2, dtype=torch.float32, device=pos.device))
+    scaled = pos.float()[..., None] * inv
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)
+
+
+def sinusoidal_positions(length: int, dim: int,
+                         device: Optional[torch.device] = None
+                         ) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings [length, dim] (fp32)."""
+    return _sinusoid(torch.arange(length, dtype=torch.float32,
+                                  device=device), dim)
+
+
+def sinusoid_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """The same embedding at position(s) `pos`: scalar -> [dim], [B] ->
+    [B, dim] (whisper's ``_sinusoid_at``, for decode)."""
+    return _sinusoid(pos, dim)
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

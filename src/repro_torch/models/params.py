@@ -14,7 +14,8 @@ so the bridge needs no name heuristics.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, List, Mapping, Tuple, Union
+from typing import (Any, Dict, Iterator, List, Mapping, Optional, Tuple,
+                    Union)
 
 import torch
 from torch import nn
@@ -26,17 +27,20 @@ from repro_torch.configs.base import ModelConfig
 class Leaf:
     """One parameter: `shape` (per layer, for a stacked leaf), `init`
     one of 'normal' (N(0, 1/fan_in), ``dense_init``), 'embed'
-    (N(0, 0.02)), 'ones', 'zeros'; `fp32` keeps it fp32 in a bf16
-    model (the router, ``A_log``, ``D``, ``dt_bias``)."""
+    (N(0, 0.02)), 'fill' (every element `value`: norms 1, biases 0, the
+    xLSTM forget-gate biases); `fp32` keeps it fp32 in a bf16 model
+    (the router, ``A_log``, ``D``, ``dt_bias``, the xLSTM gates)."""
     shape: Tuple[int, ...]
     init: str = "normal"
     fan_in: int = 0
     fp32: bool = False
+    value: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
 class Stack:
-    """`n` layers of `spec`, each leaf with a leading [n] axis."""
+    """`n` layers of `spec`, each leaf with a leading [n] axis (n may be
+    0: a stage with no layers has leaves of shape [0, ...])."""
     n: int
     spec: Mapping[str, Any]
 
@@ -48,12 +52,16 @@ def dense(*shape: int, fan_in: int) -> Leaf:
     return Leaf(tuple(shape), "normal", fan_in)
 
 
+def full(*shape: int, value: float, fp32: bool = False) -> Leaf:
+    return Leaf(tuple(shape), "fill", fp32=fp32, value=value)
+
+
 def ones(*shape: int, fp32: bool = False) -> Leaf:
-    return Leaf(tuple(shape), "ones", fp32=fp32)
+    return full(*shape, value=1.0, fp32=fp32)
 
 
 def zeros(*shape: int, fp32: bool = False) -> Leaf:
-    return Leaf(tuple(shape), "zeros", fp32=fp32)
+    return full(*shape, value=0.0, fp32=fp32)
 
 
 def mlp_spec(d: int, f: int) -> Dict[str, Leaf]:
@@ -68,18 +76,18 @@ class ParamTree(nn.Module):
     stacked tree as a plain nested dict of views."""
 
     def __init__(self, spec: Spec, *, dtype: torch.dtype,
-                 device: torch.device, n: int = 0):
+                 device: torch.device, n: Optional[int] = None):
         super().__init__()
-        self.n = n
+        self.n = n          # layers of a stacked tree (maybe 0); None: not
         self.specs: Dict[str, Leaf] = {}
         for name, sub in spec.items():
             if isinstance(sub, Stack):
-                if n:
+                if n is not None:
                     raise ValueError(f"{name}: a Stack inside a Stack")
                 self.add_module(name, ParamTree(sub.spec, dtype=dtype,
                                                 device=device, n=sub.n))
             elif isinstance(sub, Leaf):
-                shape = ((n,) if n else ()) + tuple(sub.shape)
+                shape = ((n,) if n is not None else ()) + tuple(sub.shape)
                 dt = torch.float32 if sub.fp32 else dtype
                 self.register_parameter(name, nn.Parameter(
                     torch.empty(shape, dtype=dt, device=device),
@@ -116,8 +124,9 @@ class ParamTree(nn.Module):
                 for i in range(self.n)]
 
     def leaves(self, prefix: str = ""
-               ) -> Iterator[Tuple[str, nn.Parameter, Leaf, int]]:
-        """(dotted name, parameter, Leaf, stack depth or 0) per leaf."""
+               ) -> Iterator[Tuple[str, nn.Parameter, Leaf, Optional[int]]]:
+        """(dotted name, parameter, Leaf, stack depth or None) per
+        leaf."""
         for name, leaf in self.specs.items():
             yield prefix + name, getattr(self, name), leaf, self.n
         for name, mod in self._modules.items():

@@ -1,5 +1,5 @@
-"""Decoder-only transformer, dense and MoE families: the twin of
-``repro.models.transformer``.
+"""Decoder-only transformer, dense, MoE and VLM-backbone families: the
+twin of ``repro.models.transformer``.
 
 Parameters keep the JAX tree's layout: one stacked stage per entry of
 ``stage_plan`` (DeepSeek-MoE's first-k-dense gives a dense ``stage0``
@@ -30,7 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention
 from repro_torch.models import params as P
 from repro_torch.models.common import (add_rmsnorm, embed_lookup,
-                                       padded_vocab)
+                                       padded_vocab, stack_layers)
 from repro_torch.models.mlp import mlp_forward
 from repro_torch.models.moe import moe_forward, moe_spec
 
@@ -92,9 +92,9 @@ class DecoderLM(P.Model):
 
     def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype,
                  device: torch.device):
-        if cfg.family not in ("dense", "moe"):
-            raise ValueError(f"DecoderLM runs the dense and moe families, "
-                             f"not {cfg.family!r}")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"DecoderLM runs the dense, moe and vlm "
+                             f"families, not {cfg.family!r}")
         super().__init__(lm_spec(cfg), cfg, dtype=dtype, device=device)
 
 
@@ -141,6 +141,9 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
                rows: Optional[torch.Tensor] = None, remat: str = "full"):
     """Returns (logits [B,S,Vp], aux_loss, new_caches).
 
+    batch: {"tokens": [B,St]}, and for the vlm family in 'train' and
+    'prefill' "patch_embeds" [B,P,d], which go before the tokens (S =
+    P + St; decode positions count them).
     mode 'decode': tokens [B,1], positions from caches["len"].
     mode 'chunk': tokens [B,C], token i at caches["len"] + i (ragged).
     Both write the caches in place for the slot ids in `rows` (all when
@@ -151,8 +154,12 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     tokens = batch["tokens"].to(params.device).long()
-    B, S = tokens.shape
     x = embed_lookup(params.embed, tokens)
+    if cfg.family == "vlm" and mode not in ("decode", "chunk"):
+        # the stub vision frontend's patch embeddings go first
+        patches = batch["patch_embeds"].to(device=x.device, dtype=x.dtype)
+        x = torch.cat([patches, x], dim=1)
+    B, S = x.shape[:2]
     dev = x.device
     plan = stage_plan(cfg)
 
@@ -199,8 +206,9 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
             if aux_i is not None:
                 aux = aux + aux_i
         if mode == "prefill":
-            new_caches[name] = {"k": torch.stack(new_k),
-                                "v": torch.stack(new_v)}
+            one = (B, S) + attention.attn_dims(cfg)[1:]
+            new_caches[name] = {"k": stack_layers(new_k, one, x),
+                                "v": stack_layers(new_v, one, x)}
         elif lens is not None:
             new_caches[name] = caches[name]
 

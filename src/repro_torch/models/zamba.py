@@ -20,7 +20,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, ssm
 from repro_torch.models import params as P
-from repro_torch.models.common import add_rmsnorm, padded_vocab
+from repro_torch.models.common import (add_rmsnorm, padded_vocab,
+                                       stack_layers)
 from repro_torch.models.mlp import mlp_forward
 from repro_torch.models.transformer import attention_spec
 
@@ -86,8 +87,10 @@ def _shared_block(sp, x, y, positions, cfg, mode, kv_cache, keep):
     return x, mlp_forward(sp["mlp"], h), new_kv
 
 
-def _stack(trees):
-    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+def _stack(trees, one: Dict[str, torch.Tensor]):
+    """Stack per-layer cache trees shaped as `one` (a layer's)."""
+    return {k: stack_layers([t[k] for t in trees], t1.shape, t1)
+            for k, t1 in one.items()}
 
 
 def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
@@ -149,13 +152,15 @@ def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
     new_caches = None
     if mode == "prefill":
         prev = 0 if caches is None else caches["len"]
+        one = ssm.init_ssm_cache(cfg, B, x.dtype, dev)
+        kv_one = (B, S) + attention.attn_dims(cfg)[1:]
         new_caches = {
-            "mamba": _stack(new_mamba),
-            "kv": {"k": torch.stack([c["k"] for c in new_kv]),
-                   "v": torch.stack([c["v"] for c in new_kv])},
+            "mamba": _stack(new_mamba, one),
+            "kv": {k: stack_layers([c[k] for c in new_kv], kv_one, x)
+                   for k in ("k", "v")},
             "len": (torch.as_tensor(prev, device=dev) + S).to(torch.int32)}
         if tail:
-            new_caches["tail"] = _stack(new_tail)
+            new_caches["tail"] = _stack(new_tail, one)
     elif mode == "decode":
         new_caches = dict(caches, len=(lens + 1).to(torch.int32))
     aux = torch.zeros((), dtype=torch.float32, device=dev)

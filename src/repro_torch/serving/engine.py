@@ -142,7 +142,16 @@ class Engine:
         failures retry up to `step_retries` times with capped
         exponential backoff (`retry_base_s` doubling, capped at
         `retry_max_s`) before re-raising.  Ticks slower than
-        `tick_budget_s` bump serving.watchdog.slow_ticks."""
+        `tick_budget_s` bump serving.watchdog.slow_ticks.
+
+        The xlstm, audio and vlm families raise ``NotImplementedError``:
+        the JAX engine runs none of them (xlstm's caches hold no "len",
+        and the others' prefill needs the stub frontend's frames or
+        patches); ``models.api.forward`` drives them."""
+        if cfg.family in ("xlstm", "audio", "vlm"):
+            raise NotImplementedError(
+                f"the serving engine does not run family {cfg.family!r}, "
+                "as the JAX engine does not; use models.api.forward")
         self.cfg = cfg
         self.params = params
         self.device = params.device

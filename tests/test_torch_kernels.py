@@ -266,7 +266,9 @@ def test_add_rmsnorm_kernel_matches_plain(cuda, R, d, dtype):
     # a window that leaves some rows no key in their first kv tile (the
     # bf16 kernel once gave those rows NaN at D = 16, 64, 80)
     (1, 256, 8, 2, 64, True, 64), (1, 200, 8, 2, 80, True, 64),
-    (1, 96, 2, 2, 16, True, 10), (1, 1024, 32, 8, 80, True, 256)])
+    (1, 96, 2, 2, 16, True, 10), (1, 1024, 32, 8, 80, True, 256),
+    # whisper's encoder: non-causal over 1500 frames (ragged tiles)
+    (1, 1500, 6, 6, 64, False, None)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain(cuda, B, S, H, KV, D, causal, window,
                                     dtype):
@@ -282,6 +284,44 @@ def test_flash_kernel_matches_plain(cuda, B, S, H, KV, D, causal, window,
     tol = 2e-5 if dtype == "float32" else 2e-2
     want = attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if not causal:
+        _assert_normalized(got, want, dtype)
+
+
+def _assert_normalized(got, want, dtype):
+    """Non-causal rows spread their softmax over every key, so |o| is
+    small and the absolute bound above is loose: hold max |got - want|
+    / max |want| to 1e-2 (bf16, a few output roundings) or 1e-4 (fp32).
+    The plain version without the last 28 of 1500 keys reads above 0.1."""
+    g, w = got.float(), want.float()
+    rel = float((g - w).abs().max() / w.abs().max())
+    assert rel <= (1e-4 if dtype == "float32" else 1e-2), rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Sk,H,KV,D", [
+    (1, 64, 1500, 6, 6, 64), (1, 65, 1500, 6, 6, 64),  # whisper's cross
+    (2, 100, 333, 8, 2, 128), (1, 300, 64, 4, 4, 80)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_cross_attention_matches_plain(cuda, B, S, Sk, H, KV,
+                                                    D, dtype):
+    """Non-causal attention of S queries on Sk != S keys (whisper's
+    cross-attention), with keys read from the front of a longer buffer
+    whose tail holds NaN: a key past Sk must never be read."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tdt = DTYPES[dtype]
+    q = torch.randn(B, S, H, D, generator=g, device=cuda).to(tdt)
+    kv = torch.full((2, B, Sk + 70, KV, D), float("nan"), device=cuda,
+                    dtype=tdt)
+    kv[:, :, :Sk] = torch.randn(2, B, Sk, KV, D, generator=g,
+                                device=cuda).to(tdt)
+    k, v = kv[0, :, :Sk], kv[1, :, :Sk]
+    got = fa_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    want = attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    _assert_normalized(got, want, dtype)
 
 
 @pytest.mark.gpu
@@ -339,7 +379,12 @@ DISPATCH_CASES = [  # T, d, E, k, C: deepseek-moe-16b's decode, chunk and
     # prefill of N = 24576 pairs, small edges
     (1, 2048, 64, 6, 8), (2, 2048, 64, 6, 8), (64, 2048, 64, 6, 8),
     (128, 2048, 64, 6, 16), (128, 2048, 64, 6, 128),
-    (4096, 2048, 64, 6, 480), (33, 128, 8, 2, 3), (200, 64, 4, 3, 1)]
+    (4096, 2048, 64, 6, 480), (33, 128, 8, 2, 3), (200, 64, 4, 3, 1),
+    # olmoe-1b-7b (top-8): its decode, chunk and prefill capacities, a
+    # tight C (popular experts drop), an ample C, N = 32768 pairs
+    (2, 2048, 64, 8, 8), (32, 2048, 64, 8, 8), (64, 2048, 64, 8, 16),
+    (128, 2048, 64, 8, 24), (128, 2048, 64, 8, 128),
+    (4096, 2048, 64, 8, 512), (4096, 2048, 64, 8, 640)]
 
 
 @pytest.mark.gpu

@@ -207,6 +207,21 @@ def test_init_params_scales():
     assert abs(float(w_down.std()) - CFG.d_ff ** -0.5) < 0.01
 
 
+def test_param_tree_stack_of_no_layers():
+    """A Stack of 0 layers has [0, ...] leaves and no layers; an
+    unstacked leaf has no leading axis (stacking is explicit)."""
+    from repro_torch.models import params as P
+    w = {"w": P.dense(2, 3, fan_in=2)}
+    tree = P.ParamTree({"a": P.ones(3), "s": P.Stack(0, w),
+                        "t": P.Stack(2, w)}, dtype=torch.float32,
+                       device=torch.device("cpu"))
+    assert tree.n is None and tuple(tree.a.shape) == (3,)
+    assert tree.s.n == 0 and tuple(tree.s.w.shape) == (0, 2, 3)
+    assert tree.s.layers() == []
+    assert tuple(tree.t.w.shape) == (2, 2, 3) and len(tree.t.layers()) == 2
+    assert [n for *_, n in tree.leaves()] == [None, 0, 2]
+
+
 def test_entry_points_raise_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
