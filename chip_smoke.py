@@ -109,7 +109,26 @@ of JAX and nothing of the ``repro`` package.  In order:
    its plain version and a library yardstick (flash also on the same
    work as SDPA's causal backward, at S 4096 where its window cannot
    bind); the build's registers, stack and spill bytes of every FA-2
-   backward instance are printed and carried in the kernels line.
+   backward instance are printed and carried in the kernels line;
+8. trains the MoE and hybrid families: the MoE dispatch's backward
+   (a gather-sum per token) bit-exact with its plain version at
+   olmoe-1b-7b's and deepseek-moe-16b's widths (T 1 / 64 / 4096, C
+   tight and ample, bf16 and fp32), SSD's intra-chunk backward within
+   1e-4 (max |Δ| / max |want|) of the plain backward in fp64 at
+   zamba2-7b's train shape [1,16,256,112,64,64] and a prefill chunk,
+   mild and steep decay, both run twice for identical bits, and flash
+   forward and backward at D 128 and D 112; reduced fp32 olmoe,
+   deepseek and zamba2 one step on the card against the CPU (remat
+   full; a recomputed MoE layer must route as its forward did); then
+   full width with the depth cut, bf16, seq 4096, batch 2 in
+   microbatches of 1, remat full, lr 3e-5, 3 steps through
+   ``training.loop.make_train_step`` and ``data.pipeline.Loader``:
+   ``train_moe`` (olmoe-1b-7b, 7 of 16 layers) and ``train_hybrid``
+   (zamba2-7b, 33 of 81 Mamba blocks: 5 groups of 6 and the shared
+   block, then the 3-block tail), each step's loss, grad norm, ms,
+   tokens/s and peak GB printed beside the depth cut, every kernel of
+   the path launched; and the new backward kernels timed against their
+   plain versions and, for the dispatch, ``torch.index_add``.
 
 It prints a ``{"simt": ...}`` line, a ``{"serve": ...}`` line, a
 ``{"timings": ...}`` line, a ``{"train": ...}`` line, one
@@ -140,12 +159,15 @@ XLSTM, WHISPER, INTERNVL = "xlstm-125m", "whisper-tiny", "internvl2-76b"
 INTERNVL_LAYERS = 24    # of 80: the full backbone is 139 GB in bf16
 KERNELS = ("rmsnorm", "add_rmsnorm", "flash_attention", "moe_dispatch",
            "ssd_intra")
-BWD_KERNELS = ("flash_attention_bwd", "rmsnorm_bwd", "add_rmsnorm_bwd")
+BWD_KERNELS = ("flash_attention_bwd", "rmsnorm_bwd", "add_rmsnorm_bwd",
+               "moe_dispatch_bwd", "ssd_intra_bwd")
 OUR_KERNELS = {  # kernel: its CUDA functions' names, as the profiler shows
     "rmsnorm": r"(?<!add_)rmsnorm_kernel", "add_rmsnorm": r"add_rmsnorm_kernel",
     "flash_attention": r"flash_fwd_", "moe_dispatch": r"moe_dispatch_kernel",
     "ssd_intra": r"ssd_intra_kernel", "flash_attention_bwd": r"flash_bwd_",
-    "rmsnorm_bwd (both forms)": r"rmsnorm_(bwd|dscale)_kernel"}
+    "rmsnorm_bwd (both forms)": r"rmsnorm_(bwd|dscale)_kernel",
+    "moe_dispatch_bwd": r"moe_dispatch_bwd_kernel",
+    "ssd_intra_bwd": r"ssd_bwd_"}
 NORM_WIDTHS = (2048, 3072, 3584, 7168)  # deepseek, phi3, zamba2, its inner norm
 SEED = 0
 
@@ -170,15 +192,18 @@ def _imports():
                                                          flash_bwd_ref,
                                                          flash_fwd_ref)
     from repro_torch.kernels.moe_dispatch import ops as dispatch_ops
-    from repro_torch.kernels.moe_dispatch.ref import moe_dispatch_ref
+    from repro_torch.kernels.moe_dispatch.ref import (moe_dispatch_bwd_ref,
+                                                      moe_dispatch_ref)
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_bwd_ref,
                                                  rmsnorm_bwd_ref, rmsnorm_ref)
     from repro_torch.launch import train as train_cli
     from repro_torch.kernels.simt_machine import ops as simt_ops
     from repro_torch.kernels.ssm_scan import ops as ssd_ops
-    from repro_torch.kernels.ssm_scan.ref import ssd_intra_ref
+    from repro_torch.kernels.ssm_scan.ref import (ssd_intra_bwd_ref,
+                                                  ssd_intra_ref)
     from repro_torch.models import api
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models.moe import moe_capacity, moe_forward
     from repro_torch.obs import demo  # noqa: F401  (its imports, checked)
     from repro_torch.runtime.asm import assemble
@@ -200,8 +225,10 @@ def _imports():
                 get_config=get_config, reduced_config=reduced_config,
                 build=build, fa_ops=fa_ops, attention_ref=attention_ref,
                 dispatch_ops=dispatch_ops, moe_dispatch_ref=moe_dispatch_ref,
+                moe_dispatch_bwd_ref=moe_dispatch_bwd_ref, moe_mod=moe_mod,
                 rms_ops=rms_ops, rmsnorm_ref=rmsnorm_ref, ssd_ops=ssd_ops,
-                ssd_intra_ref=ssd_intra_ref, api=api, Engine=Engine,
+                ssd_intra_ref=ssd_intra_ref,
+                ssd_intra_bwd_ref=ssd_intra_bwd_ref, api=api, Engine=Engine,
                 moe_capacity=moe_capacity, moe_forward=moe_forward,
                 machine=machine, power=power, simt_ops=simt_ops,
                 assemble=assemble, edge_cases=edge_cases, rodinia=rodinia)
@@ -215,7 +242,8 @@ def _check(ok: bool, what: str) -> None:
 def _zero_counts(m) -> None:
     for mod in ("rms_ops", "fa_ops", "dispatch_ops", "ssd_ops"):
         m[mod].launches = 0
-    m["rms_ops"].bwd_launches = m["fa_ops"].bwd_launches = 0
+    for mod in ("rms_ops", "fa_ops", "dispatch_ops", "ssd_ops"):
+        m[mod].bwd_launches = 0
     for by in (m["rms_ops"].launches_by_form, m["fa_ops"].launches_by_route,
                m["rms_ops"].bwd_launches_by_form):
         for key in by:
@@ -232,7 +260,9 @@ def _counts(m) -> dict:
             "ssd_intra": m["ssd_ops"].launches,
             "flash_attention_bwd": m["fa_ops"].bwd_launches,
             "rmsnorm_bwd": bwd["rmsnorm"],
-            "add_rmsnorm_bwd": bwd["add_rmsnorm"]}
+            "add_rmsnorm_bwd": bwd["add_rmsnorm"],
+            "moe_dispatch_bwd": m["dispatch_ops"].bwd_launches,
+            "ssd_intra_bwd": m["ssd_ops"].bwd_launches}
 
 
 def _time_ms(torch, fn, reps: int = 25, inner: int = 10) -> float:
@@ -1600,44 +1630,21 @@ def train_kernel_phase(m) -> dict:
     output must be the same bits with and without the LSE, and the LSE
     within 1e-4 of the plain one.  Their worst errors are returned under
     ``forward``."""
-    torch, fa, rms = m["torch"], m["fa_ops"], m["rms_ops"]
+    torch, rms = m["torch"], m["rms_ops"]
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     out = {name: {"max_abs_err": 0.0, "normalized_err": {}}
-           for name in BWD_KERNELS}
+           for name in ("flash_attention_bwd", "rmsnorm_bwd",
+                        "add_rmsnorm_bwd")}
     fwd = out["forward"] = {"flash_attention": 0.0, "rmsnorm": 0.0,
                             "add_rmsnorm": 0.0}
     B, S, H, KV, D, W = FLASH_BWD_SHAPE
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).replace("torch.", "")
-        tol = BWD_TOL[name]
-        flash_tol, norm_tol = FWD_TOL[name]
+        tol, norm_tol = BWD_TOL[name], FWD_TOL[name][1]
         for s_len, w in ((S, W), (200, 64), (130, None)):
-            q, k, v, do = flash_bwd_inputs(torch, g, B, s_len, H, KV, D, dt)
-            o, lse = fa.flash_attention_cuda(q, k, v, window=w,
-                                             with_lse=True)
-            _check(torch.equal(o, fa.flash_attention_cuda(q, k, v,
-                                                          window=w)),
-                   f"flash {name} S={s_len}: out changes with the LSE")
-            o_ref, lse_ref = m["flash_fwd_ref"](q, k, v, window=w)
-            what = f"flash {name} S={s_len} H={H} KV={KV} D={D} window={w}"
-            fwd["flash_attention"] = max(fwd["flash_attention"], _max_err(
-                torch, o, o_ref, flash_tol, what))
-            _max_err(torch, lse, lse_ref, 1e-4, f"{what} lse")
-            del o_ref
-            got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=w)
-            again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                                window=w)
-            torch.cuda.synchronize()
-            _check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                   f"flash_bwd {name} S={s_len}: two runs differ")
-            want = m["flash_bwd_ref"](q, k, v, o, lse, do, window=w)
-            for grad, a, b in zip(("dq", "dk", "dv"), got, want):
-                what = f"flash_bwd {name} S={s_len} window={w} {grad}"
-                err, rel = _rel_err(torch, a, b, tol, what)
-                rec = out["flash_attention_bwd"]
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                rec["normalized_err"][what] = rel
-            del q, k, v, do, o, lse, lse_ref, got, again, want
+            _, e = _flash_bwd_check(m, g, (B, s_len, H, KV, D, w), dt,
+                                    out["flash_attention_bwd"])
+            fwd["flash_attention"] = max(fwd["flash_attention"], e)
         for rows, d in (NORM_BWD_SHAPE, (33, 2560)):
             x, dy, ds = (torch.randn(rows, d, generator=g, device="cuda")
                          .to(dt) for _ in range(3))
@@ -1684,6 +1691,89 @@ def _train_setup(m, cfg, tc, device, params=None, seq=64, batch=2):
     return state, m["train_loop"].make_train_step(cfg, tc), loader
 
 
+def card_vs_cpu_step(m, cfg, grad_floor: float = 0.0) -> dict:
+    """One fp32 train step of `cfg` (remat full) on the card against
+    the same step on the CPU, same weights and batch (kernels vs plain
+    versions): the loss to 1e-5, every grad leaf to 1e-4 of its largest
+    entry, the grad norm to 1e-4, and the updated params to 2e-5 where
+    the clipped CPU grad |g'| > 100 eps and > `grad_floor` times its
+    leaf's largest |g'|.
+    Adam's first step moves a weight by lr g' / (|g'| + eps): by about
+    lr wherever |g'| >> eps, and a rounding difference dg of the grad
+    moves that by lr eps |dg| / g'^2, far below 2e-5 there; where |g'|
+    is within the grads' own rounding of 0, that rounding can flip the
+    step's sign, so those weights are left out and their share
+    reported.  For an MoE config, the dispatch's slots are recorded at
+    each call: the recomputation of a layer in the backward must route
+    as its first forward did."""
+    torch, tl, bridge = m["torch"], m["train_loop"], m["bridge"]
+    tc = m["TrainConfig"](warmup_steps=2, total_steps=10, remat="full")
+    cpu, step_c, load_c = _train_setup(m, cfg, tc, "cpu")
+    model = bridge.from_numpy(bridge.to_numpy(cpu.params), cfg,
+                              device="cuda")
+    gpu, step_g, _ = _train_setup(m, cfg, tc, "cuda", params=model)
+    acc = tl._make_accumulate(cfg, tc)
+    batch = next(load_c)
+    batch_g = {k: v.cuda() for k, v in batch.items()}
+    grads_c, met_c = acc(cpu.params, batch)
+    slots = []
+    dispatch = m["moe_mod"].moe_dispatch
+
+    def recorded(eidx, x, E, C):
+        got = dispatch(eidx, x, E, C)
+        slots.append(got[1].clone())
+        return got
+
+    m["moe_mod"].moe_dispatch = recorded
+    try:
+        _zero_counts(m)
+        grads_g, met_g = acc(gpu.params, batch_g)
+        torch.cuda.synchronize()
+        n = _counts(m)
+    finally:
+        m["moe_mod"].moe_dispatch = dispatch
+    if cfg.is_moe:
+        # remat full: layers 0..L-1 forward, then L-1..0 recomputed
+        _check(len(slots) == 2 * n["moe_dispatch_bwd"] and all(
+            torch.equal(a, b) for a, b in zip(slots, slots[::-1])),
+            f"{cfg.name}: the recomputed dispatch routed otherwise")
+    loss_err = abs(float(met_g["loss"]) - float(met_c["loss"])) \
+        / abs(float(met_c["loss"]))
+    _check(loss_err <= 1e-5,
+           f"{cfg.name} reduced step loss: relative error {loss_err}")
+    worst = 0.0
+    for name, want in grads_c.items():
+        _, rel = _rel_err(torch, grads_g[name].cpu(), want, 1e-4,
+                          f"{cfg.name} reduced step grad {name}")
+        worst = max(worst, rel)
+    cpu2, mc = step_c(cpu, batch)
+    gpu2, mg = step_g(gpu, batch_g)
+    gn_err = abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) \
+        / float(mc["grad_norm"])
+    _check(gn_err <= 1e-4,
+           f"{cfg.name} reduced step grad norm: relative {gn_err}")
+    clip = min(1.0, tc.grad_clip / float(mc["grad_norm"]))
+    on_gpu = dict(gpu2.params.named_parameters())
+    diffs, kept = [], []
+    for name, p in cpu2.params.named_parameters():
+        diffs.append((on_gpu[name].detach().cpu() - p.detach()).abs()
+                     .flatten())
+        g = grads_c[name].abs() * clip
+        kept.append(((g > 100 * tc.eps) & (g > grad_floor * g.max()))
+                    .flatten())
+    diffs, kept = torch.cat(diffs), torch.cat(kept)
+    perr = float(diffs[kept].max())
+    left_out = float((~kept).float().mean())
+    _check(perr <= 2e-5,
+           f"{cfg.name} reduced step params: max abs error {perr} where "
+           f"|g'| is kept ({left_out} of them left out)")
+    return {"loss": [float(met_g["loss"]), float(met_c["loss"])],
+            "loss_rel_err": loss_err, "grad_worst_normalized_err": worst,
+            "grad_norm_rel_err": gn_err, "params_max_abs_err": perr,
+            "params_share_left_out": left_out, "launches": n,
+            "dispatch_calls_routed_alike": len(slots)}
+
+
 def train_reduced_phase(m) -> dict:
     """Reduced danube (window 16, S 64 > window) on the card: one fp32
     step against the same step on the CPU (kernels vs plain versions:
@@ -1691,74 +1781,20 @@ def train_reduced_phase(m) -> dict:
     on one fixed batch (the loss must fall below 0.7x its first value);
     and the chaos resume (crashes and corrupt checkpoints of
     ``faults.training_plan(2)``) against a fault-free run, bit for bit."""
-    torch, tl, bridge = m["torch"], m["train_loop"], m["bridge"]
+    torch = m["torch"]
     TC = m["TrainConfig"]
     out = {}
     # (a) one fp32 step, card vs CPU; the card runs the kernels (remat
     # full: every forward kernel twice, every backward kernel once)
     cfg = m["reduced_config"](DANUBE).replace(dtype="float32")
-    tc = TC(warmup_steps=2, total_steps=10, remat="full")
-    cpu, step_c, load_c = _train_setup(m, cfg, tc, "cpu")
-    model = bridge.from_numpy(bridge.to_numpy(cpu.params), cfg,
-                              device="cuda")
-    gpu, step_g, load_g = _train_setup(m, cfg, tc, "cuda", params=model)
-    acc = tl._make_accumulate(cfg, tc)
-    batch = next(load_c)
-    batch_g = {k: v.cuda() for k, v in batch.items()}
-    grads_c, met_c = acc(cpu.params, batch)
-    _zero_counts(m)
-    grads_g, met_g = acc(gpu.params, batch_g)
-    torch.cuda.synchronize()
-    n = _counts(m)
-    L = cfg.num_layers
+    out["card_vs_cpu"] = card_vs_cpu_step(m, cfg)
+    n, L = out["card_vs_cpu"]["launches"], cfg.num_layers
     # layer 0's first norm has no residual to add (the plain form); the
     # final norm's sum is unused, so its backward takes no ds
     _check(n["flash_attention"] == 2 * L and n["flash_attention_bwd"] == L
            and n["rmsnorm"] == 2 and n["add_rmsnorm"] == 4 * L - 1
            and n["rmsnorm_bwd"] == 2 and n["add_rmsnorm_bwd"] == 2 * L - 1,
            f"reduced fp32 step launches {n}")
-    loss_err = abs(float(met_g["loss"]) - float(met_c["loss"])) \
-        / abs(float(met_c["loss"]))
-    _check(loss_err <= 1e-5, f"reduced step loss: relative error {loss_err}")
-    worst = 0.0
-    for name, want in grads_c.items():
-        _, rel = _rel_err(torch, grads_g[name].cpu(), want, 1e-4,
-                          f"reduced step grad {name}")
-        worst = max(worst, rel)
-    cpu2, mc = step_c(cpu, batch)
-    gpu2, mg = step_g(gpu, batch_g)
-    gn_err = abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) \
-        / float(mc["grad_norm"])
-    _check(gn_err <= 1e-4, f"reduced step grad norm: relative {gn_err}")
-    # Adam's first step moves a weight by lr g' / (|g'| + eps), g' the
-    # clipped grad: by about lr wherever |g'| >> eps, and a rounding
-    # difference dg of the grad moves that by lr eps |dg| / g'^2.  Where
-    # |g'| > 100 eps this is far below 2e-5 (the grads agree to 2e-6 of
-    # their largest), so the params must agree to 2e-5 there.  The rest,
-    # grads within rounding of 0 whose step's sign the rounding decides,
-    # is left out and its share reported
-    clip = min(1.0, tc.grad_clip / float(mc["grad_norm"]))
-    on_gpu = dict(gpu2.params.named_parameters())
-    diffs, kept = [], []
-    for name, p in cpu2.params.named_parameters():
-        diffs.append((on_gpu[name].detach().cpu() - p.detach()).abs()
-                     .flatten())
-        kept.append((grads_c[name].abs() * clip > 100 * tc.eps).flatten())
-    diffs, kept = torch.cat(diffs), torch.cat(kept)
-    perr = float(diffs[kept].max())
-    left_out = float((~kept).float().mean())
-    _check(perr <= 2e-5,
-           f"reduced step params: max abs error {perr} where |g'| > "
-           f"100 eps ({left_out} of them left out)")
-    out["card_vs_cpu"] = {"loss": [float(met_g["loss"]),
-                                   float(met_c["loss"])],
-                          "loss_rel_err": loss_err,
-                          "grad_worst_normalized_err": worst,
-                          "grad_norm_rel_err": gn_err,
-                          "params_max_abs_err": perr,
-                          "params_share_left_out": left_out,
-                          "launches": n}
-    del cpu, gpu, cpu2, gpu2, grads_c, grads_g, model
 
     # (b) 30 bf16 steps on one fixed batch, as tests/test_system.py's
     # test_loss_decreases_tiny_model asks of the JAX trainer
@@ -1846,19 +1882,13 @@ def train_cli_phase(m) -> dict:
             "flash_launches_by_route": routes}
 
 
-def train_profile(m) -> dict:
-    """One full-width train step (after one warm-up step) under
-    ``torch.profiler``: wall, device ms, busy share, kernels, host syncs,
-    the kernels with most device time, each hand-written kernel's device
-    ms and launches, and the backward kernels' share of device time."""
-    torch, tl = m["torch"], m["train_loop"]
+def _profiled_step(m, step, st, batch) -> tuple:
+    """One train step under ``torch.profiler``: (the new state, wall,
+    device ms, busy share, kernels, host syncs, the kernels with most
+    device time, each hand-written kernel's device ms and launches, and
+    the backward kernels' share of device time)."""
+    torch = m["torch"]
     from torch.profiler import ProfilerActivity, profile
-    cfg = m["get_config"](DANUBE)
-    tc = m["TrainConfig"](microbatch=TRAIN_MICRO, remat="full")
-    st, step, loader = _train_setup(m, cfg, tc, "cuda", seq=TRAIN_SEQ,
-                                    batch=TRAIN_BATCH)
-    st, _ = step(st, next(loader))
-    batch = next(loader)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1877,21 +1907,38 @@ def train_profile(m) -> dict:
                     if re.search(pat, e.key)) / 1e3,
                 sum(e.count for e in kern if re.search(pat, e.key))]
             for k, pat in OUR_KERNELS.items()}
-    bwd_ms = ours["flash_attention_bwd"][0] + ours[
-        "rmsnorm_bwd (both forms)"][0]
+    bwd_ms = sum(ours[k][0] for k in (
+        "flash_attention_bwd", "rmsnorm_bwd (both forms)",
+        "moe_dispatch_bwd", "ssd_intra_bwd"))
     n_kernels = sum(e.count for e in kern)
     syncs = {key: sum(e.count for e in events if e.key == key)
              for key in ("aten::_local_scalar_dense",
                          "cudaStreamSynchronize")}
-    del st, batch, prof, events, kern
+    out = {"wall_ms": wall, "device_ms": dev, "busy_share": dev / wall,
+           "kernels": n_kernels,
+           "host_syncs": syncs,
+           "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                   for e in top],
+           "ours": ours, "backward_kernels_ms": bwd_ms,
+           "backward_kernels_share": bwd_ms / dev}
+    del prof, events, kern
+    return st, out
+
+
+def train_profile(m) -> dict:
+    """One full-width train step (after one warm-up step) under
+    ``torch.profiler`` (``_profiled_step``)."""
+    torch = m["torch"]
+    cfg = m["get_config"](DANUBE)
+    tc = m["TrainConfig"](microbatch=TRAIN_MICRO, remat="full")
+    st, step, loader = _train_setup(m, cfg, tc, "cuda", seq=TRAIN_SEQ,
+                                    batch=TRAIN_BATCH)
+    st, _ = step(st, next(loader))
+    batch = next(loader)
+    st, out = _profiled_step(m, step, st, batch)
+    del st, batch
     _free(torch)
-    return {"wall_ms": wall, "device_ms": dev, "busy_share": dev / wall,
-            "kernels": n_kernels,
-            "host_syncs": syncs,
-            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                    for e in top],
-            "ours": ours, "backward_kernels_ms": bwd_ms,
-            "backward_kernels_share": bwd_ms / dev}
+    return out
 
 
 def train_timing(m) -> dict:
@@ -1978,6 +2025,378 @@ def train_timing(m) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# training the MoE and hybrid families: olmoe-1b-7b, deepseek-moe-16b,
+# zamba2-7b, the dispatch's and SSD's backward kernels
+# ---------------------------------------------------------------------------
+
+# full width with the depth cut.  A step holds ~20 B a parameter (bf16
+# weights and grads, fp32 master, m, v and grad accumulator), beside
+# the activations of one recomputed layer or group at seq 4096: full
+# depth would need ~140 GB (olmoe) and ~135 GB (zamba2).  At 8 of 16
+# olmoe layers a step peaked at 79.92 GB, and zamba2 at 39 of 81 blocks
+# ran out of memory in its second step, so the cut is one olmoe layer
+# and one zamba2 group deeper: max_memory_allocated stays under ~75 GB
+MOE_TRAIN = (OLMOE, 7)           # 7 of 16 layers
+HYBRID_TRAIN = (ZAMBA, 33)       # 5 groups of 6 + the shared block, tail 3
+FAMILY_SEQ = 4096
+# the dispatch's backward at olmoe's (top-8) and deepseek's (top-6)
+# widths: decode, chunk and a train step's token counts
+DISPATCH_BWD_TS = (1, 64, FAMILY_SEQ)
+# SSD at zamba2's train shape (seq 4096 in chunks of 256) and a prefill
+# chunk: (nc, Q); H 112, P 64, N 64
+SSD_BWD_SHAPES = ((16, 256), (1, 64))
+SSD_BWD_TOL = 1e-4               # max |got - want| / max |want|, vs fp64
+# flash at the families' head dims: olmoe (16 heads, D 128, no GQA) and
+# zamba2's shared block (32 heads, D 112), causal, no window
+FLASH_BWD_FAMILY = {"olmoe D128": (1, FAMILY_SEQ, 16, 16, 128, None),
+                    "zamba2 D112": (1, FAMILY_SEQ, 32, 32, 112, None)}
+
+
+def _flash_bwd_check(m, g, shape, dt, out: dict, label: str = "") -> tuple:
+    """flash forward (out bits with and without the LSE; out and LSE vs
+    plain, FWD_TOL and 1e-4) and the FA-2 backward vs plain (normalized,
+    BWD_TOL) at `shape` = (B, S, H, KV, D, window), two backward runs
+    the same bits; the backward's errors go into `out`.  Returns (the
+    case's name, the forward's max abs error)."""
+    torch, fa = m["torch"], m["fa_ops"]
+    B, S, H, KV, D, w = shape
+    name = str(dt).replace("torch.", "")
+    q, k, v, do = flash_bwd_inputs(torch, g, B, S, H, KV, D, dt)
+    o, lse = fa.flash_attention_cuda(q, k, v, window=w, with_lse=True)
+    _check(torch.equal(o, fa.flash_attention_cuda(q, k, v, window=w)),
+           f"flash {name} {label} S={S}: out changes with the LSE")
+    o_ref, lse_ref = m["flash_fwd_ref"](q, k, v, window=w)
+    what = f"flash {name} {label}S={S} H={H} KV={KV} D={D} window={w}"
+    fwd = _max_err(torch, o, o_ref, FWD_TOL[name][0], what)
+    _max_err(torch, lse, lse_ref, 1e-4, f"{what} lse")
+    del o_ref, lse_ref
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=w)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=w)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+           f"flash_bwd {what}: two runs differ")
+    want = m["flash_bwd_ref"](q, k, v, o, lse, do, window=w)
+    for grad, a, b in zip(("dq", "dk", "dv"), got, want):
+        err, rel = _rel_err(torch, a, b, BWD_TOL[name],
+                            f"flash_bwd {what} {grad}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["normalized_err"][f"{what} {grad}"] = rel
+    return what, fwd
+
+
+def family_kernel_phase(m) -> dict:
+    """The two new backward kernels against their plain versions at the
+    train shapes, each run twice for identical bits: the dispatch's
+    bit-exact at olmoe's and deepseek's widths (d 2048, E 64, top-8 /
+    top-6), T 1 / 64 / 4096, C tight (pairs dropped), the model's
+    capacity and ample, bf16 and fp32; SSD's four grads against the plain backward in fp64 at
+    [1,16,256,112,64,64] and [1,1,64,112,64,64], mild and steep decay,
+    max |Δ| / max |want| <= SSD_BWD_TOL, beside the plain fp32
+    version's own figure; and flash (forward and FA-2 backward) at
+    D 128 and D 112, as ``train_kernel_phase`` holds it at D 80."""
+    torch = m["torch"]
+    d_ops, s_ops = m["dispatch_ops"], m["ssd_ops"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    out = {"moe_dispatch_bwd": {"max_abs_err": 0.0, "dropped": {}},
+           "ssd_intra_bwd": {"max_abs_err": 0.0, "normalized_err": {},
+                             "plain_fp32_normalized_err": {}},
+           "flash_attention_bwd": {"max_abs_err": 0.0,
+                                   "normalized_err": {}},
+           "forward": {}}
+    for arch in (OLMOE, DEEPSEEK):
+        cfg = m["get_config"](arch)
+        E, k, d = cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model
+        for dt in (torch.bfloat16, torch.float32):
+            for T in DISPATCH_BWD_TS:
+                x, eidx = dispatch_inputs(torch, g, T, d, E, k, dt)
+                for kind, C in (("tight", max(1, T * k // E)),
+                                ("model", m["moe_capacity"](T, cfg)),
+                                ("ample", T)):
+                    dest = d_ops.moe_dispatch_cuda(eidx, x, E, C)[1]
+                    dbuf = torch.randn(E, C, d, generator=g,
+                                       device="cuda").to(dt)
+                    got = d_ops.moe_dispatch_bwd_cuda(dbuf, dest, T, k)
+                    again = d_ops.moe_dispatch_bwd_cuda(dbuf, dest, T, k)
+                    torch.cuda.synchronize()
+                    want = m["moe_dispatch_bwd_ref"](dbuf, dest, T, k)
+                    what = f"moe_dispatch_bwd {arch} {dt} T={T} C={C}"
+                    _check(got.dtype == want.dtype
+                           and torch.equal(got, want), f"{what}: not "
+                           "bit-exact with the plain version")
+                    _check(torch.equal(got, again), f"{what}: two runs "
+                           "differ")
+                    out["moe_dispatch_bwd"]["dropped"][
+                        f"{arch} {T}/{kind}"] = int((dest == E * C).sum())
+                    del dest, dbuf, got, again, want
+                del x, eidx
+    drops = out["moe_dispatch_bwd"]["dropped"]
+    _check(all(drops[f"{a} {FAMILY_SEQ}/tight"] > 0
+               and drops[f"{a} {FAMILY_SEQ}/ample"] == 0
+               for a in (OLMOE, DEEPSEEK)), f"dispatch drops {drops}")
+    rec = out["ssd_intra_bwd"]
+    for nc, Q in SSD_BWD_SHAPES:
+        for rate in (0.1, 10.0):
+            args = ssd_inputs(torch, g, nc, Q, rate=rate)
+            dy = torch.randn(args[1].shape, generator=g, device="cuda")
+            dS = torch.randn(1, nc, 112, 64, 64, generator=g, device="cuda")
+            got = s_ops.ssd_intra_bwd_cuda(*args, dy, dS)
+            again = s_ops.ssd_intra_bwd_cuda(*args, dy, dS)
+            torch.cuda.synchronize()
+            want = m["ssd_intra_bwd_ref"](
+                *(t.double() for t in (*args, dy, dS)))
+            plain = m["ssd_intra_bwd_ref"](*args, dy, dS)
+            for name, a, b, w, p in zip(("dcum", "dxdt", "dB", "dC"), got,
+                                        again, want, plain):
+                what = f"ssd_intra_bwd [1,{nc},{Q},112,64,64] rate={rate} " \
+                       f"{name}"
+                _check(torch.equal(a, b), f"{what}: two runs differ")
+                err, rel = _rel_err(torch, a.double(), w, SSD_BWD_TOL, what)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                rec["normalized_err"][what] = rel
+                rec["plain_fp32_normalized_err"][what] = float(
+                    (p.double() - w).abs().max()) / float(w.abs().max())
+            del args, dy, dS, got, again, want, plain
+    for label, shape in FLASH_BWD_FAMILY.items():
+        for dt in (torch.bfloat16, torch.float32):
+            what, e = _flash_bwd_check(m, g, shape, dt,
+                                       out["flash_attention_bwd"],
+                                       label + " ")
+            out["forward"][what] = e
+    _free(torch)
+    return out
+
+
+def family_reduced_phase(m) -> dict:
+    """Reduced fp32 olmoe-1b-7b and deepseek-moe-16b (2 layers) and
+    zamba2-7b (2 groups of 3 Mamba blocks and the shared block, then a
+    1-block tail): one step on the card against the CPU
+    (``card_vs_cpu_step``), remat full, so every forward kernel runs
+    twice (the tail's once) and every backward kernel once."""
+    out = {}
+    for arch, layers in ((OLMOE, 2), (DEEPSEEK, 2), (ZAMBA, 7)):
+        cfg = m["reduced_config"](arch).replace(num_layers=layers,
+                                                dtype="float32")
+        # zamba2's fp32 grads at two groups differ by up to 3.4e-5 of
+        # their largest entry between the two packages on the CPU
+        # (tests/test_torch_train_families.py): weights whose grad is
+        # below 1e-4 of its leaf's largest are left out of the params
+        rec = out[arch] = card_vs_cpu_step(
+            m, cfg, grad_floor=1e-4 if cfg.family == "hybrid" else 0.0)
+        n = rec["launches"]
+        if cfg.family == "hybrid":
+            groups, g, tail = layers // cfg.attn_every, cfg.attn_every, \
+                layers % cfg.attn_every
+            want = {"ssd_intra": 2 * groups * g + tail,
+                    "ssd_intra_bwd": layers, "flash_attention": 2 * groups,
+                    "flash_attention_bwd": groups}
+        else:
+            moe = layers - cfg.moe.first_k_dense
+            want = {"moe_dispatch": 2 * moe, "moe_dispatch_bwd": moe,
+                    "flash_attention": 2 * layers,
+                    "flash_attention_bwd": layers}
+        _check(all(n[k] == v for k, v in want.items())
+               and n["rmsnorm_bwd"] > 0 and n["add_rmsnorm_bwd"] > 0,
+               f"{arch} reduced fp32 step launches {n}, want {want}")
+    return out
+
+
+def family_train_path(m, arch: str, layers: int) -> dict:
+    """Full-width `arch` with its depth cut to `layers`, bf16, from seed
+    0: ``training.loop.make_train_step`` on ``data.pipeline.Loader``
+    batches (seq FAMILY_SEQ, batch TRAIN_BATCH in microbatches of
+    TRAIN_MICRO, remat full, lr TRAIN_LR, warm-up 1 step as the train
+    CLI sets it), TRAIN_STEPS steps; every launch count zeroed just
+    before the steps and read just after.  Each step's loss and grad
+    norm must be finite and > 0, its peak under 80 GB."""
+    torch, tl = m["torch"], m["train_loop"]
+    full = m["get_config"](arch).num_layers
+    cfg = m["get_config"](arch).replace(num_layers=layers)
+    depth = f"{layers} of {full} layers (depth cut)"
+    tc = m["TrainConfig"](learning_rate=TRAIN_LR, total_steps=TRAIN_STEPS,
+                          warmup_steps=1, microbatch=TRAIN_MICRO,
+                          remat="full")
+    _free(torch)
+    t0 = time.perf_counter()
+    state, step, loader = _train_setup(m, cfg, tc, "cuda", seq=FAMILY_SEQ,
+                                       batch=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    print(f"[train] {arch} full width, {depth}: {n_params / 1e9:.3f}B "
+          f"params bf16, state in {time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    steps = []
+    _zero_counts(m)
+    for i in range(TRAIN_STEPS):
+        batch = next(loader)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state, met = step(state, batch)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        rec = {"step": i + 1, "loss": loss, "grad_norm": gnorm,
+               "step_ms": 1e3 * dt,
+               "tokens_per_s": FAMILY_SEQ * TRAIN_BATCH / dt,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        steps.append(rec)
+        print(f"[train] {arch} ({depth}) step {i + 1}: loss {loss:.4f} "
+              f"gnorm {gnorm:.3f} {rec['step_ms']:.1f} ms "
+              f"{rec['tokens_per_s']:.0f} tok/s peak {rec['peak_gb']:.2f} "
+              "GB", flush=True)
+    counts = _counts(m)
+    _check(all(math.isfinite(h["loss"]) and h["loss"] > 0
+               and math.isfinite(h["grad_norm"]) and h["grad_norm"] > 0
+               and h["peak_gb"] < 80 for h in steps),
+           f"{arch} ({depth}) steps: {steps}")
+    names = ["flash_attention", "flash_attention_bwd", "rmsnorm_bwd",
+             "add_rmsnorm_bwd"] + (
+        ["moe_dispatch", "moe_dispatch_bwd"] if cfg.is_moe
+        else ["ssd_intra", "ssd_intra_bwd"])
+    for name in names:
+        _check(counts[name] > 0, f"no {name} launch on the {arch} train "
+               "path")
+    routes = dict(m["fa_ops"].launches_by_route)
+    _check(routes == {"wgmma": counts["flash_attention"], "fma": 0},
+           f"bf16 training ran flash on routes {routes}")
+    # one more step under the profiler, after the counts are read
+    state, prof = _profiled_step(m, step, state, next(loader))
+    print(f"[train] {arch} ({depth}) profiled step: "
+          f"{json.dumps(prof)}", flush=True)
+    out = {"arch": arch, "depth": depth, "layers": layers,
+           "params": n_params, "seq": FAMILY_SEQ, "batch": TRAIN_BATCH,
+           "microbatch": TRAIN_MICRO, "steps": steps, "launches": counts,
+           "flash_launches_by_route": routes, "profile": prof}
+    if cfg.is_moe:
+        # and one with the slots that reach the dispatch backward kept,
+        # so that it is timed on this path's own routing
+        d_ops, real, routing = m["dispatch_ops"], \
+            m["dispatch_ops"].moe_dispatch_bwd_cuda, []
+
+        def recording(dbuf, dest_tk, T, k):
+            routing.append((dest_tk.clone(), dbuf.shape[0] * dbuf.shape[1]))
+            return real(dbuf, dest_tk, T, k)
+
+        d_ops.moe_dispatch_bwd_cuda = recording
+        try:
+            state, met = step(state, next(loader))
+            torch.cuda.synchronize()
+        finally:
+            d_ops.moe_dispatch_bwd_cuda = real
+        out["dropped_share"] = [float((dest == ec).sum()) / dest.numel()
+                                for dest, ec in routing]
+        out["routing"] = routing
+        print(f"[train] {arch} ({depth}) dispatch backward: dropped share "
+              f"of pairs by call {out['dropped_share']}", flush=True)
+    del state, step, loader, batch, met
+    _free(torch)
+    return out
+
+
+def _ssd_bwd_work(B, nc, Q, H, P, N) -> tuple:
+    """(bytes, flops) the SSD backward must move and do: its six inputs
+    read and four outputs written once (fp32); the products over the
+    lower triangle (dM = dy xdtᵀ and Mᵀ dy per head, C Bᵀ, dCB B and
+    dCBᵀ C once per chunk) and the dS terms (B dS, xdt dSᵀ per head)."""
+    tri = Q * (Q + 1) // 2
+    nbytes = 4 * B * nc * (2 * Q * H + 3 * Q * H * P + 4 * Q * N + H * N * P)
+    flops = 2 * B * nc * (2 * tri * P * H + 3 * tri * N + 2 * Q * N * P * H)
+    return nbytes, flops
+
+
+def _dispatch_bwd_times(m, dest, dbuf, T, k) -> dict:
+    """The dispatch backward on slot map `dest`: kernel, plain version
+    and the library call (``torch.index_add`` of the kept slots' rows,
+    gathered beforehand, onto a zeroed dx; timed here only), with the
+    bound of the kept rows read, dx written and the slot ids read."""
+    torch, d_ops = m["torch"], m["dispatch_ops"]
+    E, C, d = dbuf.shape
+    keep = dest < E * C
+    kept = int(keep.sum())
+    tok = (torch.arange(T * k, device="cuda") // k)[keep]
+    rows = dbuf.reshape(E * C, d)[dest[keep].long()]
+    zeros = torch.zeros(T, d, dtype=dbuf.dtype, device="cuda")
+    return {"shape": [T, k, d, E, C], "dtype": str(dbuf.dtype)[6:],
+            "kept_pairs": kept, "dropped_share": 1 - kept / (T * k),
+            **_times(torch,
+                     lambda: d_ops.moe_dispatch_bwd_cuda(dbuf, dest, T, k),
+                     lambda: m["moe_dispatch_bwd_ref"](dbuf, dest, T, k),
+                     lambda: torch.index_add(zeros, 0, tok, rows)),
+            **_bound(dbuf.element_size() * (kept + T) * d + 4 * T * k,
+                     kept * d, FP32_FLOPS)}
+
+
+def family_timing(m, routing) -> dict:
+    """The two new backward kernels at the train shapes, their plain
+    versions and, for the dispatch, the library call computing the same
+    function; device ms from CUDA-graph replays.  The dispatch at
+    olmoe's step (T 4096, top-8, d 2048, E 64, C 640 = ``moe_capacity``),
+    bf16, on the slot map of the ``train_moe`` call with the median
+    dropped share among `routing` (the slot maps that path's dispatch
+    backward got), and on the skewed router of ``dispatch_inputs``; SSD
+    at zamba2's [1,16,256,112,64,64], fp32.  Flash's backward at D 128
+    and D 112 against SDPA's causal backward on the same pairs (CUDA
+    events)."""
+    torch, F = m["torch"], m["F"]
+    d_ops, s_ops, fa = m["dispatch_ops"], m["ssd_ops"], m["fa_ops"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    out = {}
+    cfg = m["get_config"](OLMOE)
+    E, k, d = cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model
+    T = FAMILY_SEQ
+    C = m["moe_capacity"](T, cfg)
+    dbuf = torch.randn(E, C, d, generator=g, device="cuda").to(torch.bfloat16)
+    routing = sorted((dest for dest, ec in routing
+                      if ec == E * C and dest.numel() == T * k),
+                     key=lambda dest: int((dest == E * C).sum()))
+    _check(len(routing) > 0, f"no train_moe slot map of T {T}, E*C {E * C}")
+    out["moe_dispatch_bwd"] = _dispatch_bwd_times(
+        m, routing[len(routing) // 2], dbuf, T, k)
+    x, eidx = dispatch_inputs(torch, g, T, d, E, k, torch.bfloat16)
+    out["moe_dispatch_bwd"]["skewed"] = _dispatch_bwd_times(
+        m, d_ops.moe_dispatch_cuda(eidx, x, E, C)[1], dbuf, T, k)
+    del x, eidx, dbuf, routing
+    nc, Q = SSD_BWD_SHAPES[0]
+    args = ssd_inputs(torch, g, nc, Q)
+    dy = torch.randn(args[1].shape, generator=g, device="cuda")
+    dS = torch.randn(1, nc, 112, 64, 64, generator=g, device="cuda")
+    kern = lambda: s_ops.ssd_intra_bwd_cuda(*args, dy, dS)  # noqa: E731
+    plain = lambda: m["ssd_intra_bwd_ref"](*args, dy, dS)  # noqa: E731
+    out["ssd_intra_bwd"] = {
+        "shape": [1, nc, Q, 112, 64, 64], "dtype": "float32",
+        "ms": _device_ms(torch, kern, reps=5, inner=4),
+        "call_ms": _time_ms(torch, kern, reps=5, inner=4),
+        "plain_ms": _device_ms(torch, plain, reps=3, inner=1),
+        "library_ms": None,
+        **_bound(*_ssd_bwd_work(1, nc, Q, 112, 64, 64), FP32_FLOPS)}
+    del args, dy, dS
+    _free(torch)
+    flash = {}
+    for label, (B, S, H, KV, D, W) in FLASH_BWD_FAMILY.items():
+        q, k_, v, do = flash_bwd_inputs(torch, g, B, S, H, KV, D,
+                                        torch.bfloat16)
+        o, lse = fa.flash_attention_cuda(q, k_, v, window=W, with_lse=True)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k_, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2)
+        pairs = _pairs(S, W)
+        flash[label] = {
+            "shape": [B, S, H, KV, D], "dtype": "bfloat16", "pairs": pairs,
+            "ms": _time_ms(torch, lambda: fa.flash_attention_bwd_cuda(
+                q, k_, v, o, lse, do, window=W), reps=5, inner=4),
+            "library_ms": _time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dot, retain_graph=True), reps=5,
+                inner=4),
+            **_bound(2 * (4 * S * H * D + 4 * S * KV * D) + 4 * B * H * S,
+                     10 * D * pairs * H, BF16_FLOPS)}
+        del q, k_, v, do, o, lse, qt, kt, vt, lib_out, dot
+    out["flash_attention_bwd"] = flash
+    _free(torch)
+    return out
+
+
 def train_phase(m) -> dict:
     out = {"kernels": train_kernel_phase(m)}
     print(f"[train] backward kernels vs plain: "
@@ -1993,6 +2412,18 @@ def train_phase(m) -> dict:
               f"peak {s['peak_gb']:.2f} GB", flush=True)
     out["profile"] = train_profile(m)
     out["timings"] = train_timing(m)
+    out["family_kernels"] = family_kernel_phase(m)
+    print(f"[train] dispatch and SSD backward kernels vs plain, flash at "
+          f"D 128 / 112: {json.dumps(out['family_kernels'])}", flush=True)
+    out["family_reduced"] = family_reduced_phase(m)
+    print(f"[train] reduced olmoe, deepseek, zamba2 card vs cpu: "
+          f"{json.dumps(out['family_reduced'])}", flush=True)
+    out["train_moe"] = family_train_path(m, *MOE_TRAIN)
+    out["train_hybrid"] = family_train_path(m, *HYBRID_TRAIN)
+    out["family_timings"] = family_timing(
+        m, out["train_moe"].pop("routing"))
+    print(f"[train] family timings: {json.dumps(out['family_timings'])}",
+          flush=True)
     return out
 
 
@@ -2396,6 +2827,8 @@ def main() -> int:
     paths = {p: serve[p] for p in serve if isinstance(serve[p], dict)
              and "launches" in serve[p]}
     paths["train"] = train["train"]
+    paths["train_moe"] = train["train_moe"]
+    paths["train_hybrid"] = train["train_hybrid"]
     kernels = []
     for name, (source, replaces, main_shape) in sources.items():
         t = timings[name][main_shape]
@@ -2405,7 +2838,9 @@ def main() -> int:
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(errs[name],
-                               train["kernels"]["forward"].get(name, 0.0)),
+                               train["kernels"]["forward"].get(name, 0.0),
+                               max(train["family_kernels"]["forward"].values())
+                               if name == "flash_attention" else 0.0),
             "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "call_ms": t["call_ms"],
@@ -2445,8 +2880,46 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "call_ms": t.get("call_ms")})
         if name == "flash_attention_bwd":
-            kernels[-1].update(same_work=t["same_work"], ptxas=bwd_ptxas)
+            fam = train["family_kernels"]["flash_attention_bwd"]
+            kernels[-1].update(
+                same_work=t["same_work"], ptxas=bwd_ptxas,
+                family_shapes={"max_abs_err": fam["max_abs_err"],
+                               "normalized_err": fam["normalized_err"],
+                               "timings": train["family_timings"][name]})
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                             fam["max_abs_err"])
         _check(by_path["train"] > 0, f"{name}: no launch on the train path")
+    # the MoE dispatch's and SSD's backward kernels: their main paths are
+    # the full-width olmoe and zamba2 train steps; timed at their shapes
+    new_bwd = {
+        "moe_dispatch_bwd": ("src/repro_torch/csrc/moe_dispatch.cu",
+                             "src/repro/models/moe.py:110", "train_moe"),
+        "ssd_intra_bwd": ("src/repro_torch/csrc/ssm_scan_bwd.cu",
+                          "src/repro/models/ssm.py:98", "train_hybrid")}
+    for name, (source, replaces, main_path) in new_bwd.items():
+        t = train["family_timings"][name]
+        chk = train["family_kernels"][name]
+        by_path = {p: paths[p]["launches"][name] for p in paths}
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": chk["max_abs_err"],
+            "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "call_ms": t.get("call_ms")})
+        if name == "moe_dispatch_bwd":
+            kernels[-1].update(
+                dropped_share=t["dropped_share"],
+                skewed={key: t["skewed"][key] for key in (
+                    "dropped_share", "ms", "plain_ms", "library_ms",
+                    "bound_ms")})
+        if name == "ssd_intra_bwd":
+            kernels[-1].update(
+                normalized_err=max(chk["normalized_err"].values()),
+                plain_fp32_normalized_err=max(
+                    chk["plain_fp32_normalized_err"].values()))
+        _check(by_path[main_path] > 0,
+               f"{name}: no launch on the {main_path} path")
     # the SIMT machine: its main path is the Fig 9 grid; timed at
     # vecadd/8w8t (one launch), its plain loop on the same launch (host
     # clock: the loop reads the card every cycle)

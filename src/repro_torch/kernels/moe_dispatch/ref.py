@@ -50,3 +50,28 @@ def moe_dispatch_ref(eidx: torch.Tensor, x: torch.Tensor, E: int, C: int
     dest_tk = torch.empty_like(dest)
     dest_tk[sort_idx] = dest                               # (token, slot)
     return buf, dest_tk.to(torch.int32), counts.to(torch.int32)
+
+
+def moe_dispatch_bwd_ref(dbuf: torch.Tensor, dest_tk: torch.Tensor, T: int,
+                         k: int) -> torch.Tensor:
+    """The gradient of ``moe_dispatch_ref``'s buffer in x: dbuf [E, C, d]
+    and each pair's slot dest_tk [T*k] -> dx [T, d] in dbuf's dtype.
+
+    ``dx[t] = sum of dbuf.view(E*C, d)[dest_tk[t*k + s]]`` over the
+    pairs s < k that were not dropped (slot < E*C).  Each capacity slot
+    holds one pair, so this is a gather per token: no scatter, no
+    atomics.  The sum is taken in fp32 and rounded once to dbuf's dtype,
+    adding a token's slots in ascending slot order (the order in which
+    the buffer holds them, and in which autograd's scatter-add of
+    ``moe_dispatch_ref`` visits them, so that in fp32 the two agree bit
+    for bit); dropped pairs sort last and add nothing."""
+    EC, d = dbuf.shape[0] * dbuf.shape[1], dbuf.shape[-1]
+    flat = dbuf.reshape(EC, d)
+    slots = torch.sort(dest_tk.long().reshape(T, k), dim=1).values
+    dx = torch.zeros((T, d), dtype=torch.float32, device=dbuf.device)
+    for s in range(k):
+        sl = slots[:, s]
+        keep = sl < EC
+        rows = flat[torch.where(keep, sl, torch.zeros_like(sl))].float()
+        dx = torch.where(keep[:, None], dx + rows, dx)
+    return dx.to(dbuf.dtype)

@@ -16,7 +16,7 @@ random from seed 0 (``TrainConfig.seed``); the data is the synthetic LM
 stream addressed by (seed, step), so ``--ckpt`` with ``--restore auto``
 resumes exactly.  The flags are the JAX CLI's, plus ``--device``;
 ``--mesh`` raises ``NotImplementedError`` (sharding is ROADMAP Queue 1,
-item 8).  The observability plane (``--trace``, ``--metrics-port``,
+item 6).  The observability plane (``--trace``, ``--metrics-port``,
 ``--flight-dir``) and ``--chaos-seed`` (a seeded fault plan through
 ``training.resilient``) are wired as in ``launch/serve.py``.
 
@@ -90,7 +90,7 @@ def main(argv=None, history: Optional[List[Dict[str, float]]] = None
     if args.mesh:
         raise NotImplementedError(
             "--mesh: sharded training comes with the distributed slice of "
-            "the port (ROADMAP Queue 1, item 8)")
+            "the port (ROADMAP Queue 1, item 6)")
     device = resolve_device(args.device)
     if args.trace:
         obs.enable_tracing()

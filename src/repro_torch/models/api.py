@@ -54,8 +54,9 @@ def forward(params: Model, batch: Dict[str, Any], cfg: ModelConfig, *,
     """Returns (logits, aux_loss, new_caches).  'chunk' and 'decode'
     write `caches` in place for the slot ids in `rows` (all when None).
     'train' runs with autograd (the other modes under ``no_grad``); for
-    the dense and MoE families `remat` is 'full', 'dots' or 'none', as
-    in ``repro.models.api.forward``."""
+    the dense, MoE, vlm and hybrid families `remat` is 'full', 'dots' or
+    'none', as in ``repro.models.api.forward`` (per layer, and per group
+    of Mamba blocks and the shared block for the hybrid)."""
     bridge.model_class(cfg)             # other families raise
     if mode == "chunk" and not supports_chunked_prefill(cfg):
         raise NotImplementedError(
@@ -71,7 +72,8 @@ def forward(params: Model, batch: Dict[str, Any], cfg: ModelConfig, *,
     with contextlib.nullcontext() if mode == "train" else torch.no_grad():
         if cfg.family == "hybrid":
             return zamba.zamba_forward(params, batch, cfg, mode=mode,
-                                       caches=caches, rows=rows)
+                                       caches=caches, rows=rows,
+                                       remat=remat)
         if cfg.family == "xlstm":
             return xlstm_lm.xlstm_lm_forward(params, batch, cfg, mode=mode,
                                              caches=caches)

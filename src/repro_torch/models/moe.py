@@ -20,6 +20,17 @@ the JAX code, none of result:
   [T, k, d] and summed over k in fp32, with no atomics, so a request
   gives the same tokens run to run.
 
+Training runs through the same code.  On CUDA the dispatch's backward
+is a kernel too (``moe_dispatch_bwd``: each token's dx gathers and sums
+its slots' rows of the buffer's gradient, in a fixed order).  The
+combine's ``index_select`` backward scatters each pair's gradient to its
+slot: ``dest_tk`` names every filled slot once, so each of those rows
+receives one addition onto zero, and only the drop row E*C, a constant
+zero row whose gradient is discarded, receives several.  So the MoE
+layer's backward gives the same bits run to run, and a layer recomputed
+under remat routes as its first forward did (topk and the dispatch are
+deterministic).
+
 The expert-parallel all-to-all path (``moe_a2a``) is not ported.
 """
 from __future__ import annotations

@@ -5,7 +5,9 @@ State layout: [B, H, N, P] (heads, ssm state, head dim).
 
 ``ssd_chunked`` on CUDA tensors runs the intra-chunk block through the
 SSD kernel (``kernels/ssm_scan``: y_intra and the chunk states) and
-keeps the short inter-chunk scan and y_inter in torch.  On CPU tensors
+keeps the short inter-chunk scan and y_inter in torch; under grad the
+intra-chunk block's backward is a kernel too (``ssd_intra_bwd``), the
+rest plain autograd.  On CPU tensors
 it is the plain twin of the JAX function, head groups and all: heads
 go in groups so that the [B,nc,Q,Q,Hg] decay tensor stays under
 `decay_budget` elements.
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan.ops import ssd_intra
+from repro_torch.kernels.ssm_scan.ref import head_group
 from repro_torch.models import params as P
 from repro_torch.models.common import rmsnorm
 
@@ -143,10 +146,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
         return y.reshape(Bsz, L, H, Pd), final_state
 
     # plain path: heads in groups so the decay tensor stays in budget
-    hg = max(1, int(decay_budget // max(1, Bsz * nc * Q * Q)))
-    hg = min(hg, H)
-    while H % hg:
-        hg -= 1
+    hg = head_group(Bsz, nc, Q, H, decay_budget)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     CB = torch.einsum("bnqs,bnks->bnqk", Cc, Bc)                 # shared
     ys, finals = [], []

@@ -124,15 +124,21 @@ def _block(x, y, lp, positions, cfg: ModelConfig, kind: str, mode: str,
     return x, y, aux, nc
 
 
+def remat_call(run, remat: str, *args):
+    """``run(*args)`` under `remat`: 'none' as it is, 'full' recomputed
+    in the backward (``torch.utils.checkpoint``, non-reentrant), 'dots'
+    too but keeping the outputs of the plain matrix products."""
+    if remat == "none":
+        return run(*args)
+    kw = {} if remat == "full" else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_matmuls)}
+    return ckpt.checkpoint(run, *args, use_reentrant=False, **kw)
+
+
 def _train_block(x, y, lp, positions, cfg, kind, remat):
     def run(x, y, lp, positions):
         return _block(x, y, lp, positions, cfg, kind, "train")[:3]
-    if remat == "none":
-        return run(x, y, lp, positions)
-    kw = {} if remat == "full" else {"context_fn": functools.partial(
-        ckpt.create_selective_checkpoint_contexts, _save_matmuls)}
-    return ckpt.checkpoint(run, x, y, lp, positions, use_reentrant=False,
-                           **kw)
+    return remat_call(run, remat, x, y, lp, positions)
 
 
 def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],

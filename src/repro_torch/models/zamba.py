@@ -8,22 +8,28 @@ but 13 distinct KV caches: same weights, different activations.
 
 The JAX scans over groups and blocks become Python loops.  'decode'
 writes the SSM, conv and KV caches IN PLACE for the slot ids in `rows`
-(all when None); 'prefill' returns new caches.  The windowed shared
-attention of the long-context cell (``long_context``) is not ported.
+(all when None); 'prefill' returns new caches.  'train' runs with
+autograd and, as ``repro.models.zamba`` does, checkpoints each group
+(its Mamba blocks and the shared block) by `remat`
+(``transformer.remat_call``: 'full', 'dots' or 'none'); the tail
+blocks are not checkpointed.  The shared block's one parameter set
+takes a gradient from every group.  The windowed shared attention of
+the long-context cell (``long_context``) is not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, ssm
 from repro_torch.models import params as P
-from repro_torch.models.common import (add_rmsnorm, padded_vocab,
-                                       stack_layers)
+from repro_torch.models.common import (add_rmsnorm, embed_lookup,
+                                       padded_vocab, stack_layers)
 from repro_torch.models.mlp import mlp_forward
-from repro_torch.models.transformer import attention_spec
+from repro_torch.models.transformer import (REMAT, attention_spec,
+                                            remat_call)
 
 
 def plan(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -87,6 +93,19 @@ def _shared_block(sp, x, y, positions, cfg, mode, kv_cache, keep):
     return x, mlp_forward(sp["mlp"], h), new_kv
 
 
+def _train_group(x, y, bps: List[Mapping[str, Any]], sp, positions,
+                 cfg: ModelConfig, remat: str):
+    """One group in mode 'train': its Mamba blocks, then the shared
+    block, checkpointed as a whole by `remat`.  Returns (x, y)."""
+    def run(x, y, bps, sp, positions):
+        for bp in bps:
+            x, y, _ = _mamba_block(bp, x, y, cfg, "train", None, None)
+        x, y, _ = _shared_block(sp, x, y, positions, cfg, "train", None,
+                                None)
+        return x, y
+    return remat_call(run, remat, x, y, bps, sp, positions)
+
+
 def _stack(trees, one: Dict[str, torch.Tensor]):
     """Stack per-layer cache trees shaped as `one` (a layer's)."""
     return {k: stack_layers([t[k] for t in trees], t1.shape, t1)
@@ -96,16 +115,20 @@ def _stack(trees, one: Dict[str, torch.Tensor]):
 def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
                   *, mode: str = "train",
                   caches: Optional[Dict[str, Any]] = None,
-                  rows: Optional[torch.Tensor] = None):
+                  rows: Optional[torch.Tensor] = None, remat: str = "full"):
     """Returns (logits, aux=0, new_caches).
 
     caches: {"mamba": stacked [G*g] tree, "tail": stacked [tail] tree,
              "kv": stacked [G] {"k", "v"}, "len": int32 (scalar or [B])}
+    mode 'train': autograd, each group checkpointed by `remat` (one of
+    ``transformer.REMAT``).
     """
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     n_groups, g, tail = plan(cfg)
     tokens = batch["tokens"].to(params.device).long()
     B, S = tokens.shape
-    x = params.embed[tokens]
+    x = embed_lookup(params.embed, tokens)
     dev = x.device
     keep = None
     if mode == "decode":
@@ -125,12 +148,16 @@ def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
     # of the next norm (the next block's, or the final norm)
     y = None
     new_mamba, new_kv = [], []
+    blocks = params.blocks.layers()
     for gi in range(n_groups):
+        if mode == "train":
+            x, y = _train_group(x, y, blocks[gi * g:(gi + 1) * g],
+                                params.shared, positions, cfg, remat)
+            continue
         for j in range(g):
             i = gi * g + j
             cache = _layer_cache(caches, "mamba", i)
-            x, y, nc = _mamba_block(params.blocks.layer(i), x, y, cfg, mode,
-                                    cache, rows)
+            x, y, nc = _mamba_block(blocks[i], x, y, cfg, mode, cache, rows)
             new_mamba.append(nc)
         kv = None
         if caches is not None:
@@ -140,10 +167,9 @@ def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
                                   kv, keep)
         new_kv.append(nkv)
     new_tail = []
-    for i in range(tail):
+    for i, bp in enumerate(params.tail.layers() if tail else ()):
         cache = _layer_cache(caches, "tail", i)
-        x, y, nc = _mamba_block(params.tail.layer(i), x, y, cfg, mode, cache,
-                                rows)
+        x, y, nc = _mamba_block(bp, x, y, cfg, mode, cache, rows)
         new_tail.append(nc)
 
     _, x = add_rmsnorm(x, y, params.final_norm, cfg.norm_eps)

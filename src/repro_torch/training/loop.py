@@ -9,9 +9,11 @@ storage, the optimizer's master / m / v / step and the compression error
 tree are written where they are.  Each microbatch's gradients come from one
 ``loss.backward()`` into ``.grad`` (in the parameter's dtype, as JAX's
 grads are), are added in fp32 into the accumulator, and ``.grad`` is
-cleared.  The dense and MoE families train (``api.forward`` mode
-'train'); on CUDA the MoE dispatch and SSD kernels have no backward yet
-and refuse grad.
+cleared.  Every family trains through ``api.forward`` mode 'train'; on
+CUDA the forward and backward of each hand-written kernel (RMSNorm,
+flash, the MoE dispatch, SSD) are kernels.  As in the JAX trainer, a
+VLM's loss is taken over the text positions only: the logits of the
+patch positions before them are dropped.
 """
 from __future__ import annotations
 
@@ -96,7 +98,10 @@ def _make_accumulate(cfg: ModelConfig, tc: TrainConfig):
             p.grad = None
         logits, aux, _ = api.forward(params, mb, cfg, mode="train",
                                      remat=tc.remat)
-        ce = cross_entropy(logits, mb["labels"], cfg.vocab_size)
+        labels = mb["labels"]
+        if cfg.family == "vlm":        # loss only over the text positions
+            logits = logits[:, -labels.shape[1]:]
+        ce = cross_entropy(logits, labels, cfg.vocab_size)
         loss = ce + aux
         loss.backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
@@ -121,7 +126,9 @@ def _make_accumulate(cfg: ModelConfig, tc: TrainConfig):
             grads, lv = grads_of(params, {k: v[i * mb:(i + 1) * mb]
                                           for k, v in batch.items()})
             for n, g in grads.items():
-                gacc[n] += g.float() / n_mb
+                # a slice at a time: no fp32 copy of a whole stacked leaf
+                for acc, gs in opt_mod.slices(gacc[n], g):
+                    acc += gs.float() / n_mb
             lacc = lacc + lv / n_mb
             del grads
         return gacc, {"loss": lacc[0], "ce": lacc[1], "aux": lacc[2]}

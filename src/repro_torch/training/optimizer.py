@@ -60,7 +60,7 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def _slices(*ts: torch.Tensor):
+def slices(*ts: torch.Tensor):
     """Matching flat slices of contiguous tensors of one size."""
     flat = [t.view(-1) for t in ts]
     for i in range(0, flat[0].numel(), CHUNK):
@@ -87,7 +87,7 @@ def adamw_update(params: Model, grads: Tree, opt: OptState,
     for name, p in params.named_parameters():
         # decoupled weight decay on matrices only (ndim >= 2), standard
         wd = tc.weight_decay if p.dim() >= 2 else 0.0
-        for g, mast, m, v, out in _slices(grads[name], opt.master[name],
+        for g, mast, m, v, out in slices(grads[name], opt.master[name],
                                           opt.m[name], opt.v[name], p.data):
             g = g.float() * clip
             m.copy_(b1 * m + (1 - b1) * g)

@@ -1,9 +1,9 @@
 """The port's kernels: plain versions against the JAX package's Pallas
 kernels (interpret mode) and oracles on the CPU; the CUDA kernels
 (RMSNorm plain and fused with the residual add, flash attention, the
-MoE dispatch, SSD intra-chunk, and the backward kernels of RMSNorm and
-flash attention) against the plain versions on a card (``gpu`` marker,
-skipped here).  The MoE and SSD plain versions' CPU
+MoE dispatch, SSD intra-chunk, and the backward kernels of RMSNorm,
+flash attention, the MoE dispatch and SSD) against the plain versions
+on a card (``gpu`` marker, skipped here).  The MoE and SSD plain versions' CPU
 parity tests are in ``test_torch_moe.py`` and ``test_torch_hybrid.py``.
 
 JAX is imported inside the CPU parity tests only, so the ``gpu`` tests
@@ -22,12 +22,14 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref, flash_bwd_ref, flash_fwd_ref)
 from repro_torch.kernels.moe_dispatch import ops as dispatch_ops  # noqa: E402
-from repro_torch.kernels.moe_dispatch.ref import moe_dispatch_ref  # noqa: E402
+from repro_torch.kernels.moe_dispatch.ref import (  # noqa: E402
+    moe_dispatch_bwd_ref, moe_dispatch_ref)
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
     add_rmsnorm_bwd_ref, add_rmsnorm_ref, rmsnorm_bwd_ref, rmsnorm_ref)
 from repro_torch.kernels.ssm_scan import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssm_scan.ref import ssd_intra_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan.ref import (  # noqa: E402
+    ssd_intra_bwd_ref, ssd_intra_ref)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -670,17 +672,92 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, R, d, dtype, fused):
         torch.testing.assert_close(a.float(), c.float(), atol=t, rtol=tol)
 
 
+DISPATCH_BWD_CASES = DISPATCH_CASES + [  # olmoe's and deepseek's train
+    # step: 4096 tokens, the model's capacity (drops) and an ample one
+    (4096, 2048, 64, 8, 640), (4096, 2048, 64, 6, 480),
+    (4096, 2048, 64, 6, 4096)]
+
+
 @pytest.mark.gpu
-def test_kernels_without_backward_refuse_grad_on_cuda(cuda):
-    x = torch.randn(8, 64, device=cuda, requires_grad=True)
-    eidx = torch.zeros(8, 2, dtype=torch.int64, device=cuda)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        dispatch_ops.moe_dispatch(eidx, x, 2, 8)
-    with torch.no_grad():
-        dispatch_ops.moe_dispatch(eidx, x, 2, 8)
-    cum = torch.zeros(1, 1, 8, 2, device=cuda, requires_grad=True)
-    args = (torch.zeros(1, 1, 8, 2, 64, device=cuda),
-            torch.zeros(1, 1, 8, 64, device=cuda),
-            torch.zeros(1, 1, 8, 64, device=cuda))
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ssd_ops.ssd_intra(cum, *args)
+@pytest.mark.parametrize("T,d,E,k,C", DISPATCH_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_dispatch_bwd_kernel_bit_exact(cuda, T, d, E, k, C, dtype):
+    """The dispatch's backward (a gather-sum of each token's buffer rows)
+    against its plain version, bit-exact in dx, two runs the same bits,
+    one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    bias = torch.linspace(2, 0, E, device=cuda)
+    eidx = torch.topk(torch.rand(T, E, generator=g, device=cuda) + bias, k,
+                      dim=-1).indices
+    _, dest_tk, _ = moe_dispatch_ref(eidx, torch.zeros(T, d, device=cuda),
+                                     E, C)
+    dbuf = torch.randn(E, C, d, generator=g, device=cuda).to(DTYPES[dtype])
+    n0 = dispatch_ops.bwd_launches
+    got = dispatch_ops.moe_dispatch_bwd_cuda(dbuf, dest_tk, T, k)
+    again = dispatch_ops.moe_dispatch_bwd_cuda(dbuf, dest_tk, T, k)
+    torch.cuda.synchronize()
+    assert dispatch_ops.bwd_launches == n0 + 2
+    want = moe_dispatch_bwd_ref(dbuf, dest_tk, T, k)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+def _ssd_grads(cuda, B, nc, Q, H, P, N):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    return (torch.randn(B, nc, Q, H, P, generator=g, device=cuda),
+            torch.randn(B, nc, H, N, P, generator=g, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nc,Q,H,P,N", SSD_CASES)
+@pytest.mark.parametrize("rate", [1.0, 10.0])
+def test_ssd_bwd_kernel_matches_plain(cuda, B, nc, Q, H, P, N, rate):
+    """(dcum, dxdt, dB, dC) of the SSD backward kernel against the plain
+    backward in fp64: max |got - want| <= 1e-4 max |want| for each;
+    steep decay (rate 10) overflows exp past the diagonal, which the
+    kernel masks first; two runs the same bits, one launch each."""
+    args = _ssd_case(cuda, B, nc, Q, H, P, N, rate=rate)
+    dy, dS = _ssd_grads(cuda, B, nc, Q, H, P, N)
+    n0 = ssd_ops.bwd_launches
+    got = ssd_ops.ssd_intra_bwd_cuda(*args, dy, dS)
+    again = ssd_ops.ssd_intra_bwd_cuda(*args, dy, dS)
+    torch.cuda.synchronize()
+    assert ssd_ops.bwd_launches == n0 + 2
+    want = ssd_intra_bwd_ref(*(t.double() for t in (*args, dy, dS)))
+    for name, a, b, w in zip(("dcum", "dxdt", "dB", "dC"), got, again, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape, name
+        assert torch.equal(a, b), name
+        assert bool(torch.isfinite(a).all()), name
+        err = float((a.double() - w).abs().max())
+        assert err <= 1e-4 * max(float(w.abs().max()), 1e-30), (name, err)
+
+
+@pytest.mark.gpu
+def test_moe_and_ssd_autograd_on_cuda_run_the_kernels(cuda):
+    """Under grad on CUDA the dispatch and SSD wrappers run their
+    autograd Functions: one forward and one backward launch each, the
+    grads equal their plain backwards (the dispatch's bit for bit, SSD's
+    within 1e-4 of each grad's largest entry); an output that takes no
+    gradient (SSD's S) is fed as zeros."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(64, 256, generator=g, device=cuda, requires_grad=True)
+    eidx = torch.topk(torch.rand(64, 16, generator=g, device=cuda), 4,
+                      dim=-1).indices
+    f0, b0 = dispatch_ops.launches, dispatch_ops.bwd_launches
+    buf, dest_tk, counts = dispatch_ops.moe_dispatch(eidx, x, 16, 12)
+    assert not dest_tk.requires_grad and not counts.requires_grad
+    dbuf = torch.randn(buf.shape, generator=g, device=cuda)
+    dx, = torch.autograd.grad(buf, x, dbuf)
+    assert (dispatch_ops.launches, dispatch_ops.bwd_launches) == (f0 + 1,
+                                                                 b0 + 1)
+    assert torch.equal(dx, moe_dispatch_bwd_ref(dbuf, dest_tk, 64, 4))
+    ins = [t.requires_grad_() for t in _ssd_case(cuda, 1, 2, 65, 5, 64, 64)]
+    f0, b0 = ssd_ops.launches, ssd_ops.bwd_launches
+    y, _s = ssd_ops.ssd_intra(*ins)
+    dy = torch.randn(y.shape, generator=g, device=cuda)
+    got = torch.autograd.grad(y, ins, dy)
+    assert (ssd_ops.launches, ssd_ops.bwd_launches) == (f0 + 1, b0 + 1)
+    want = ssd_intra_bwd_ref(*(t.detach() for t in ins), dy,
+                             torch.zeros(_s.shape, device=cuda))
+    for a, w in zip(got, want):
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())

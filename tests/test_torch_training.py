@@ -47,10 +47,13 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_bwd_ref, flash_fwd_ref)
 from repro_torch.kernels.moe_dispatch import ops as dispatch_ops  # noqa: E402
+from repro_torch.kernels.moe_dispatch.ref import (  # noqa: E402
+    moe_dispatch_bwd_ref)
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
     add_rmsnorm_bwd_ref, rmsnorm_bwd_ref)
 from repro_torch.kernels.ssm_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssm_scan.ref import ssd_intra_bwd_ref  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.training import loop as tl  # noqa: E402
 from repro_torch.training.resilient import train_with_recovery  # noqa: E402
@@ -146,12 +149,12 @@ def test_rmsnorm_plain_bwd_matches_jax_vjp(R, d):
                                        atol=1e-5, rtol=1e-5)
 
 
-def test_kernel_wrappers_carry_grad_fn_and_refuse_without_backward():
-    """Under grad the dense path's wrappers return outputs that carry a
-    grad_fn (on the CPU plain autograd through the plain forwards, whose
-    gradients equal the backward kernels' plain versions); without grad
-    they return plain tensors; the kernels with no backward refuse grad
-    before anything else."""
+def test_kernel_wrappers_carry_grad_fn_and_match_plain_backwards():
+    """Under grad every wrapper returns outputs that carry a grad_fn (on
+    the CPU plain autograd through the plain forwards, whose gradients
+    equal the backward kernels' plain versions: flash, RMSNorm, the MoE
+    dispatch bit for bit, SSD); without grad they return plain
+    tensors."""
     g = torch.Generator().manual_seed(0)
     q = torch.randn(1, 20, 4, 16, generator=g, requires_grad=True)
     k = torch.randn(1, 20, 2, 16, generator=g, requires_grad=True)
@@ -176,11 +179,29 @@ def test_kernel_wrappers_carry_grad_fn_and_refuse_without_backward():
     with torch.no_grad():
         assert fa_ops.flash_attention(q, k, v).grad_fn is None
         assert rms_ops.rmsnorm(x, w).grad_fn is None
-    with pytest.raises(NotImplementedError, match="no backward"):
-        dispatch_ops.moe_dispatch_cuda(
-            torch.zeros(4, 2, dtype=torch.long), x, 8, 2)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ssd_ops.ssd_intra_cuda(x, x, x, x)
+    xt = torch.randn(6, 16, generator=g, requires_grad=True)
+    eidx = torch.stack([torch.randperm(8, generator=g)[:3]
+                        for _ in range(6)])
+    buf, dest_tk, counts = dispatch_ops.moe_dispatch(eidx, xt, 8, 2)
+    assert buf.grad_fn is not None and not dest_tk.requires_grad \
+        and not counts.requires_grad and bool((dest_tk == 16).any())
+    dbuf = torch.randn(buf.shape, generator=g)
+    got, = torch.autograd.grad(buf, xt, dbuf)
+    assert torch.equal(got, moe_dispatch_bwd_ref(dbuf, dest_tk, 6, 3))
+    cum = torch.cumsum(-torch.rand(1, 2, 9, 3, generator=g), 2)
+    ins = [cum, torch.randn(1, 2, 9, 3, 8, generator=g),
+           torch.randn(1, 2, 9, 4, generator=g),
+           torch.randn(1, 2, 9, 4, generator=g)]
+    ins = [t.requires_grad_() for t in ins]
+    y_s = ssd_ops.ssd_intra(*ins)
+    assert all(t.grad_fn is not None for t in y_s)
+    dy_ds = [torch.randn(t.shape, generator=g) for t in y_s]
+    got = torch.autograd.grad(y_s, ins, dy_ds)
+    for a, b in zip(got, ssd_intra_bwd_ref(*ins, *dy_ds)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    with torch.no_grad():
+        assert dispatch_ops.moe_dispatch(eidx, xt, 8, 2)[0].grad_fn is None
+        assert ssd_ops.ssd_intra(*ins)[0].grad_fn is None
 
 
 # ---------------------------------------------------------------------------
@@ -506,7 +527,7 @@ def test_train_cli_on_cpu(capsys, tmp_path):
     assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0
                for h in history)
     assert store.list_steps(str(tmp_path)) == [3]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
         train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                         "--mesh"])
 
