@@ -7,11 +7,12 @@ Needs one CUDA card and a checkout of the repository around this file;
 without either it exits non-zero and prints no result.  Imports nothing
 of JAX and nothing of the ``repro`` package.  In order:
 
-1. builds the six CUDA sources (RMSNorm with its fused residual-add
+1. builds the seven CUDA sources (RMSNorm with its fused residual-add
    form and its backward, the flash-attention forward, its FA-2
-   backward, the MoE dispatch, SSD intra-chunk, the SIMT machine's cycle
-   loop) from ``src/repro_torch/csrc/``, one ``nvcc`` per source, in
-   parallel;
+   backward, the MoE dispatch, SSD intra-chunk and its backward, the
+   SIMT machine's cycle loop) from ``src/repro_torch/csrc/``, one
+   ``nvcc`` per source, in parallel, and prints each library's
+   registers, stack and spill bytes by kernel and template arguments;
 2. drives the Vortex SIMT machine: the kernel (one launch per machine
    run) against the plain PyTorch loop on the card, every State field
    and counter bit-equal (vecadd and nn at 8w8t, gaussian at 4w16t at
@@ -109,7 +110,7 @@ of JAX and nothing of the ``repro`` package.  In order:
    its plain version and a library yardstick (flash also on the same
    work as SDPA's causal backward, at S 4096 where its window cannot
    bind); the build's registers, stack and spill bytes of every FA-2
-   backward instance are printed and carried in the kernels line;
+   backward instance are carried in the kernels line;
 8. trains the MoE and hybrid families: the MoE dispatch's backward
    (a gather-sum per token) bit-exact with its plain version at
    olmoe-1b-7b's and deepseek-moe-16b's widths (T 1 / 64 / 4096, C
@@ -128,7 +129,10 @@ of JAX and nothing of the ``repro`` package.  In order:
    block, then the 3-block tail), each step's loss, grad norm, ms,
    tokens/s and peak GB printed beside the depth cut, every kernel of
    the path launched; and the new backward kernels timed against their
-   plain versions and, for the dispatch, ``torch.index_add``.
+   plain versions and, for the dispatch, ``torch.index_add``; SSD's
+   backward also by launch under the profiler, its bound counting its
+   products at 3xTF32 (the fp32-FMA figure beside it), and its ptxas
+   usage carried in the kernels line.
 
 It prints a ``{"simt": ...}`` line, a ``{"serve": ...}`` line, a
 ``{"timings": ...}`` line, a ``{"train": ...}`` line, one
@@ -2294,6 +2298,26 @@ def family_train_path(m, arch: str, layers: int) -> dict:
     return out
 
 
+def _launch_ms(torch, fn, prefix: str, reps: int = 10) -> dict:
+    """Device ms per launch of each CUDA function of `fn` whose name
+    starts with `prefix` (by name and template arguments), from
+    ``torch.profiler`` over `reps` calls (per recorded launch: the
+    profiler may drop some of a window's launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.search(prefix + r"\w*(<[^>]*>)?", e.key)
+        if name and e.self_device_time_total > 0:
+            out[name.group(0)] = e.self_device_time_total / 1e3 / e.count
+    return out
+
+
 def _ssd_bwd_work(B, nc, Q, H, P, N) -> tuple:
     """(bytes, flops) the SSD backward must move and do: its six inputs
     read and four outputs written once (fp32); the products over the
@@ -2363,13 +2387,18 @@ def family_timing(m, routing) -> dict:
     dS = torch.randn(1, nc, 112, 64, 64, generator=g, device="cuda")
     kern = lambda: s_ops.ssd_intra_bwd_cuda(*args, dy, dS)  # noqa: E731
     plain = lambda: m["ssd_intra_bwd_ref"](*args, dy, dS)  # noqa: E731
+    nbytes, flops = _ssd_bwd_work(1, nc, Q, 112, 64, 64)
     out["ssd_intra_bwd"] = {
         "shape": [1, nc, Q, 112, 64, 64], "dtype": "float32",
         "ms": _device_ms(torch, kern, reps=5, inner=4),
         "call_ms": _time_ms(torch, kern, reps=5, inner=4),
         "plain_ms": _device_ms(torch, plain, reps=3, inner=1),
         "library_ms": None,
-        **_bound(*_ssd_bwd_work(1, nc, Q, 112, 64, 64), FP32_FLOPS)}
+        "kernel_ms": _launch_ms(torch, kern, r"ssd_bwd_"),
+        # the products run on the tensor cores in 3xTF32 and count at
+        # that rate; beside it the same work as fp32 FMA
+        "fp32_fma_bound_ms": _bound(nbytes, flops, FP32_FLOPS)["bound_ms"],
+        **_bound(nbytes, flops, FP32_FLOPS, tc_flops=flops)}
     del args, dy, dS
     _free(torch)
     flash = {}
@@ -2722,27 +2751,64 @@ def simt_phase(m) -> dict:
                     for c, v in cells.items()}}
 
 
-def ptxas_usage(report: str, pattern: str = r"flash_bwd_") -> dict:
+def _kernel_name(mangled: str) -> str:
+    """kernel<template arguments> of an Itanium-mangled kernel name:
+    ints and bools as numbers, ``float`` as fp32 and ``__nv_bfloat16``
+    as bf16 (the arguments the port's kernels take)."""
+    s = mangled[2:] if mangled.startswith("_Z") else mangled
+    nested = s.startswith("N")
+    s = s[1:] if nested else s
+    name = ""
+    while True:
+        hit = re.match(r"\d+", s)
+        if not hit:
+            break
+        n = int(hit.group(0))
+        name, s = s[hit.end():hit.end() + n], s[hit.end() + n:]
+        if not nested:
+            break
+    if not name:
+        return mangled
+    if not s.startswith("I"):
+        return name
+    args, s = [], s[1:]
+    while s and not s.startswith("E"):
+        hit = re.match(r"L[ib](\d+)E", s)  # int or bool
+        if hit:
+            args.append(hit.group(1))
+            s = s[hit.end():]
+        elif s.startswith("13__nv_bfloat16"):
+            args.append("bf16")
+            s = s[15:]
+        elif s.startswith("f"):
+            args.append("fp32")
+            s = s[1:]
+        else:
+            break
+    return f"{name}<{','.join(args)}>"
+
+
+def ptxas_usage(report: str, pattern: str = r"") -> dict:
     """Registers, stack frame and spill bytes of each kernel in an ``nvcc
-    -Xptxas -v`` report whose name matches `pattern`, by a short name
-    (kernel<type, template ints>); ``warnings``: ptxas's warnings that
-    mention wgmma, and its notes that it serialized wgmma instructions."""
+    -Xptxas -v`` report whose short name (kernel<template arguments>)
+    matches `pattern`; ``warnings``: ptxas's warnings that mention
+    wgmma, and its notes that it serialized wgmma instructions."""
     out: dict = {"warnings": [ln.strip() for ln in report.splitlines()
                               if "wgmma" in ln and ("arning" in ln
                                                     or "serialized" in ln)]}
-    fn = None
+    fn = entry = None
     for ln in report.splitlines():
         hit = re.search(r"Compiling entry function '(\S+)'", ln)
         if hit:
-            name = re.search(r"(flash_bwd_[a-z_]+)I(.*)", hit.group(1))
-            fn = None
-            if name and re.search(pattern, name.group(1)):
-                rest = name.group(2)
-                dt = ("bf16," if rest.startswith("13__nv_bfloat16") else
-                      "fp32," if rest.startswith("f") else "")
-                ints = re.findall(r"Li(\d+)E", rest.split("Ev")[0])
-                fn = f"{name.group(1)}<{dt}{','.join(ints)}>"
+            entry = hit.group(1)
+            name = _kernel_name(entry)
+            fn = name if re.search(pattern, name) else None
+            if fn is not None:
                 out[fn] = {}
+            continue
+        props = re.search(r"Function properties for (\S+)", ln)
+        if props and props.group(1) != entry:
+            fn = None            # a device function's frame, not the entry's
             continue
         if fn is None:
             continue
@@ -2786,15 +2852,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = m["build"].build()
-    for name, rep in reports.items():
-        regs = [ln.strip() for ln in rep.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"[build] {name}: {regs}", file=sys.stderr)
     print(f"[build] {len(reports)} kernels in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    bwd_ptxas = ptxas_usage(reports["flash_attention_bwd"])
-    print(f"[build] flash_attention_bwd registers and spills: "
-          f"{json.dumps(bwd_ptxas)}", flush=True)
+    ptxas = {name: ptxas_usage(rep) for name, rep in reports.items()}
+    for name, usage in ptxas.items():  # every instance, by name
+        print(f"[build] {name} registers and spills: {json.dumps(usage)}",
+              flush=True)
+    bwd_ptxas = ptxas["flash_attention_bwd"]
 
     simt = simt_phase(m)
     print(json.dumps({"simt": simt}), flush=True)
@@ -2917,7 +2981,10 @@ def main() -> int:
             kernels[-1].update(
                 normalized_err=max(chk["normalized_err"].values()),
                 plain_fp32_normalized_err=max(
-                    chk["plain_fp32_normalized_err"].values()))
+                    chk["plain_fp32_normalized_err"].values()),
+                kernel_ms=t["kernel_ms"],
+                fp32_fma_bound_ms=t["fp32_fma_bound_ms"],
+                ptxas=ptxas["ssm_scan_bwd"])
         _check(by_path[main_path] > 0,
                f"{name}: no launch on the {main_path} path")
     # the SIMT machine: its main path is the Fig 9 grid; timed at

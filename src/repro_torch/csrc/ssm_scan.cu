@@ -21,8 +21,9 @@
 // cum_j) is computed once per key into shared memory.  Head-dim columns
 // go in passes of 64.
 //
-// Products: wgmma m64n64k8 with tf32 operands and fp32 accumulators, A
-// from registers, B from shared memory.  Each fp32 operand a is split
+// Products (the helpers in tf32x3.cuh): wgmma m64n64k8 with tf32
+// operands and fp32 accumulators, A from registers, B from shared
+// memory.  Each fp32 operand a is split
 // as hi = tf32(a), lo = tf32(a - hi) and a product is taken as
 // lo*hi' + hi*lo' + hi*hi' (3xTF32, about fp32 accuracy; one TF32 pass
 // errs by ~1e-2 where 1e-4 is tolerated).  tf32 wgmma reads B K-major
@@ -70,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int kTile = 64;         // query rows and keys per tile
@@ -78,7 +81,6 @@ constexpr int kMaxQ = 256;
 constexpr int kMaxDim = 128;      // largest N and P
 constexpr int kThreads = 256;     // warps 0-3: y; warps 4-7: S_chunk
 static_assert(kMaxQ == kThreads, "one cum entry a thread");
-constexpr int kBox = kTile * 128;  // 64 rows x 128 bytes (32 tf32 of K)
 constexpr int kSmemMax = 232448;
 
 struct Args {
@@ -126,26 +128,6 @@ __host__ __device__ constexpr size_t smem_bytes(int N) {
   return 1024 + offsets(N).total;  // + slack to align the base
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global into shared memory, or 16 zero bytes where
-// !valid (nothing is read then)
-__device__ __forceinline__ void cp16(uint32_t dst, const float* src,
-                                     bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
 // A 64-row tile, `cols` floats a row (a multiple of 4), into `dst`
 // (row pitch `pitch`) by threads tid < nthr: row r < rows holds
 // src[r * stride + c] for c < valid_cols and zeros past it; rows past
@@ -172,18 +154,6 @@ __device__ __forceinline__ void copy_tile(float* dst, int pitch,
   }
 }
 
-// x rounded to tf32, to nearest with ties away (cvt.rna for finite x)
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x (finite) ~ hi + lo, both tf32: x - hi is exact, lo is it rounded
-// (within 2^-22 of x)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
 // named barriers besides __syncthreads' 0: 1 warpgroup 0 alone, 2 the
 // B planes written (warpgroup 0 arrives, 1 waits), 3 warpgroup 1 alone,
 // 4 the xdt^T planes written (warpgroup 1 arrives, 0 waits)
@@ -193,84 +163,6 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 }
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-
-// byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a
-// 128-byte-swizzled box
-__device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled K-major operand:
-// rows of 128 bytes, 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         static_cast<uint64_t>(1) << 16 |
-         static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// waits until at most N committed groups of this warpgroup are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// pins registers at this point of the program, so the compiler neither
-// moves their reads or writes across a wgmma fence or wait nor reuses
-// an A fragment's registers while a wgmma may still read them
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&d)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[i][e])::"memory");
-}
-
-#define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define ACC16(i) ACC4(i), ACC4(i + 4), ACC4(i + 8), ACC4(i + 12)
-#define ACC32(i) ACC16(i), ACC16(i + 16)
-#define REGS32                                                           \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
-
-// d[64 x 64] (+)= A[64 x 8] * B[8 x 64] in tf32, A from registers (each
-// warp its 16 rows), B K-major in shared memory
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" REGS32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : ACC32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
-// d (+)= a . b in 3xTF32 (small terms first); b's planes at b_hi, b_lo
-__device__ __forceinline__ void wgmma3(float (&d)[32],
-                                       const uint32_t (&ah)[4],
-                                       const uint32_t (&al)[4], uint32_t b_hi,
-                                       uint32_t b_lo, int accumulate) {
-  wgmma_tf32(d, al, sw128_desc(b_hi), accumulate);
-  wgmma_tf32(d, ah, sw128_desc(b_lo), 1);
-  wgmma_tf32(d, ah, sw128_desc(b_hi), 1);
-}
-
-// K offset in bytes of k-step kk (8 tf32) in a plane of 128-byte boxes
-__device__ __forceinline__ uint32_t kstep(int kk) {
-  return (kk >> 2) * kBox + (kk & 3) * 32;
 }
 
 struct Smem {
@@ -358,7 +250,7 @@ __device__ __forceinline__ void begin_y(const Args& a, const Smem& m,
     *reinterpret_cast<uint4*>(m.p + m.o.bp_lo + off) = lo;
   }
   // the planes are read by wgmma (the async proxy)
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  fence_async();
   bar_sync(kBarY, 128);
   bar_arrive(kBarB, 256);
   const Step nx = next_step(st, nq);
@@ -391,7 +283,7 @@ __device__ __forceinline__ void begin_s(const Args& a, const Smem& m,
     *reinterpret_cast<uint4*>(m.p + m.o.xp_hi + off) = hi;
     *reinterpret_cast<uint4*>(m.p + m.o.xp_lo + off) = lo;
   }
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  fence_async();
   bar_sync(kBarS, 128);
   bar_arrive(kBarX, 256);
   const Step nx = next_step(st, nq);
@@ -399,29 +291,6 @@ __device__ __forceinline__ void begin_s(const Args& a, const Smem& m,
   cp_commit();
   bar_sync(kBarB, 256);  // B planes written
 }
-
-// The products go in batches of 4 k-steps (12 wgmmas); each batch's A
-// fragments are split into one of two register sets while the batch
-// before runs on the tensor cores.  After issuing batch b: wait until
-// batch b - 1 is done (its set is free again).  Every batch is issued,
-// with no branch between its wgmmas (ptxas serialises wgmmas that a
-// branch separates): k-steps past the data multiply zeros (zero A
-// fragments, masked M, dec_end = 0 past Q, planes zeroed at the start).
-#define BATCH_ISSUED(b, ah, al)  \
-  do {                           \
-    wgmma_commit();              \
-    wgmma_wait<1>();             \
-    pin(ah[((b) + 1) & 1]);      \
-    pin(al[((b) + 1) & 1]);      \
-  } while (0)
-#define BATCH_DRAIN(ah, al) \
-  do {                        \
-    wgmma_wait<0>();          \
-    pin(ah[0]);               \
-    pin(al[0]);               \
-    pin(ah[1]);               \
-    pin(al[1]);               \
-  } while (0)
 
 // warpgroup 0: y_intra; warp w holds query rows [16 w, +16) of a tile
 template <int NM>

@@ -126,16 +126,18 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, symbol: str, argtypes: Sequence[object]):
+def function(name: str, symbol: str, argtypes: Sequence[object],
+             restype: object = ctypes.c_int):
     """The C function `symbol` of kernel library `name`, typed: every
     pointer and the stream are ``c_void_p`` (a bare Python int would be
-    passed as a 32-bit int and cut).  Returns ``cudaGetLastError()``."""
+    passed as a 32-bit int and cut).  A launcher returns
+    ``cudaGetLastError()``."""
     key = (name, symbol)
     fn = _fns.get(key)
     if fn is None:
         fn = getattr(load(name), symbol)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _fns[key] = fn
     return fn
 

@@ -16,9 +16,12 @@ inputs and nothing else; the backward is the kernel of
 ``csrc/ssm_scan_bwd.cu`` (``ssd_intra_bwd_cuda``, counted in
 ``bwd_launches``); autograd feeds it zeros for an output that took
 no gradient.  It
-recomputes C·Bᵀ and the decay, writes dcum, dxdt, dB and dC in fp32
+recomputes C·Bᵀ (once per chunk) and the decay, runs its products on
+the tensor cores in 3xTF32, writes dcum, dxdt, dB and dC in fp32
 (within 1e-4 of ``ssd_intra_bwd_ref``), and gives the same bits run to
-run.  On the CPU plain autograd runs through ``ssd_intra_ref``.
+run.  Its scratch (C·Bᵀ tiles, the head groups' partial sums) is one
+fp32 buffer of ``ssd_intra_bwd_workspace`` floats.  On the CPU plain
+autograd runs through ``ssd_intra_ref``.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ MAX_DIM = 128
 MAX_Q = 256
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]
-_BWD_ARGTYPES = [_P] * 13 + [_I] * 5 + [_P]
+_BWD_ARGTYPES = [_P] * 11 + [_I] * 5 + [_P]
 
 launches = 0
 bwd_launches = 0
@@ -137,18 +140,27 @@ def ssd_intra_bwd_cuda(cum: torch.Tensor, xdt: torch.Tensor,
     dy, dS = grads
     dcum, dxdt = torch.empty_like(cum), torch.empty_like(xdt)
     dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
-    # per-head partials of dB and dC, folded over heads by the kernel's
-    # last launch; w: each key's dS term of dcum
-    dBp = torch.empty((B * nc, H, Q, N), dtype=torch.float32, device=dev)
-    dCp = torch.empty_like(dBp)
-    w = torch.empty((B * nc, H, Q), dtype=torch.float32, device=dev)
+    ws = torch.empty(bwd_workspace(B * nc, Q, H, N, P), dtype=torch.float32,
+                     device=dev)
     fn = build.function("ssm_scan_bwd", "ssd_intra_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(cum.data_ptr(), xdt.data_ptr(), Bc.data_ptr(),
                  Cc.data_ptr(), dy.data_ptr(), dS.data_ptr(),
                  dcum.data_ptr(), dxdt.data_ptr(), dB.data_ptr(),
-                 dC.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), w.data_ptr(),
-                 B * nc, Q, H, N, P, torch.cuda.current_stream().cuda_stream)
+                 dC.data_ptr(), ws.data_ptr(), B * nc, Q, H, N, P,
+                 torch.cuda.current_stream().cuda_stream)
     build.check(err, "ssd_intra_bwd")
     bwd_launches += 1
     return dcum, dxdt, dB, dC
+
+
+def bwd_workspace(BC: int, Q: int, H: int, N: int, P: int) -> int:
+    """Floats of scratch the backward kernel takes for BC chunks of Q
+    positions, H heads, state N and head dim P (its C function
+    ``ssd_intra_bwd_workspace``)."""
+    fn = build.function("ssm_scan_bwd", "ssd_intra_bwd_workspace", [_I] * 5,
+                        ctypes.c_longlong)
+    n = fn(BC, Q, H, N, P)
+    if n < 0:
+        raise ValueError(f"ssd_intra_bwd takes no Q={Q}, N={N}, P={P}")
+    return n

@@ -708,16 +708,36 @@ def _ssd_grads(cuda, B, nc, Q, H, P, N):
             torch.randn(B, nc, H, N, P, generator=g, device=cuda))
 
 
+# the backward's structure: a keys block walks up to 16 heads of a group
+# (groups of 1 to 16 heads, 113 heads in groups that do not divide it),
+# the fold adds the groups' partials; Q of 1, 13, 65, 200 and 256 (one
+# to four 64-row tiles, ragged last tiles); B 2 with several chunks;
+# N and P at 4 and at 128 (one and two 64-column passes)
+SSD_BWD_CASES = [  # B, nc, Q, H, P, N
+    (1, 2, 256, 1, 64, 64), (1, 2, 256, 3, 64, 64), (2, 2, 200, 5, 64, 64),
+    (1, 2, 256, 113, 64, 64), (1, 1, 13, 113, 64, 64),
+    (2, 3, 65, 3, 64, 64), (2, 2, 256, 113, 64, 64), (1, 1, 1, 5, 4, 4),
+    (2, 2, 200, 3, 4, 128), (1, 2, 130, 5, 128, 4),
+    (1, 2, 256, 7, 128, 128)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,nc,Q,H,P,N", SSD_CASES)
-@pytest.mark.parametrize("rate", [1.0, 10.0])
-def test_ssd_bwd_kernel_matches_plain(cuda, B, nc, Q, H, P, N, rate):
+@pytest.mark.parametrize("B,nc,Q,H,P,N", SSD_CASES + SSD_BWD_CASES)
+@pytest.mark.parametrize("rate,zero", [(1.0, None), (10.0, None),
+                                       (1.0, "dS"), (1.0, "dy")],
+                         ids=["1.0", "10.0", "1.0-dS0", "1.0-dy0"])
+def test_ssd_bwd_kernel_matches_plain(cuda, B, nc, Q, H, P, N, rate, zero):
     """(dcum, dxdt, dB, dC) of the SSD backward kernel against the plain
     backward in fp64: max |got - want| <= 1e-4 max |want| for each;
     steep decay (rate 10) overflows exp past the diagonal, which the
-    kernel masks first; two runs the same bits, one launch each."""
+    kernel masks first; dS all zero with dy random, and the reverse; two
+    runs the same bits, one launch each."""
     args = _ssd_case(cuda, B, nc, Q, H, P, N, rate=rate)
     dy, dS = _ssd_grads(cuda, B, nc, Q, H, P, N)
+    if zero == "dS":
+        dS = torch.zeros_like(dS)
+    elif zero == "dy":
+        dy = torch.zeros_like(dy)
     n0 = ssd_ops.bwd_launches
     got = ssd_ops.ssd_intra_bwd_cuda(*args, dy, dS)
     again = ssd_ops.ssd_intra_bwd_cuda(*args, dy, dS)
