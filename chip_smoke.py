@@ -69,7 +69,15 @@ of JAX and nothing of the ``repro`` package.  In order:
    the ``internvl2-76b`` backbone with 256 stub patches, its depth cut
    to 24 of 80 layers (full width; the whole model is 139 GB in bf16),
    each also with its prefill + decode against a longer prefill
-   (cosine >= 0.99).  Every path's tokens are printed as a digest
+   (cosine >= 0.99); and zamba2-7b again, on an empty card, with the
+   long-context cell's windowed shared attention (``long_context``,
+   window 4096): a prefill of exactly 4096 tokens fills each shared
+   attention cache, a ring of 4096 slots, and 8 greedy decode steps
+   wrap it; the same again in fp32 from the same seed, where each step
+   must be within cosine 0.9999 of a windowed prefill of the same
+   tokens (the bf16 cosines are printed: at 4096 tokens bf16 rounding
+   alone moves them below 0.99).  Every path's tokens are printed as a
+   digest
    (``token_digest``), so that runs can be compared path by path.
    Each path runs with every kernel's launch count set to 0 just before
    it and read just after (flash's per route too: bf16 serving must
@@ -132,7 +140,25 @@ of JAX and nothing of the ``repro`` package.  In order:
    plain versions and, for the dispatch, ``torch.index_add``; SSD's
    backward also by launch under the profiler, its bound counting its
    products at 3xTF32 (the fp32-FMA figure beside it), and its ptxas
-   usage carried in the kernels line.
+   usage carried in the kernels line;
+9. trains the xlstm, audio and vlm families: flash forward and FA-2
+   backward first at their new forms (whisper-tiny's encoder, non-causal
+   over 1500 frames; its cross-attention, 4096 queries on 1500 keys;
+   its causal decoder at D 64; the internvl2-76b backbone's D 128 with
+   8 query heads to a kv head; a ragged S 130 on Sk 77), bf16 and fp32,
+   backward runs twice for identical bits, the forward with a 4096
+   window at S 4104 and D 112 (long-context zamba2's shared attention),
+   and the RMSNorm forward and backward, both forms, at the families'
+   rows and widths (d 768, 384 and 8192); reduced fp32 xlstm-125m (an
+   mLSTM and an sLSTM block), whisper-tiny and internvl2-76b one step
+   on the card against the CPU, as in 8.; then, as ``train_moe``,
+   xlstm-125m (12 of 12 layers; its profiled step gives the sLSTM
+   blocks' share of the host's time), whisper-tiny (4 + 4 layers, 1500
+   stub frames) and the internvl2-76b backbone cut to 1 of 80 layers,
+   each step's loss, grad norm, ms, tokens/s and peak GB printed; and
+   the new flash forms timed against SDPA (``enable_gqa`` for
+   internvl; the window as a mask).  Each profiled step names the
+   RMSNorm backward instances its widths picked.
 
 It prints a ``{"simt": ...}`` line, a ``{"serve": ...}`` line, a
 ``{"timings": ...}`` line, a ``{"train": ...}`` line, one
@@ -141,6 +167,7 @@ with ``{"ok": true, "device": {...}}``.  Any failed check raises.
 """
 from __future__ import annotations
 
+import bisect
 import gc
 import json
 import math
@@ -208,6 +235,7 @@ def _imports():
                                                   ssd_intra_ref)
     from repro_torch.models import api
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import xlstm, xlstm_lm
     from repro_torch.models.moe import moe_capacity, moe_forward
     from repro_torch.obs import demo  # noqa: F401  (its imports, checked)
     from repro_torch.runtime.asm import assemble
@@ -235,6 +263,7 @@ def _imports():
                 ssd_intra_bwd_ref=ssd_intra_bwd_ref, api=api, Engine=Engine,
                 moe_capacity=moe_capacity, moe_forward=moe_forward,
                 machine=machine, power=power, simt_ops=simt_ops,
+                xlstm=xlstm, xlstm_lm=xlstm_lm,
                 assemble=assemble, edge_cases=edge_cases, rodinia=rodinia)
 
 
@@ -1437,6 +1466,122 @@ def serve_phase(m) -> dict:
     return out
 
 
+LONG_DECODE = 8    # decode steps past the long-context prefill
+# long-context decode vs the windowed prefill, fp32: 1 - cosine is
+# rounding only (bf16 is printed, not held: at 4096 tokens two bf16
+# prefills of the same tokens already differ at one position by more
+# than 0.99 allows: experiments/long_context_cosines.py)
+LONG_COS_FP32 = 0.9999
+
+
+def _long_context_run(m, cfg, params, prompt) -> dict:
+    """``api.forward(long_context=True)``: a prefill of exactly one
+    window of `prompt` tokens (each shared-attention cache a ring of
+    that many slots, not grown), then LONG_DECODE greedy decode steps,
+    the first writing slot 0; then one windowed prefill of the prompt
+    and the decoded tokens (window + LONG_DECODE of them), whose logits
+    at the decoded positions are what each step must give: a causal
+    model's logits at a position read no later token, and the prefill's
+    window drops the keys the ring has overwritten.  Every launch count
+    is zeroed just before the first prefill and read just after the
+    last decode step."""
+    torch, api = m["torch"], m["api"]
+    W = api.ZAMBA_LONG_WINDOW
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(m)
+    t0 = time.perf_counter()
+    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    logits, _, caches = api.forward(params, {"tokens": toks}, cfg,
+                                    mode="prefill", long_context=True)
+    ring = tuple(caches["kv"]["k"].shape)
+    _check(ring[2] == W, f"long-context caches {ring}: want a ring of {W}")
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    out, steps = [], []
+    for i in range(LONG_DECODE + 1):
+        last = logits[0, -1].float()
+        _check(bool(torch.isfinite(last).all()),
+               f"zamba2 long-context {cfg.dtype}: non-finite logits at "
+               f"step {i}")
+        out.append(int(last.argmax()))
+        if i:
+            steps.append(last)
+        if i == LONG_DECODE:
+            break
+        logits, _, caches = api.forward(
+            params, {"tokens": torch.tensor([[out[-1]]], dtype=torch.int32,
+                                            device="cuda")},
+            cfg, mode="decode", caches=caches, long_context=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(m)
+    routes = dict(m["fa_ops"].launches_by_route)
+    _check(int(caches["len"]) == W + LONG_DECODE
+           and tuple(caches["kv"]["k"].shape) == ring,
+           f"long-context caches after decode: len {int(caches['len'])}, "
+           f"{tuple(caches['kv']['k'].shape)}")
+    rec = {"dtype": cfg.dtype, "ring": list(ring), "tokens": len(out),
+           "ttft_s": ttft, "wall_s": wall, "tokens_per_s": len(out) / wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "out": [out], "tokens_digest": token_digest([out]),
+           "launches": counts, "flash_launches_by_route": routes}
+    del caches, logits
+    seq = torch.tensor([prompt + out[:LONG_DECODE]], dtype=torch.int32,
+                       device="cuda")
+    want, _, _ = api.forward(params, {"tokens": seq}, cfg, mode="prefill",
+                             long_context=True)
+    rec["decode_vs_prefill_cosine"] = [
+        _cosine(torch, got, want[0, W + i]) for i, got in enumerate(steps)]
+    return rec
+
+
+def long_context_phase(m) -> dict:
+    """zamba2-7b at full width and depth with the long-context cell's
+    windowed shared attention (window ``api.ZAMBA_LONG_WINDOW``), in
+    bf16 (the path: every launch count zeroed just before its prefill,
+    read just after its last decode step) and again in fp32 from the
+    same seed, each through ``_long_context_run``: 4096 tokens fill the
+    rings and 8 decode steps wrap them (the bf16 run's launch counts
+    are the path's).  The fp32 steps' logits must be within cosine
+    LONG_COS_FP32 of the windowed prefill's; the bf16 cosines are
+    printed."""
+    torch, np, api = m["torch"], m["np"], m["api"]
+    cfg, params = _build_model(m, ZAMBA)
+    W = api.ZAMBA_LONG_WINDOW
+    prompt = np.random.default_rng(SEED + 24).integers(
+        0, cfg.vocab_size, W).tolist()
+    rec = _long_context_run(m, cfg, params, prompt)
+    counts, routes = rec["launches"], rec["flash_launches_by_route"]
+    del params
+    _free(torch)
+    cfg32 = cfg.replace(dtype="float32")
+    params = api.build_params(
+        cfg32, torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda")
+    rec["fp32"] = _long_context_run(m, cfg32, params, prompt)
+    rec.update(arch=cfg.name, mode="api.forward long_context",
+               layers=cfg.num_layers, window=W, prompt_tokens=W)
+    print(f"[serve] {cfg.name} long-context (window {W}, ring "
+          f"{rec['ring']}): bf16 tokens {rec['out'][0]}, ttft "
+          f"{rec['ttft_s']:.3f}s, peak {rec['peak_mem_gb']:.2f} GB, decode "
+          f"vs windowed prefill cosines bf16 "
+          f"{[round(c, 6) for c in rec['decode_vs_prefill_cosine']]}, fp32 "
+          f"{rec['fp32']['decode_vs_prefill_cosine']}", flush=True)
+    cos = rec["fp32"]["decode_vs_prefill_cosine"]
+    _check(min(cos) >= LONG_COS_FP32,
+           f"zamba2 long-context fp32 decode vs windowed prefill cosines "
+           f"{cos}")
+    for name in ("rmsnorm", "add_rmsnorm", "flash_attention", "ssd_intra"):
+        _check(counts[name] > 0, f"no {name} launch in zamba2 long-context")
+    _check(routes == {"wgmma": counts["flash_attention"], "fma": 0},
+           f"zamba2 long-context: flash routes {routes}")
+    del params
+    _free(torch)
+    return rec
+
+
 def timing_phase(m) -> dict:
     """Kernel, plain version and library call at the main paths' shapes
     (hot L2: the path's caller has just written these inputs)."""
@@ -1623,6 +1768,45 @@ def flash_bwd_inputs(torch, g, B, S, H, KV, D, dt):
     return q, k, v, do
 
 
+def _norm_check(m, g, rows: int, d: int, dt, out: dict) -> None:
+    """The RMSNorm forward (FWD_TOL; the fused form's sum bit-exact) and
+    the backward, plain and fused form, against their plain versions on
+    [rows, d] inputs in `dt`: dx (dh) and dscale within BWD_TOL
+    normalized, two backward runs the same bits.  The backward's errors
+    go into out["rmsnorm_bwd"] / out["add_rmsnorm_bwd"], the forward's
+    worst into out["forward"]."""
+    torch, rms = m["torch"], m["rms_ops"]
+    name = str(dt).replace("torch.", "")
+    tol, norm_tol, fwd = BWD_TOL[name], FWD_TOL[name][1], out["forward"]
+    x, dy, ds = (torch.randn(rows, d, generator=g, device="cuda").to(dt)
+                 for _ in range(3))
+    sc = torch.randn(d, generator=g, device="cuda").to(dt)
+    what = f"{name} [{rows},{d}]"
+    y = rms.rmsnorm_cuda(x, sc)
+    s2, y2 = rms.add_rmsnorm_cuda(x, ds, sc)
+    torch.cuda.synchronize()
+    fwd["rmsnorm"] = max(fwd.get("rmsnorm", 0.0), _max_err(
+        torch, y, m["rmsnorm_ref"](x, sc), norm_tol, f"rmsnorm {what}"))
+    _check(torch.equal(s2, x + ds), f"add_rmsnorm {what}: sum not bit-exact")
+    fwd["add_rmsnorm"] = max(fwd.get("add_rmsnorm", 0.0), _max_err(
+        torch, y2, m["rmsnorm_ref"](x + ds, sc), norm_tol,
+        f"add_rmsnorm {what}"))
+    del y, s2, y2
+    for kname, fused in (("rmsnorm_bwd", False), ("add_rmsnorm_bwd", True)):
+        got = rms.rmsnorm_bwd_cuda(x, ds if fused else None, dy, sc)
+        again = rms.rmsnorm_bwd_cuda(x, ds if fused else None, dy, sc)
+        torch.cuda.synchronize()
+        _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+               f"{kname} {what}: two runs differ")
+        want = (m["add_rmsnorm_bwd_ref"](x, ds, dy, sc) if fused
+                else m["rmsnorm_bwd_ref"](x, sc, dy))
+        for grad, a, b in zip(("dx", "dscale"), got, want):
+            err, rel = _rel_err(torch, a, b, tol, f"{kname} {what} {grad}")
+            rec = out[kname]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["normalized_err"][f"{kname} {what} {grad}"] = rel
+
+
 def train_kernel_phase(m) -> dict:
     """Each backward kernel against its plain version on the same
     inputs, in bf16 and fp32: flash at danube's full width (S 8192,
@@ -1634,7 +1818,7 @@ def train_kernel_phase(m) -> dict:
     output must be the same bits with and without the LSE, and the LSE
     within 1e-4 of the plain one.  Their worst errors are returned under
     ``forward``."""
-    torch, rms = m["torch"], m["rms_ops"]
+    torch = m["torch"]
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     out = {name: {"max_abs_err": 0.0, "normalized_err": {}}
            for name in ("flash_attention_bwd", "rmsnorm_bwd",
@@ -1643,45 +1827,12 @@ def train_kernel_phase(m) -> dict:
                             "add_rmsnorm": 0.0}
     B, S, H, KV, D, W = FLASH_BWD_SHAPE
     for dt in (torch.bfloat16, torch.float32):
-        name = str(dt).replace("torch.", "")
-        tol, norm_tol = BWD_TOL[name], FWD_TOL[name][1]
         for s_len, w in ((S, W), (200, 64), (130, None)):
             _, e = _flash_bwd_check(m, g, (B, s_len, H, KV, D, w), dt,
                                     out["flash_attention_bwd"])
             fwd["flash_attention"] = max(fwd["flash_attention"], e)
         for rows, d in (NORM_BWD_SHAPE, (33, 2560)):
-            x, dy, ds = (torch.randn(rows, d, generator=g, device="cuda")
-                         .to(dt) for _ in range(3))
-            sc = torch.randn(d, generator=g, device="cuda").to(dt)
-            what = f"{name} [{rows},{d}]"
-            y = rms.rmsnorm_cuda(x, sc)
-            s2, y2 = rms.add_rmsnorm_cuda(x, ds, sc)
-            torch.cuda.synchronize()
-            fwd["rmsnorm"] = max(fwd["rmsnorm"], _max_err(
-                torch, y, m["rmsnorm_ref"](x, sc), norm_tol,
-                f"rmsnorm {what}"))
-            _check(torch.equal(s2, x + ds),
-                   f"add_rmsnorm {what}: sum not bit-exact")
-            fwd["add_rmsnorm"] = max(fwd["add_rmsnorm"], _max_err(
-                torch, y2, m["rmsnorm_ref"](x + ds, sc), norm_tol,
-                f"add_rmsnorm {what}"))
-            del y, s2, y2
-            for kname, fused in (("rmsnorm_bwd", False),
-                                 ("add_rmsnorm_bwd", True)):
-                got = rms.rmsnorm_bwd_cuda(x, ds if fused else None, dy, sc)
-                again = rms.rmsnorm_bwd_cuda(x, ds if fused else None, dy,
-                                             sc)
-                torch.cuda.synchronize()
-                _check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                       f"{kname} {name} [{rows},{d}]: two runs differ")
-                want = (m["add_rmsnorm_bwd_ref"](x, ds, dy, sc) if fused
-                        else m["rmsnorm_bwd_ref"](x, sc, dy))
-                for grad, a, b in zip(("dx", "dscale"), got, want):
-                    what = f"{kname} {name} [{rows},{d}] {grad}"
-                    err, rel = _rel_err(torch, a, b, tol, what)
-                    out[kname]["max_abs_err"] = max(
-                        out[kname]["max_abs_err"], err)
-                    out[kname]["normalized_err"][what] = rel
+            _norm_check(m, g, rows, d, dt, out)
     return out
 
 
@@ -1695,11 +1846,14 @@ def _train_setup(m, cfg, tc, device, params=None, seq=64, batch=2):
     return state, m["train_loop"].make_train_step(cfg, tc), loader
 
 
-def card_vs_cpu_step(m, cfg, grad_floor: float = 0.0) -> dict:
+def card_vs_cpu_step(m, cfg, grad_floor: float = 0.0,
+                     vanishing=()) -> dict:
     """One fp32 train step of `cfg` (remat full) on the card against
     the same step on the CPU, same weights and batch (kernels vs plain
     versions): the loss to 1e-5, every grad leaf to 1e-4 of its largest
-    entry, the grad norm to 1e-4, and the updated params to 2e-5 where
+    entry (the leaves in `vanishing`, whose grads are zero but for
+    rounding, to 1e-4 of the largest entry of any leaf), the grad norm
+    to 1e-4, and the updated params to 2e-5 where
     the clipped CPU grad |g'| > 100 eps and > `grad_floor` times its
     leaf's largest |g'|.
     Adam's first step moves a weight by lr g' / (|g'| + eps): by about
@@ -1746,9 +1900,15 @@ def card_vs_cpu_step(m, cfg, grad_floor: float = 0.0) -> dict:
     _check(loss_err <= 1e-5,
            f"{cfg.name} reduced step loss: relative error {loss_err}")
     worst = 0.0
+    largest = max(float(g.abs().max()) for g in grads_c.values())
     for name, want in grads_c.items():
-        _, rel = _rel_err(torch, grads_g[name].cpu(), want, 1e-4,
-                          f"{cfg.name} reduced step grad {name}")
+        what = f"{cfg.name} reduced step grad {name}"
+        if name in vanishing:
+            err = float((grads_g[name].cpu() - want).abs().max())
+            _check(err <= 1e-4 * largest, f"{what}: error {err} above 1e-4 "
+                   f"of the largest grad entry {largest}")
+            continue
+        _, rel = _rel_err(torch, grads_g[name].cpu(), want, 1e-4, what)
         worst = max(worst, rel)
     cpu2, mc = step_c(cpu, batch)
     gpu2, mg = step_g(gpu, batch_g)
@@ -1888,9 +2048,10 @@ def train_cli_phase(m) -> dict:
 
 def _profiled_step(m, step, st, batch) -> tuple:
     """One train step under ``torch.profiler``: (the new state, wall,
-    device ms, busy share, kernels, host syncs, the kernels with most
-    device time, each hand-written kernel's device ms and launches, and
-    the backward kernels' share of device time)."""
+    device ms, busy share, the host's ms and share of the wall in the
+    SLSTM_RANGE ranges and their backward, kernels, host syncs, the
+    kernels with most device time, each hand-written kernel's device ms
+    and launches, and the backward kernels' share of device time)."""
     torch = m["torch"]
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1901,31 +2062,67 @@ def _profiled_step(m, step, st, batch) -> tuple:
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     _check(math.isfinite(float(met["loss"])), "profiled step: loss")
-    events = prof.key_averages()
-    kern = [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    dev = sum(e.self_device_time_total for e in kern) / 1e3
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    ours = {k: [sum(e.self_device_time_total for e in kern
-                    if re.search(pat, e.key)) / 1e3,
-                sum(e.count for e in kern if re.search(pat, e.key))]
+    # the raw events, summed by name here: the profiler's own summary
+    # (key_averages) builds a Python object an event, minutes for the
+    # ~2M events of an xlstm step (its sLSTM loop)
+    cuda = torch.autograd.DeviceType.CUDA
+    kern, counts, ranges, ops, bwd = {}, {}, [], [], []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        counts[name] = counts.get(name, 0) + 1
+        if name == SLSTM_RANGE:     # the device side of a range is no
+            if e.device_type() != cuda:                     # kernel
+                ranges.append((e.start_ns(), e.end_ns()))
+        elif e.device_type() == cuda and e.duration_ns() > 0:
+            t, n = kern.get(name, (0, 0))
+            kern[name] = (t + e.duration_ns(), n + 1)
+        elif name.startswith("autograd::engine::evaluate_function"):
+            bwd.append((e.sequence_nr(), e.start_ns(), e.end_ns()))
+        elif e.sequence_nr() >= 0:
+            ops.append((e.sequence_nr(), e.start_ns()))
+    dev = sum(t for t, _ in kern.values()) / 1e6
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+    ours = {k: [sum(t for name, (t, _) in kern.items()
+                    if re.search(pat, name)) / 1e6,
+                sum(n for name, (_, n) in kern.items()
+                    if re.search(pat, name))]
             for k, pat in OUR_KERNELS.items()}
     bwd_ms = sum(ours[k][0] for k in (
         "flash_attention_bwd", "rmsnorm_bwd (both forms)",
         "moe_dispatch_bwd", "ssd_intra_bwd"))
-    n_kernels = sum(e.count for e in kern)
-    syncs = {key: sum(e.count for e in events if e.key == key)
+    n_kernels = sum(n for _, n in kern.values())
+    syncs = {key: counts.get(key, 0)
              for key in ("aten::_local_scalar_dense",
                          "cudaStreamSynchronize")}
+    # which RMSNorm backward instance (template arguments) each width
+    # picked, by launches
+    norm_bwd = {}
+    for name, (_, n) in kern.items():
+        inst = re.search(r"rmsnorm_bwd_kernel<[^>]*>", name)
+        if inst:
+            norm_bwd[inst.group(0)] = norm_bwd.get(inst.group(0), 0) + n
+    # the host's time in the sLSTM ranges (the blocks' forwards and
+    # their recomputes) and in the backward of the ops they recorded,
+    # matched by autograd sequence number; the loop is host-bound (a
+    # step a token), so this is its share of the step's wall
+    ranges.sort()
+    starts = [a for a, _ in ranges]
+    seqs = {n for n, t in ops if (i := bisect.bisect(starts, t) - 1) >= 0
+            and t < ranges[i][1]}
+    spans = sorted(ranges + [(a, b) for n, a, b in bwd if n in seqs])
+    slstm_ns, end = 0, 0
+    for a, b in spans:              # their union: a recompute nests in
+        slstm_ns += max(0, b - max(a, end))     # a backward node's span
+        end = max(end, b)
     out = {"wall_ms": wall, "device_ms": dev, "busy_share": dev / wall,
-           "kernels": n_kernels,
+           "slstm": {"ranges": len(ranges), "ms": slstm_ns / 1e6,
+                     "share": slstm_ns / 1e6 / wall},
+           "kernels": n_kernels, "rmsnorm_bwd_instances": norm_bwd,
            "host_syncs": syncs,
-           "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                   for e in top],
+           "top": [[name[:60], t / 1e6, n] for name, (t, n) in top],
            "ours": ours, "backward_kernels_ms": bwd_ms,
            "backward_kernels_share": bwd_ms / dev}
-    del prof, events, kern
+    del prof, kern
     return st, out
 
 
@@ -2043,7 +2240,16 @@ def train_timing(m) -> dict:
 # and one zamba2 group deeper: max_memory_allocated stays under ~75 GB
 MOE_TRAIN = (OLMOE, 7)           # 7 of 16 layers
 HYBRID_TRAIN = (ZAMBA, 33)       # 5 groups of 6 + the shared block, tail 3
+# the xlstm, audio and vlm families: xlstm-125m and whisper-tiny
+# at full depth; the internvl2-76b backbone's untied embedding and head
+# are 2.10B parameters and each layer ~0.86B, so at ~20 B of training
+# state a parameter (bf16 weights and grads, fp32 master, Adam moments
+# and accumulated grads) one layer takes ~59 GB and two ~76 GB before
+# activations: 1 of 80 layers
+NEW_TRAIN = {"train_xlstm": (XLSTM, 12), "train_whisper": (WHISPER, 4),
+             "train_internvl": (INTERNVL, 1)}
 FAMILY_SEQ = 4096
+SLSTM_RANGE = "xlstm.slstm_forward"   # the profiled step's sLSTM range
 # the dispatch's backward at olmoe's (top-8) and deepseek's (top-6)
 # widths: decode, chunk and a train step's token counts
 DISPATCH_BWD_TS = (1, 64, FAMILY_SEQ)
@@ -2055,38 +2261,85 @@ SSD_BWD_TOL = 1e-4               # max |got - want| / max |want|, vs fp64
 # zamba2's shared block (32 heads, D 112), causal, no window
 FLASH_BWD_FAMILY = {"olmoe D128": (1, FAMILY_SEQ, 16, 16, 128, None),
                     "zamba2 D112": (1, FAMILY_SEQ, 32, 32, 112, None)}
+# the new families' attention: (B, S, H, KV, D, window), causal,
+# Sk (None: S): whisper-tiny's encoder over its 1500 frames, its
+# cross-attention (4096 decoder positions on the 1500 encoder ones) and
+# its decoder; the internvl2-76b backbone's heads (D 128, 8 query heads
+# to a kv head); and ragged tiles on both sides
+FLASH_BWD_NEW = {
+    "whisper encoder": ((1, 1500, 6, 6, 64, None), False, None),
+    "whisper cross": ((1, FAMILY_SEQ, 6, 6, 64, None), False, 1500),
+    "whisper decoder": ((1, FAMILY_SEQ, 6, 6, 64, None), True, None),
+    "internvl D128 GQA8": ((1, FAMILY_SEQ, 64, 8, 128, None), True, None),
+    "odd": ((1, 130, 4, 2, 64, None), False, 77)}
+# long-context zamba2's shared attention (D 112, window 4096) at the
+# length of the long-context path's longest prefill
+FLASH_WINDOW_NEW = (1, 4104, 32, 32, 112, 4096)
+# the new families' norm rows and widths: xlstm-125m's d 768 and
+# whisper-tiny's d 384 (the backward's `<bf16,1>` instance, which
+# danube's d 2560 does not run) on a microbatch's 4096 rows, whisper's
+# 1500 encoder rows, and the internvl2-76b backbone's d 8192 (256
+# threads a row; danube's 2560 runs 128)
+NORM_BWD_FAMILY = ((FAMILY_SEQ, 768), (FAMILY_SEQ, 384), (1500, 384),
+                   (FAMILY_SEQ, 8192))
 
 
-def _flash_bwd_check(m, g, shape, dt, out: dict, label: str = "") -> tuple:
+def _flash_bwd_check(m, g, shape, dt, out: dict, label: str = "",
+                     causal: bool = True, Sk=None) -> tuple:
     """flash forward (out bits with and without the LSE; out and LSE vs
     plain, FWD_TOL and 1e-4) and the FA-2 backward vs plain (normalized,
-    BWD_TOL) at `shape` = (B, S, H, KV, D, window), two backward runs
-    the same bits; the backward's errors go into `out`.  Returns (the
-    case's name, the forward's max abs error)."""
+    BWD_TOL) at `shape` = (B, S, H, KV, D, window), causal or not, on
+    `Sk` keys (None: S), two backward runs the same bits; the backward's
+    errors go into `out`.  Returns (the case's name, the forward's max
+    abs error)."""
     torch, fa = m["torch"], m["fa_ops"]
     B, S, H, KV, D, w = shape
+    Sk = S if Sk is None else Sk
     name = str(dt).replace("torch.", "")
-    q, k, v, do = flash_bwd_inputs(torch, g, B, S, H, KV, D, dt)
-    o, lse = fa.flash_attention_cuda(q, k, v, window=w, with_lse=True)
-    _check(torch.equal(o, fa.flash_attention_cuda(q, k, v, window=w)),
+    q, k, v, do = (torch.randn(B, n, h, D, generator=g, device="cuda")
+                   .to(dt) for n, h in ((S, H), (Sk, KV), (Sk, KV), (S, H)))
+    kw = dict(causal=causal, window=w)
+    o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    _check(torch.equal(o, fa.flash_attention_cuda(q, k, v, **kw)),
            f"flash {name} {label} S={S}: out changes with the LSE")
-    o_ref, lse_ref = m["flash_fwd_ref"](q, k, v, window=w)
-    what = f"flash {name} {label}S={S} H={H} KV={KV} D={D} window={w}"
+    o_ref, lse_ref = m["flash_fwd_ref"](q, k, v, **kw)
+    what = (f"flash {name} {label}S={S} H={H} KV={KV} D={D} window={w}"
+            + ("" if causal else f" non-causal Sk={Sk}"))
     fwd = _max_err(torch, o, o_ref, FWD_TOL[name][0], what)
     _max_err(torch, lse, lse_ref, 1e-4, f"{what} lse")
     del o_ref, lse_ref
-    got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=w)
-    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=w)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     _check(all(torch.equal(a, b) for a, b in zip(got, again)),
            f"flash_bwd {what}: two runs differ")
-    want = m["flash_bwd_ref"](q, k, v, o, lse, do, window=w)
+    _check(got[1].shape == k.shape and got[2].shape == v.shape,
+           f"flash_bwd {what}: dk {tuple(got[1].shape)}, want "
+           f"{tuple(k.shape)}")
+    want = m["flash_bwd_ref"](q, k, v, o, lse, do, **kw)
     for grad, a, b in zip(("dq", "dk", "dv"), got, want):
         err, rel = _rel_err(torch, a, b, BWD_TOL[name],
                             f"flash_bwd {what} {grad}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out["normalized_err"][f"{what} {grad}"] = rel
     return what, fwd
+
+
+def _flash_window_check(m, g, dt) -> tuple:
+    """The flash forward at FLASH_WINDOW_NEW (causal, window 4096 over
+    S 4104, so the window binds on the last 8 rows) against
+    ``flash_fwd_ref``, FWD_TOL.  Returns (the case's name, max abs
+    error)."""
+    torch, fa = m["torch"], m["fa_ops"]
+    B, S, H, KV, D, w = FLASH_WINDOW_NEW
+    name = str(dt).replace("torch.", "")
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device="cuda").to(dt)
+               for h in (H, KV, KV))
+    got = fa.flash_attention_cuda(q, k, v, window=w)
+    what = f"flash {name} zamba2 long-context S={S} H={H} D={D} window={w}"
+    err = _max_err(torch, got, m["flash_fwd_ref"](q, k, v, window=w)[0],
+                   FWD_TOL[name][0], what)
+    return what, err
 
 
 def family_kernel_phase(m) -> dict:
@@ -2098,7 +2351,12 @@ def family_kernel_phase(m) -> dict:
     [1,16,256,112,64,64] and [1,1,64,112,64,64], mild and steep decay,
     max |Δ| / max |want| <= SSD_BWD_TOL, beside the plain fp32
     version's own figure; and flash (forward and FA-2 backward) at
-    D 128 and D 112, as ``train_kernel_phase`` holds it at D 80."""
+    D 128 and D 112, as ``train_kernel_phase`` holds it at D 80, and
+    at the shapes of FLASH_BWD_NEW (non-causal, Sk != S, D 64, D 128
+    with 8 query heads to a kv head), with the windowed forward at
+    FLASH_WINDOW_NEW; and the RMSNorm forward and backward, both forms,
+    at NORM_BWD_FAMILY, as ``_norm_check`` holds them (under
+    ``norms``)."""
     torch = m["torch"]
     d_ops, s_ops = m["dispatch_ops"], m["ssd_ops"]
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
@@ -2167,26 +2425,58 @@ def family_kernel_phase(m) -> dict:
                                        out["flash_attention_bwd"],
                                        label + " ")
             out["forward"][what] = e
+    for label, (shape, causal, Sk) in FLASH_BWD_NEW.items():
+        for dt in (torch.bfloat16, torch.float32):
+            what, e = _flash_bwd_check(m, g, shape, dt,
+                                       out["flash_attention_bwd"],
+                                       label + " ", causal, Sk)
+            out["forward"][what] = e
+            _free(torch)
+    for dt in (torch.bfloat16, torch.float32):
+        what, e = _flash_window_check(m, g, dt)
+        out["forward"][what] = e
+    _free(torch)
+    norms = out["norms"] = {
+        name: {"max_abs_err": 0.0, "normalized_err": {}}
+        for name in ("rmsnorm_bwd", "add_rmsnorm_bwd")}
+    norms["forward"] = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for rows, d in NORM_BWD_FAMILY:
+            _norm_check(m, g, rows, d, dt, norms)
     _free(torch)
     return out
 
 
 def family_reduced_phase(m) -> dict:
-    """Reduced fp32 olmoe-1b-7b and deepseek-moe-16b (2 layers) and
+    """Reduced fp32 olmoe-1b-7b and deepseek-moe-16b (2 layers),
     zamba2-7b (2 groups of 3 Mamba blocks and the shared block, then a
-    1-block tail): one step on the card against the CPU
-    (``card_vs_cpu_step``), remat full, so every forward kernel runs
-    twice (the tail's once) and every backward kernel once."""
+    1-block tail), xlstm-125m (2 blocks, the pattern ("m", "s"): the
+    reduced config's 4 layers of its pattern hold no sLSTM block),
+    whisper-tiny (2 encoder and 2 decoder layers over 32 stub frames:
+    the encoder's non-causal attention, the cross-attention's 64 queries
+    on 32 keys, whose dK and dV feed the encoder) and internvl2-76b (2
+    layers, 8 patch positions): one step on the card against the CPU
+    (``card_vs_cpu_step``), remat full, so every checkpointed forward
+    kernel runs twice (zamba2's tail and whisper's encoder once) and
+    every backward kernel once."""
     out = {}
-    for arch, layers in ((OLMOE, 2), (DEEPSEEK, 2), (ZAMBA, 7)):
+    for arch, layers in ((OLMOE, 2), (DEEPSEEK, 2), (ZAMBA, 7), (XLSTM, 2),
+                         (WHISPER, 2), (INTERNVL, 2)):
         cfg = m["reduced_config"](arch).replace(num_layers=layers,
                                                 dtype="float32")
+        if cfg.family == "xlstm":
+            cfg = cfg.replace(xlstm_pattern=("m", "s"))
         # zamba2's fp32 grads at two groups differ by up to 3.4e-5 of
         # their largest entry between the two packages on the CPU
         # (tests/test_torch_train_families.py): weights whose grad is
-        # below 1e-4 of its leaf's largest are left out of the params
+        # below 1e-4 of its leaf's largest are left out of the params;
+        # an sLSTM block's input-gate bias has a grad of zero but for
+        # rounding (the same file), held to the largest grad of any leaf
         rec = out[arch] = card_vs_cpu_step(
-            m, cfg, grad_floor=1e-4 if cfg.family == "hybrid" else 0.0)
+            m, cfg, grad_floor=1e-4 if cfg.family == "hybrid" else 0.0,
+            vanishing={f"layer_{i:02d}.cell.b_i" for i, kind in enumerate(
+                m["xlstm_lm"].layer_kinds(cfg)) if kind == "s"}
+            if cfg.family == "xlstm" else ())
         n = rec["launches"]
         if cfg.family == "hybrid":
             groups, g, tail = layers // cfg.attn_every, cfg.attn_every, \
@@ -2194,8 +2484,15 @@ def family_reduced_phase(m) -> dict:
             want = {"ssd_intra": 2 * groups * g + tail,
                     "ssd_intra_bwd": layers, "flash_attention": 2 * groups,
                     "flash_attention_bwd": groups}
+        elif cfg.family == "xlstm":
+            want = {"flash_attention": 0, "flash_attention_bwd": 0}
+        elif cfg.family == "audio":
+            # the encoder's layers once, each decoder layer's self- and
+            # cross-attention twice
+            want = {"flash_attention": cfg.encoder_layers + 4 * layers,
+                    "flash_attention_bwd": cfg.encoder_layers + 2 * layers}
         else:
-            moe = layers - cfg.moe.first_k_dense
+            moe = layers - cfg.moe.first_k_dense if cfg.is_moe else 0
             want = {"moe_dispatch": 2 * moe, "moe_dispatch_bwd": moe,
                     "flash_attention": 2 * layers,
                     "flash_attention_bwd": layers}
@@ -2212,11 +2509,14 @@ def family_train_path(m, arch: str, layers: int) -> dict:
     TRAIN_MICRO, remat full, lr TRAIN_LR, warm-up 1 step as the train
     CLI sets it), TRAIN_STEPS steps; every launch count zeroed just
     before the steps and read just after.  Each step's loss and grad
-    norm must be finite and > 0, its peak under 80 GB."""
+    norm must be finite and > 0, its peak under 80 GB.  One more step
+    runs under the profiler (``_profiled_step``), each sLSTM block in a
+    range of its own (SLSTM_RANGE)."""
     torch, tl = m["torch"], m["train_loop"]
     full = m["get_config"](arch).num_layers
     cfg = m["get_config"](arch).replace(num_layers=layers)
-    depth = f"{layers} of {full} layers (depth cut)"
+    depth = (f"{layers} of {full} layers" if layers == full
+             else f"{layers} of {full} layers (depth cut)")
     tc = m["TrainConfig"](learning_rate=TRAIN_LR, total_steps=TRAIN_STEPS,
                           warmup_steps=1, microbatch=TRAIN_MICRO,
                           remat="full")
@@ -2254,18 +2554,35 @@ def family_train_path(m, arch: str, layers: int) -> dict:
                and math.isfinite(h["grad_norm"]) and h["grad_norm"] > 0
                and h["peak_gb"] < 80 for h in steps),
            f"{arch} ({depth}) steps: {steps}")
-    names = ["flash_attention", "flash_attention_bwd", "rmsnorm_bwd",
-             "add_rmsnorm_bwd"] + (
-        ["moe_dispatch", "moe_dispatch_bwd"] if cfg.is_moe
-        else ["ssd_intra", "ssd_intra_bwd"])
+    names = ["rmsnorm", "add_rmsnorm", "rmsnorm_bwd", "add_rmsnorm_bwd"]
+    if cfg.family != "xlstm":           # attention-free
+        names += ["flash_attention", "flash_attention_bwd"]
+    if cfg.is_moe:
+        names += ["moe_dispatch", "moe_dispatch_bwd"]
+    if cfg.family == "hybrid":
+        names += ["ssd_intra", "ssd_intra_bwd"]
     for name in names:
         _check(counts[name] > 0, f"no {name} launch on the {arch} train "
                "path")
     routes = dict(m["fa_ops"].launches_by_route)
     _check(routes == {"wgmma": counts["flash_attention"], "fma": 0},
            f"bf16 training ran flash on routes {routes}")
-    # one more step under the profiler, after the counts are read
-    state, prof = _profiled_step(m, step, state, next(loader))
+    # one more step under the profiler, after the counts are read; an
+    # xlstm step's sLSTM blocks in a range of their own
+    from torch.profiler import record_function
+    xl, slstm = m["xlstm"], m["xlstm"].slstm_forward
+
+    def ranged(*args, **kw):
+        with record_function(SLSTM_RANGE):
+            return slstm(*args, **kw)
+
+    xl.slstm_forward = ranged
+    try:
+        state, prof = _profiled_step(m, step, state, next(loader))
+    finally:
+        xl.slstm_forward = slstm
+    _check((prof["slstm"]["ranges"] > 0) == (cfg.family == "xlstm"),
+           f"{arch} profiled step: sLSTM ranges {prof['slstm']}")
     print(f"[train] {arch} ({depth}) profiled step: "
           f"{json.dumps(prof)}", flush=True)
     out = {"arch": arch, "depth": depth, "layers": layers,
@@ -2426,6 +2743,81 @@ def family_timing(m, routing) -> dict:
     return out
 
 
+def new_flash_timing(m) -> dict:
+    """The new flash forms in bf16 against SDPA computing the
+    same function: at each FLASH_BWD_NEW shape but the odd one, the
+    FA-2 backward (``ms``; CUDA events around eager calls, as
+    ``family_timing``) against SDPA's backward (``library_ms``; causal
+    or not, ``enable_gqa`` where heads are grouped) and the plain
+    backward (``plain_ms``), and the forward (``fwd_ms``, CUDA-graph
+    replays) against SDPA's; the windowed forward at FLASH_WINDOW_NEW
+    against SDPA with the window as a boolean mask and the plain
+    forward.  Bounds: 10 D (backward) and 4 D (forward) flops per
+    unmasked pair and head at the bf16 peak, or the bytes (inputs read
+    once, outputs written once), whichever is longer."""
+    torch, F, fa = m["torch"], m["F"], m["fa_ops"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    out = {}
+    for label, ((B, S, H, KV, D, W), causal, Sk) in FLASH_BWD_NEW.items():
+        if label == "odd":
+            continue
+        Sk = S if Sk is None else Sk
+        kw = dict(causal=causal, window=W)
+        q, do = (torch.randn(B, S, H, D, generator=g, device="cuda")
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(B, Sk, KV, D, generator=g, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        sdpa = dict(is_causal=causal, enable_gqa=H != KV)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
+        dot = do.transpose(1, 2)
+        pairs = _pairs(S, W) if causal else S * Sk
+        out[label] = {
+            "shape": [B, S, Sk, H, KV, D], "causal": causal,
+            "dtype": "bfloat16", "pairs": pairs,
+            "ms": _time_ms(torch, lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do, **kw), reps=5, inner=4),
+            "plain_ms": _time_ms(torch, lambda: m["flash_bwd_ref"](
+                q, k, v, o, lse, do, **kw), reps=2, inner=1),
+            "library_ms": _time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dot, retain_graph=True), reps=5,
+                inner=4),
+            **_bound(2 * (4 * S * H * D + 4 * Sk * KV * D) + 4 * B * H * S,
+                     10 * D * pairs * H, BF16_FLOPS),
+            "fwd_ms": _device_ms(torch, lambda: fa.flash_attention_cuda(
+                q, k, v, **kw), reps=10, inner=4),
+            "fwd_library_ms": _device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt.detach(), kt.detach(), vt.detach(), **sdpa),
+                reps=10, inner=4),
+            "fwd_bound_ms": _bound(2 * (2 * S * H * D + 2 * Sk * KV * D),
+                                   4 * D * pairs * H,
+                                   BF16_FLOPS)["bound_ms"]}
+        del q, k, v, do, o, lse, qt, kt, vt, lib_out, dot
+        _free(torch)
+    B, S, H, KV, D, W = FLASH_WINDOW_NEW
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device="cuda")
+               .to(torch.bfloat16) for h in (H, KV, KV))
+    i = torch.arange(S, device="cuda")
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < W)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = _pairs(S, W)
+    out["zamba2 long-context forward"] = {
+        "shape": [B, S, H, KV, D], "window": W, "dtype": "bfloat16",
+        "pairs": pairs,
+        **_times(torch, lambda: fa.flash_attention_cuda(q, k, v, window=W),
+                 lambda: m["attention_ref"](q, k, v, window=W),
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                        attn_mask=mask)),
+        **_bound(2 * (2 * S * H * D + 2 * S * KV * D), 4 * D * pairs * H,
+                 BF16_FLOPS)}
+    del q, k, v, qt, kt, vt, mask
+    _free(torch)
+    return out
+
+
 def train_phase(m) -> dict:
     out = {"kernels": train_kernel_phase(m)}
     print(f"[train] backward kernels vs plain: "
@@ -2442,10 +2834,12 @@ def train_phase(m) -> dict:
     out["profile"] = train_profile(m)
     out["timings"] = train_timing(m)
     out["family_kernels"] = family_kernel_phase(m)
-    print(f"[train] dispatch and SSD backward kernels vs plain, flash at "
-          f"D 128 / 112: {json.dumps(out['family_kernels'])}", flush=True)
+    print(f"[train] dispatch and SSD backward kernels, flash at the "
+          f"families' forms and the norms at their widths vs plain: "
+          f"{json.dumps(out['family_kernels'])}", flush=True)
     out["family_reduced"] = family_reduced_phase(m)
-    print(f"[train] reduced olmoe, deepseek, zamba2 card vs cpu: "
+    print(f"[train] reduced olmoe, deepseek, zamba2, xlstm, whisper, "
+          f"internvl card vs cpu: "
           f"{json.dumps(out['family_reduced'])}", flush=True)
     out["train_moe"] = family_train_path(m, *MOE_TRAIN)
     out["train_hybrid"] = family_train_path(m, *HYBRID_TRAIN)
@@ -2453,6 +2847,11 @@ def train_phase(m) -> dict:
         m, out["train_moe"].pop("routing"))
     print(f"[train] family timings: {json.dumps(out['family_timings'])}",
           flush=True)
+    for key, (arch, layers) in NEW_TRAIN.items():
+        out[key] = family_train_path(m, arch, layers)
+    out["new_flash_timings"] = new_flash_timing(m)
+    print(f"[train] new flash forms vs SDPA: "
+          f"{json.dumps(out['new_flash_timings'])}", flush=True)
     return out
 
 
@@ -2869,6 +3268,7 @@ def main() -> int:
           flush=True)
 
     serve = serve_phase(m)
+    serve["zamba_long_context"] = long_context_phase(m)
     print(json.dumps({"serve": serve}), flush=True)
 
     timings = timing_phase(m)
@@ -2893,6 +3293,8 @@ def main() -> int:
     paths["train"] = train["train"]
     paths["train_moe"] = train["train_moe"]
     paths["train_hybrid"] = train["train_hybrid"]
+    for key in NEW_TRAIN:
+        paths[key] = train[key]
     kernels = []
     for name, (source, replaces, main_shape) in sources.items():
         t = timings[name][main_shape]
@@ -2901,10 +3303,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(errs[name],
-                               train["kernels"]["forward"].get(name, 0.0),
-                               max(train["family_kernels"]["forward"].values())
-                               if name == "flash_attention" else 0.0),
+            "max_abs_err": max(
+                errs[name], train["kernels"]["forward"].get(name, 0.0),
+                train["family_kernels"]["norms"]["forward"].get(name, 0.0),
+                max(train["family_kernels"]["forward"].values())
+                if name == "flash_attention" else 0.0),
             "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "call_ms": t["call_ms"],
@@ -2916,6 +3319,10 @@ def main() -> int:
         if name == "flash_attention":
             kernels[-1]["new_shapes"]["normalized_err"] = \
                 errs["noncausal_normalized"]
+            kernels[-1]["train_shapes_max_abs_err"] = \
+                train["family_kernels"]["forward"]
+            kernels[-1]["window_timing"] = \
+                train["new_flash_timings"]["zamba2 long-context forward"]
             routes = m["fa_ops"].ROUTES
             kernels[-1]["routes"] = {str(dt).replace("torch.", ""): r
                                      for dt, r in routes.items()}
@@ -2949,9 +3356,21 @@ def main() -> int:
                 same_work=t["same_work"], ptxas=bwd_ptxas,
                 family_shapes={"max_abs_err": fam["max_abs_err"],
                                "normalized_err": fam["normalized_err"],
-                               "timings": train["family_timings"][name]})
+                               "timings": train["family_timings"][name]},
+                new_forms={k: v for k, v in
+                           train["new_flash_timings"].items()
+                           if "fwd_ms" in v})
+        if name != "flash_attention_bwd":
+            # both norm forms at the new families' rows and widths
+            fam = train["family_kernels"]["norms"][name]
             kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                              fam["max_abs_err"])
+            kernels[-1]["family_shapes_normalized_err"] = \
+                fam["normalized_err"]
+        if name == "rmsnorm_bwd":
+            kernels[-1]["instances_by_path"] = {
+                p: paths[p]["profile"]["rmsnorm_bwd_instances"]
+                for p in paths if "profile" in paths[p]}
         _check(by_path["train"] > 0, f"{name}: no launch on the train path")
     # the MoE dispatch's and SSD's backward kernels: their main paths are
     # the full-width olmoe and zamba2 train steps; timed at their shapes

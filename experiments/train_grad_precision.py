@@ -2,16 +2,21 @@
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python \
         experiments/train_grad_precision.py --arch zamba2-7b --layers 7
+    ... --arch xlstm-125m --layers 2 --xlstm-pattern ms
 
 One step's grads through each trainer's ``_make_accumulate`` on the
-reduced config of `--arch` cut to `--layers` (fp32, remat none, seq 32,
+reduced config of `--arch` cut to `--layers` (and, for xlstm, its block
+pattern replaced by `--xlstm-pattern`) (fp32, remat none, seq 32,
 batch 4, the ``SyntheticLM`` batch of step 0, the JAX package's seed-0
 weights in both): the JAX package's, the port's, and the port's again
 in fp64 (its parameters in fp64; for that run every ``Tensor.float()``
 and every fp32 ``torch.zeros`` of the port's model code give fp64).
 Prints one JSON line: for each fp32 run, the worst max |g - g64| / max
 |g64| over the grad leaves and its leaf, and the same between the two
-fp32 runs (the JAX grads' largest entries as the scale).  CPU only;
+fp32 runs (the JAX grads' largest entries as the scale); and, under
+"leaves", every leaf whose fp32 grads are more than 1e-5 of its largest
+entry apart: that largest entry in fp64, the three figures, and the
+largest fp64 grad entry of any leaf.  CPU only;
 imports both packages, as the parity tests do.
 """
 from __future__ import annotations
@@ -41,22 +46,29 @@ from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.training import loop as tl  # noqa: E402
 
 
-@contextlib.contextmanager
-def _fp64():
-    """``Tensor.float()`` and fp32 ``torch.zeros`` give fp64 inside."""
-    to_float, zeros = torch.Tensor.float, torch.zeros
-
-    def zeros64(*args, **kw):
+def _as64(fn):
+    """`fn` with an fp32 `dtype` keyword made fp64."""
+    def call(*args, **kw):
         if kw.get("dtype") is torch.float32:
             kw["dtype"] = torch.float64
-        return zeros(*args, **kw)
+        return fn(*args, **kw)
+    return call
 
+
+@contextlib.contextmanager
+def _fp64():
+    """``Tensor.float()`` and fp32 ``torch.zeros``, ``torch.arange`` and
+    ``Tensor.new_zeros`` give fp64 inside."""
+    saved = (torch.Tensor.float, torch.zeros, torch.arange,
+             torch.Tensor.new_zeros)
     torch.Tensor.float = lambda self: self.to(torch.float64)
-    torch.zeros = zeros64
+    torch.zeros, torch.arange = _as64(saved[1]), _as64(saved[2])
+    torch.Tensor.new_zeros = _as64(saved[3])
     try:
         yield
     finally:
-        torch.Tensor.float, torch.zeros = to_float, zeros
+        (torch.Tensor.float, torch.zeros, torch.arange,
+         torch.Tensor.new_zeros) = saved
 
 
 def _worst(got: dict, want: dict, scale: dict) -> list:
@@ -69,11 +81,14 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="zamba2-7b")
     ap.add_argument("--layers", type=int, default=7)
+    ap.add_argument("--xlstm-pattern", default=None,
+                    help="xlstm block kinds, e.g. 'ms'")
     args = ap.parse_args()
-    jcfg = jax_reduced_config(args.arch).replace(num_layers=args.layers,
-                                                 dtype="float32")
-    cfg = reduced_config(args.arch).replace(num_layers=args.layers,
-                                            dtype="float32")
+    kw = dict(num_layers=args.layers, dtype="float32")
+    if args.xlstm_pattern:
+        kw["xlstm_pattern"] = tuple(args.xlstm_pattern)
+    jcfg = jax_reduced_config(args.arch).replace(**kw)
+    cfg = reduced_config(args.arch).replace(**kw)
     jtc, tc = JTrainConfig(remat="none"), TrainConfig(remat="none")
     js = jtl.init_train_state(jax.random.PRNGKey(0), jcfg, jtc)
     model = bridge.from_numpy(jax.tree.map(np.asarray, js.params), cfg,
@@ -92,10 +107,23 @@ def main() -> int:
                      tb)
     g32 = {n: t.double().numpy() for n, t in g32.items()}
     g64 = {n: t.double().numpy() for n, t in g64.items()}
+    leaves = {}
+    for n in jg:
+        def ratio(got, want):
+            return float(np.abs(got - want).max() / np.abs(want).max())
+        if ratio(g32[n], jg[n]) > 1e-5:
+            leaves[n] = {"max_fp64": float(np.abs(g64[n]).max()),
+                         "jax_fp32_vs_fp64": ratio(jg[n], g64[n]),
+                         "port_fp32_vs_fp64": ratio(g32[n], g64[n]),
+                         "port_vs_jax_fp32": ratio(g32[n], jg[n])}
     print(json.dumps({"arch": args.arch, "layers": args.layers,
+                      "xlstm_pattern": args.xlstm_pattern,
                       "jax_fp32_vs_fp64": _worst(jg, g64, g64),
                       "port_fp32_vs_fp64": _worst(g32, g64, g64),
-                      "port_vs_jax_fp32": _worst(g32, jg, jg)}))
+                      "port_vs_jax_fp32": _worst(g32, jg, jg),
+                      "largest_fp64_grad": max(float(np.abs(a).max())
+                                               for a in g64.values()),
+                      "leaves": leaves}))
     return 0
 
 

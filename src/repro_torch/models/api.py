@@ -12,9 +12,10 @@ Families: dense / moe / vlm -> ``transformer``; hybrid (zamba2) ->
 modality frontends are stubs, as in the JAX package: a vlm batch
 carries patch embeddings, an audio batch frame embeddings
 (``input_specs``).  Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.  Int8 KV caches (``kv_quant``) and the
-windowed shared attention of ``long_context`` raise
-``NotImplementedError``.
+passes ``device="cpu"``.  ``long_context`` gives zamba2's shared
+attention a window of ``ZAMBA_LONG_WINDOW`` keys (its caches a ring of
+that many slots), as in the JAX package's long-context cell.  Int8 KV
+caches (``kv_quant``) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,6 +31,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer, whisper, xlstm_lm, zamba
 from repro_torch.models.common import dtype_of
 from repro_torch.models.params import Model
+
+# the windowed shared attention's width for zamba2's long-context cell
+ZAMBA_LONG_WINDOW = 4096
 
 
 def build_params(cfg: ModelConfig,
@@ -56,30 +60,30 @@ def forward(params: Model, batch: Dict[str, Any], cfg: ModelConfig, *,
     'train' runs with autograd (the other modes under ``no_grad``); for
     the dense, MoE, vlm and hybrid families `remat` is 'full', 'dots' or
     'none', as in ``repro.models.api.forward`` (per layer, and per group
-    of Mamba blocks and the shared block for the hybrid)."""
+    of Mamba blocks and the shared block for the hybrid); the xlstm and
+    audio families, as there, recompute a block (a decoder layer) under
+    'full' only.  `long_context`: zamba2's shared attention windowed to
+    ``ZAMBA_LONG_WINDOW`` (other families ignore it, as in JAX)."""
     bridge.model_class(cfg)             # other families raise
     if mode == "chunk" and not supports_chunked_prefill(cfg):
         raise NotImplementedError(
             f"chunked prefill is not supported for family {cfg.family!r}")
-    if long_context:
-        raise NotImplementedError(
-            "long_context (zamba2's windowed shared attention) comes with "
-            "a later slice of the port")
     if rows is not None and cfg.family in ("xlstm", "audio"):
         raise NotImplementedError(
             f"per-slot writes (rows) for family {cfg.family!r}: the "
             "serving engine does not run it, in either package")
     with contextlib.nullcontext() if mode == "train" else torch.no_grad():
         if cfg.family == "hybrid":
-            return zamba.zamba_forward(params, batch, cfg, mode=mode,
-                                       caches=caches, rows=rows,
-                                       remat=remat)
+            return zamba.zamba_forward(
+                params, batch, cfg, mode=mode, caches=caches, rows=rows,
+                remat=remat,
+                window_override=ZAMBA_LONG_WINDOW if long_context else None)
         if cfg.family == "xlstm":
             return xlstm_lm.xlstm_lm_forward(params, batch, cfg, mode=mode,
-                                             caches=caches)
+                                             caches=caches, remat=remat)
         if cfg.family == "audio":
             return whisper.whisper_forward(params, batch, cfg, mode=mode,
-                                           caches=caches)
+                                           caches=caches, remat=remat)
         return transformer.lm_forward(params, batch, cfg, mode=mode,
                                       caches=caches, rows=rows, remat=remat)
 
@@ -96,20 +100,19 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 long_context: bool = False,
                 kv_quant: bool = False) -> Dict[str, Any]:
     """Decode caches; every leaf but ``len`` has its batch (slot) axis
-    at 1, behind the stacked-layer axis."""
+    at 1, behind the stacked-layer axis.  `long_context`: zamba2's
+    shared-attention caches are rings of ``min(max_len,
+    ZAMBA_LONG_WINDOW)`` slots."""
     bridge.model_class(cfg)             # other families raise
     if kv_quant:
         raise NotImplementedError(
             "int8 KV caches (kv_quant) come with a later slice of the port")
-    if long_context:
-        raise NotImplementedError(
-            "long_context caches (zamba2's windowed shared attention) come "
-            "with a later slice of the port")
     dt = dtype or dtype_of(cfg.dtype)
     dev = resolve_device(device)
     if cfg.family == "hybrid":
-        return zamba.init_zamba_caches(cfg, batch, max_len, dtype=dt,
-                                       device=dev)
+        return zamba.init_zamba_caches(
+            cfg, batch, max_len, dtype=dt, device=dev,
+            window=ZAMBA_LONG_WINDOW if long_context else None)
     if cfg.family == "xlstm":
         return xlstm_lm.init_xlstm_caches(cfg, batch, dtype=dt, device=dev)
     if cfg.family == "audio":

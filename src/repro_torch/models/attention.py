@@ -324,11 +324,13 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-                  dtype: torch.dtype, device: torch.device) -> Dict[str, Any]:
-    """A [batch, size, KV, D] cache; a windowed config's cache is a ring
-    of `sliding_window` positions when that is shorter than max_len."""
+                  dtype: torch.dtype, device: torch.device,
+                  window: Optional[int] = None) -> Dict[str, Any]:
+    """A [batch, size, KV, D] cache; a windowed cache (`window`, else the
+    config's `sliding_window`) is a ring of that many positions when
+    that is shorter than max_len."""
     _, kvh, hd = attn_dims(cfg)
-    wdw = cfg.sliding_window
+    wdw = window if window is not None else cfg.sliding_window
     size = min(max_len, wdw) if wdw is not None else max_len
     return {
         "k": torch.zeros((batch, size, kvh, hd), dtype=dtype, device=device),

@@ -17,6 +17,10 @@ so ``bridge.from_numpy`` carries a JAX tree across.  Caches: "k", "v"
 and "len"; 'decode' writes the self-attention cache in place and reads
 the cross K/V, 'prefill' returns new caches.  As elsewhere in the port,
 each block's residual branch is added by the next norm's kernel.
+'train' runs with autograd; as ``repro.models.whisper`` does, remat
+'full' recomputes each decoder layer in the backward (the encoder is
+not checkpointed), and the encoder's grads come through the
+cross-attention's K and V projections.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from repro_torch.models.common import (add_rmsnorm, embed_lookup,
                                        padded_vocab, sinusoid_at,
                                        sinusoidal_positions, stack_layers)
 from repro_torch.models.mlp import mlp_forward
-from repro_torch.models.transformer import attention_spec
+from repro_torch.models.transformer import REMAT, attention_spec, remat_call
 
 
 def _enc_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -92,11 +96,17 @@ def _cross_kv(lp, enc_out: torch.Tensor, cfg: ModelConfig):
 
 def whisper_forward(params: WhisperLM, batch: Dict[str, Any],
                     cfg: ModelConfig, *, mode: str = "train",
-                    caches: Optional[Dict[str, Any]] = None):
+                    caches: Optional[Dict[str, Any]] = None,
+                    remat: str = "full"):
     """Returns (logits [B,S,Vp], aux=0, new_caches).
 
     batch: {"tokens": [B,S]}, plus "frames" [B,Ctx,d] unless decoding
-    (decode reads the cross K/V from the caches)."""
+    (decode reads the cross K/V from the caches).  `remat` (one of
+    ``transformer.REMAT``): 'full' checkpoints each decoder layer in
+    'train'; 'dots' and 'none' keep every activation, as in the JAX
+    package."""
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     tokens = batch["tokens"].to(params.device).long()
     B, S = tokens.shape
     d = cfg.d_model
@@ -126,19 +136,17 @@ def whisper_forward(params: WhisperLM, batch: Dict[str, Any],
     y = None
     new_k, new_v = [], []
     for i, lp in enumerate(params.dec.layers()):
+        if mode == "train":
+            # the JAX forward checkpoints a layer under 'full' only
+            x, y = remat_call(_train_layer,
+                              "full" if remat == "full" else "none",
+                              x, y, lp, positions, xk[i], xv[i], cfg)
+            continue
         cache = None
         if lens is not None:
             cache = {"k": caches["k"][i], "v": caches["v"][i], "len": lens}
-        x, h = add_rmsnorm(x, y, lp["norm1"], cfg.norm_eps)
-        h, nc = attention.attn_forward(lp["attn"], h, positions, cfg=cfg,
-                                       mode=mode, cache=cache,
-                                       use_rope=False)
-        x, h = add_rmsnorm(x, h, lp["norm_x"], cfg.norm_eps)
-        h, _ = attention.attn_forward(lp["xattn"], h, positions, cfg=cfg,
-                                      mode=mode, kv_override=(xk[i], xv[i]),
-                                      use_rope=False)
-        x, h = add_rmsnorm(x, h, lp["norm2"], cfg.norm_eps)
-        y = mlp_forward(lp["mlp"], h)
+        x, y, nc = _dec_layer(x, y, lp, positions, xk[i], xv[i], cfg, mode,
+                              cache)
         if mode == "prefill":
             new_k.append(nc["k"])
             new_v.append(nc["v"])
@@ -155,6 +163,26 @@ def whisper_forward(params: WhisperLM, batch: Dict[str, Any],
     elif mode == "decode":
         new_caches = dict(caches, len=(lens + 1).to(torch.int32))
     return logits, aux, new_caches
+
+
+def _dec_layer(x, y, lp, positions, xk, xv, cfg: ModelConfig, mode: str,
+               cache):
+    """One decoder layer: y (the branch before) is added by norm1's
+    kernel.  Returns (x, the layer's branch, its new self-attention
+    cache)."""
+    x, h = add_rmsnorm(x, y, lp["norm1"], cfg.norm_eps)
+    h, nc = attention.attn_forward(lp["attn"], h, positions, cfg=cfg,
+                                   mode=mode, cache=cache, use_rope=False)
+    x, h = add_rmsnorm(x, h, lp["norm_x"], cfg.norm_eps)
+    h, _ = attention.attn_forward(lp["xattn"], h, positions, cfg=cfg,
+                                  mode=mode, kv_override=(xk, xv),
+                                  use_rope=False)
+    x, h = add_rmsnorm(x, h, lp["norm2"], cfg.norm_eps)
+    return x, mlp_forward(lp["mlp"], h), nc
+
+
+def _train_layer(x, y, lp, positions, xk, xv, cfg: ModelConfig):
+    return _dec_layer(x, y, lp, positions, xk, xv, cfg, "train", None)[:2]
 
 
 def init_whisper_caches(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -6,7 +6,10 @@ layers (``layer_kinds``); each layer is its own unstacked sub-tree
 ``layer_NN`` = {"norm", "cell"}, as in the JAX tree.  Recurrent state is
 O(1) in sequence length.  Caches: {"layer_NN": that cell's cache}.  As
 elsewhere in the port, each block's residual branch is added by the
-next norm's kernel.
+next norm's kernel.  'train' runs with autograd (the cells' backward is
+PyTorch's autograd of their plain code, as the JAX package's is JAX's
+of its ``lax.scan``s) and, as ``repro.models.xlstm_lm`` does,
+recomputes each block in the backward under remat 'full' only.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as P
 from repro_torch.models import xlstm
 from repro_torch.models.common import add_rmsnorm, embed_lookup, padded_vocab
+from repro_torch.models.transformer import REMAT, remat_call
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -52,11 +56,16 @@ class XlstmLM(P.Model):
 
 def xlstm_lm_forward(params: XlstmLM, batch: Dict[str, Any],
                      cfg: ModelConfig, *, mode: str = "train",
-                     caches: Optional[Dict[str, Any]] = None):
+                     caches: Optional[Dict[str, Any]] = None,
+                     remat: str = "full"):
     """Returns (logits [B,S,Vp], aux=0, new_caches): the cells' new
-    states in 'prefill' and 'decode', None in 'train'."""
+    states in 'prefill' and 'decode', None in 'train'.  `remat` (one of
+    ``transformer.REMAT``): 'full' checkpoints each block in 'train';
+    'dots' and 'none' keep every activation, as in the JAX package."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown xlstm mode {mode!r}")
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     if mode == "decode" and caches is None:
         raise ValueError("mode 'decode' needs caches")
     tokens = batch["tokens"].to(params.device).long()
@@ -67,15 +76,27 @@ def xlstm_lm_forward(params: XlstmLM, batch: Dict[str, Any],
         name = f"layer_{i:02d}"
         lp = params[name]
         fwd = xlstm.mlstm_forward if kind == "m" else xlstm.slstm_forward
+        if mode == "train":
+            # the JAX forward checkpoints a block under 'full' only
+            x, y = remat_call(_train_block,
+                              "full" if remat == "full" else "none",
+                              x, y, lp, fwd, cfg)
+            continue
         x, h = add_rmsnorm(x, y, lp.norm, cfg.norm_eps)
-        y, nc = fwd(lp.cell, h, cfg, mode=mode,
-                    cache=None if caches is None else caches.get(name))
-        if mode != "train":
-            new_caches[name] = nc
+        y, new_caches[name] = fwd(
+            lp.cell, h, cfg, mode=mode,
+            cache=None if caches is None else caches.get(name))
     _, x = add_rmsnorm(x, y, params.final_norm, cfg.norm_eps)
     logits = x @ params.embed.T                 # tied head
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, (new_caches or None)
+
+
+def _train_block(x, y, lp, fwd, cfg: ModelConfig):
+    """One block in mode 'train': y (the branch before) is added by the
+    norm's kernel.  Returns (x, the block's branch)."""
+    x, h = add_rmsnorm(x, y, lp.norm, cfg.norm_eps)
+    return x, fwd(lp.cell, h, cfg, mode="train")[0]
 
 
 def init_xlstm_caches(cfg: ModelConfig, batch: int, *, dtype: torch.dtype,

@@ -13,8 +13,12 @@ autograd and, as ``repro.models.zamba`` does, checkpoints each group
 (its Mamba blocks and the shared block) by `remat`
 (``transformer.remat_call``: 'full', 'dots' or 'none'); the tail
 blocks are not checkpointed.  The shared block's one parameter set
-takes a gradient from every group.  The windowed shared attention of
-the long-context cell (``long_context``) is not ported.
+takes a gradient from every group.  `window_override` windows the
+shared attention (the long-context cell, ``api.ZAMBA_LONG_WINDOW``):
+the prefill masks it and returns full-length K/V; a decode cache of
+exactly `window` slots is a ring (written at ``len % window``), any
+other is written linearly with the window applied by the mask, as in
+``repro.models.attention.cache_update``.
 """
 from __future__ import annotations
 
@@ -85,23 +89,24 @@ def _mamba_block(bp: Mapping[str, Any], x, y, cfg, mode, cache, rows):
     return x, h, new_cache
 
 
-def _shared_block(sp, x, y, positions, cfg, mode, kv_cache, keep):
+def _shared_block(sp, x, y, positions, cfg, mode, kv_cache, keep, window):
     x, h = add_rmsnorm(x, y, sp["norm1"], cfg.norm_eps)
     h, new_kv = attention.attn_forward(sp["attn"], h, positions, cfg=cfg,
-                                       mode=mode, cache=kv_cache, keep=keep)
+                                       mode=mode, cache=kv_cache, keep=keep,
+                                       window=window)
     x, h = add_rmsnorm(x, h, sp["norm2"], cfg.norm_eps)
     return x, mlp_forward(sp["mlp"], h), new_kv
 
 
 def _train_group(x, y, bps: List[Mapping[str, Any]], sp, positions,
-                 cfg: ModelConfig, remat: str):
+                 cfg: ModelConfig, remat: str, window: Optional[int]):
     """One group in mode 'train': its Mamba blocks, then the shared
     block, checkpointed as a whole by `remat`.  Returns (x, y)."""
     def run(x, y, bps, sp, positions):
         for bp in bps:
             x, y, _ = _mamba_block(bp, x, y, cfg, "train", None, None)
         x, y, _ = _shared_block(sp, x, y, positions, cfg, "train", None,
-                                None)
+                                None, window)
         return x, y
     return remat_call(run, remat, x, y, bps, sp, positions)
 
@@ -115,13 +120,15 @@ def _stack(trees, one: Dict[str, torch.Tensor]):
 def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
                   *, mode: str = "train",
                   caches: Optional[Dict[str, Any]] = None,
-                  rows: Optional[torch.Tensor] = None, remat: str = "full"):
+                  rows: Optional[torch.Tensor] = None, remat: str = "full",
+                  window_override: Optional[int] = None):
     """Returns (logits, aux=0, new_caches).
 
     caches: {"mamba": stacked [G*g] tree, "tail": stacked [tail] tree,
              "kv": stacked [G] {"k", "v"}, "len": int32 (scalar or [B])}
     mode 'train': autograd, each group checkpointed by `remat` (one of
-    ``transformer.REMAT``).
+    ``transformer.REMAT``).  `window_override`: the shared attention's
+    sliding window (None: the config's).
     """
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
@@ -135,8 +142,10 @@ def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
         if caches is None:
             raise ValueError("mode 'decode' needs caches")
         lens = torch.as_tensor(caches["len"], device=dev).expand(B)
-        attention.check_cache_bounds(lens, 1, caches["kv"]["k"].shape[2],
-                                     rows)
+        smax = caches["kv"]["k"].shape[2]
+        wdw = (window_override if window_override is not None
+               else cfg.sliding_window)
+        attention.check_cache_bounds(lens, 1, smax, rows, ring=smax == wdw)
         keep = attention.other_rows(rows, B, dev)
         positions = lens.reshape(B, 1)
     elif mode in ("prefill", "train"):
@@ -152,7 +161,8 @@ def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
     for gi in range(n_groups):
         if mode == "train":
             x, y = _train_group(x, y, blocks[gi * g:(gi + 1) * g],
-                                params.shared, positions, cfg, remat)
+                                params.shared, positions, cfg, remat,
+                                window_override)
             continue
         for j in range(g):
             i = gi * g + j
@@ -164,7 +174,7 @@ def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
             kv = {"k": caches["kv"]["k"][gi], "v": caches["kv"]["v"][gi],
                   "len": caches["len"]}
         x, y, nkv = _shared_block(params.shared, x, y, positions, cfg, mode,
-                                  kv, keep)
+                                  kv, keep, window_override)
         new_kv.append(nkv)
     new_tail = []
     for i, bp in enumerate(params.tail.layers() if tail else ()):
@@ -194,8 +204,10 @@ def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
 
 
 def init_zamba_caches(cfg: ModelConfig, batch: int, max_len: int, *,
-                      dtype: torch.dtype, device: torch.device
-                      ) -> Dict[str, Any]:
+                      dtype: torch.dtype, device: torch.device,
+                      window: Optional[int] = None) -> Dict[str, Any]:
+    """`window`: the shared attention's caches are rings of
+    ``min(max_len, window)`` slots."""
     n_groups, g, tail = plan(cfg)
 
     def stack(tree, n):
@@ -204,7 +216,7 @@ def init_zamba_caches(cfg: ModelConfig, batch: int, max_len: int, *,
 
     one_ssm = ssm.init_ssm_cache(cfg, batch, dtype, device)
     one_kv = attention.init_kv_cache(cfg, batch, max_len, dtype=dtype,
-                                     device=device)
+                                     device=device, window=window)
     caches = {"mamba": stack(one_ssm, n_groups * g),
               "kv": stack({k: one_kv[k] for k in ("k", "v")}, n_groups),
               "len": one_kv["len"]}

@@ -3,7 +3,9 @@ same inputs: the plain SSD intra-chunk block against the Pallas kernel
 (interpret mode), ``causal_conv``, ``ssd_chunked`` (init state, a
 forced head-group split, a chunk length that is no tile multiple),
 ``ssd_decode_step``, ``mamba2_forward`` and the whole model in the
-prefill and decode modes (reduced zamba2-7b, fp32)."""
+prefill and decode modes (reduced zamba2-7b, fp32), also with the
+long-context cell's windowed shared attention through a ring that
+wraps."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -201,5 +203,63 @@ def test_zamba_tree_caches_and_deferred_paths(weights):
     with pytest.raises(NotImplementedError):
         api.forward(model, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
                     CFG, mode="chunk", caches=caches)
-    with pytest.raises(NotImplementedError):
-        api.init_caches(CFG, 1, 16, device="cpu", long_context=True)
+    # long_context: a ring of min(max_len, ZAMBA_LONG_WINDOW) slots
+    assert api.ZAMBA_LONG_WINDOW == japi.ZAMBA_LONG_WINDOW == 4096
+    ring = api.init_caches(CFG, 1, 16, device="cpu", long_context=True)
+    assert tuple(ring["kv"]["k"].shape) == (1, 1, 16, 4, 32)
+
+
+def test_long_context_matches_jax_through_ring_wrap(weights, monkeypatch):
+    """zamba2's long-context cell (the shared attention windowed to
+    ``ZAMBA_LONG_WINDOW``, patched to 8 in both packages), fp32: the
+    caches of ``init_caches(long_context=True)`` have the JAX shapes; a
+    prefill of exactly 8 tokens fills the 8-slot ring, and 12 decode
+    steps wrap it (each writes at len % 8); every step's logits and a
+    windowed 20-token prefill's are within 1e-5 of JAX's, relative to
+    their largest entry.  Each decode step also equals that prefill's
+    logits at its position (TOL): the ring holds the window's keys."""
+    W = 8
+    monkeypatch.setattr(japi, "ZAMBA_LONG_WINDOW", W)
+    monkeypatch.setattr(api, "ZAMBA_LONG_WINDOW", W)
+    tree, model = weights
+    P = jax.tree.map(jnp.asarray, tree)
+    for max_len in (6, 64):
+        cj = japi.init_caches(JCFG, 2, max_len, long_context=True)
+        ct = api.init_caches(CFG, 2, max_len, device="cpu",
+                             long_context=True)
+        assert ({n: tuple(np.shape(v)) for n, v in bridge._leaves(ct)}
+                == {n: tuple(np.shape(v)) for n, v in bridge._leaves(cj)})
+        assert ct["kv"]["k"].shape[2] == min(max_len, W)
+
+    def close(got, want):
+        got, want = got.numpy(), np.asarray(want)
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= 1e-5, err
+
+    toks = np.random.default_rng(7).integers(
+        0, CFG.vocab_size, (1, 20)).astype(np.int32)
+    fj, _, _ = japi.forward(P, {"tokens": jnp.asarray(toks)}, JCFG,
+                            mode="prefill", remat="none", long_context=True)
+    ft, _, _ = api.forward(model, {"tokens": _t(toks)}, CFG,
+                           mode="prefill", long_context=True)
+    close(ft, fj)
+    lj, _, cj = japi.forward(P, {"tokens": jnp.asarray(toks[:, :W])}, JCFG,
+                             mode="prefill", remat="none", long_context=True)
+    lt, _, ct = api.forward(model, {"tokens": _t(toks[:, :W])}, CFG,
+                            mode="prefill", long_context=True)
+    close(lt, lj)
+    assert ct["kv"]["k"].shape[2] == cj["kv"]["k"].shape[2] == W
+    decode = jax.jit(lambda p, b, c: japi.forward(
+        p, b, JCFG, mode="decode", caches=c, remat="none",
+        long_context=True))
+    for i in range(W, 20):
+        nt = toks[:, i:i + 1]
+        lj, _, cj = decode(P, {"tokens": jnp.asarray(nt)}, cj)
+        lt, _, ct = api.forward(model, {"tokens": _t(nt)}, CFG,
+                                mode="decode", caches=ct, long_context=True)
+        close(lt, lj)
+        np.testing.assert_allclose(lt[0, -1].numpy(), ft[0, i].numpy(),
+                                   **TOL)
+    np.testing.assert_allclose(ct["kv"]["k"].numpy(),
+                               np.asarray(cj["kv"]["k"]), **TOL)
+    assert int(ct["len"]) == int(cj["len"]) == 20

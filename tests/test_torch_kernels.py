@@ -592,6 +592,50 @@ def test_flash_bwd_kernel_matches_plain(cuda, B, S, H, KV, D, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Sk,H,KV,D", [
+    (1, 130, 77, 4, 2, 64),        # ragged tiles on both sides
+    (1, 300, 1500, 6, 6, 64),      # whisper's cross-attention heads
+    (2, 64, 1500, 6, 6, 64), (1, 100, 333, 8, 2, 128),
+    (1, 1500, 1500, 6, 6, 64)])    # whisper's encoder, S = Sk
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_noncausal_matches_plain(cuda, B, S, Sk, H, KV, D,
+                                                  dtype):
+    """The FA-2 backward without the causal mask (whisper's encoder and
+    its cross-attention on Sk != S keys), keys and values read from the
+    front of a longer buffer whose tail holds NaN: dk and dv are
+    [B, Sk, KV, D], within 1e-2 (bf16) or 1e-4 (fp32) of the plain
+    backward relative to their largest entry (non-causal rows spread
+    their softmax over every key, so entries are small), the same bits
+    twice; the forward's LSE within 1e-4."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tdt = DTYPES[dtype]
+    q, do = (torch.randn(B, S, H, D, generator=g, device=cuda).to(tdt)
+             for _ in range(2))
+    kv = torch.full((2, B, Sk + 70, KV, D), float("nan"), device=cuda,
+                    dtype=tdt)
+    kv[:, :, :Sk] = torch.randn(2, B, Sk, KV, D, generator=g,
+                                device=cuda).to(tdt)
+    k, v = kv[0, :, :Sk], kv[1, :, :Sk]
+    out, lse = fa_ops.flash_attention_cuda(q, k, v, causal=False,
+                                           with_lse=True)
+    _, lse_ref = flash_fwd_ref(q, k, v, causal=False)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+    got = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                          causal=False)
+    again = fa_ops.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                            causal=False)
+    want = flash_bwd_ref(q, k, v, out, lse, do, causal=False)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    for a, b, c in zip(got, again, want):
+        assert a.shape == c.shape and a.dtype == tdt and torch.equal(a, b)
+        assert bool(torch.isfinite(a).all())
+        rel = float((a.float() - c.float()).abs().max()
+                    / c.float().abs().max())
+        assert rel <= tol, rel
+    assert got[1].shape == (B, Sk, KV, D)
+
+
+@pytest.mark.gpu
 def test_flash_autograd_on_cuda_runs_the_kernels(cuda):
     """Grads through the wrapper on CUDA: the forward writes the LSE,
     the backward kernel runs once, and the grads equal the plain

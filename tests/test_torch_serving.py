@@ -196,8 +196,10 @@ def test_deadline_shed_and_nan_guard(weights):
 def test_deferred_features_raise(weights, family_weights):
     """What the port still refuses: zamba2 with the paged layout (its
     SSM and conv states have no sequence axis to page, and it prefills
-    legacy only, as in the JAX engine), int8 KV caches and zamba2's
-    long-context windowed attention."""
+    legacy only, as in the JAX engine) and int8 KV caches.  (zamba2's
+    long-context windowed attention is ported: its parity test is
+    ``test_torch_hybrid.test_long_context_matches_jax_through_ring_wrap``.)
+    """
     _, zcfg, _, zmodel = family_weights["zamba2-7b"]
     with pytest.raises(ValueError, match="chunked prefill"):
         Engine(zcfg, zmodel, max_len=64, kv_layout="paged")
@@ -209,9 +211,6 @@ def test_deferred_features_raise(weights, family_weights):
                kv_page_size=24)
     with pytest.raises(NotImplementedError):
         api.init_caches(CFG, 1, 64, device="cpu", kv_quant=True)
-    with pytest.raises(NotImplementedError):
-        api.forward(zmodel, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                    zcfg, mode="prefill", long_context=True)
 
 
 def test_sample_guarded_greedy_matches_jax():

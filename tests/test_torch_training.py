@@ -532,6 +532,23 @@ def test_train_cli_on_cpu(capsys, tmp_path):
                         "--mesh"])
 
 
+@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-tiny"])
+def test_train_cli_families_on_cpu(capsys, arch):
+    """The train CLI on the xlstm family and the audio family (whose
+    batches carry the loader's stub frames): finite losses and grad
+    norms, one history record a step.  Their parity with the JAX
+    trainer is ``test_torch_train_families``."""
+    history = []
+    assert train_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
+                           "--steps", "2", "--seq", "16", "--batch", "2",
+                           "--log-every", "1"], history=history) == 0
+    out = capsys.readouterr().out
+    assert f"[train] {arch} (reduced)" in out and "[done]" in out
+    assert [h["step"] for h in history] == [1, 2]
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               and h["grad_norm"] > 0 for h in history)
+
+
 def test_train_cli_chaos_on_cpu(capsys, tmp_path):
     assert train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                            "--steps", "10", "--seq", "16", "--batch", "2",
