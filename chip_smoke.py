@@ -7,12 +7,13 @@ Needs one CUDA card and a checkout of the repository around this file;
 without either it exits non-zero and prints no result.  Imports nothing
 of JAX and nothing of the ``repro`` package.  In order:
 
-1. builds the seven CUDA sources (RMSNorm with its fused residual-add
+1. builds the eight CUDA sources (RMSNorm with its fused residual-add
    form and its backward, the flash-attention forward, its FA-2
    backward, the MoE dispatch, SSD intra-chunk and its backward, the
-   SIMT machine's cycle loop) from ``src/repro_torch/csrc/``, one
-   ``nvcc`` per source, in parallel, and prints each library's
-   registers, stack and spill bytes by kernel and template arguments;
+   SIMT machine's cycle loop, the int8 decode attention) from
+   ``src/repro_torch/csrc/``, one ``nvcc`` per source, in parallel, and
+   prints each library's registers, stack and spill bytes by kernel and
+   template arguments;
 2. drives the Vortex SIMT machine: the kernel (one launch per machine
    run) against the plain PyTorch loop on the card, every State field
    and counter bit-equal (vecadd and nn at 8w8t, gaussian at 4w16t at
@@ -160,10 +161,31 @@ of JAX and nothing of the ``repro`` package.  In order:
    internvl; the window as a mask).  Each profiled step names the
    RMSNorm backward instances its widths picked.
 
+10. drives the int8 KV-cache decode path (``kv_q8_phase``, after the
+   serve phase): the ``decode_attention_q8`` kernel against its plain
+   version (fp64 products on the card) at phi3's, qwen2.5-32b's and
+   internvl2-76b's decode shapes, danube's 4096-slot ring after it
+   wraps, a window of 64 that is not a ring, per-slot lens (1, 77, 256)
+   and minitron-4b's 3 query heads a kv head, bf16 and fp32 q: the int32
+   scores equal, pq at most one step apart at few entries, the output
+   within tolerance of the plain sums over the kernel's pq, the same
+   bits twice; its timing at [16,32768,8,G 5,128] (qwen2.5-32b's
+   decode_32k layer over 16 slots) against its bytes bound, with SDPA
+   over a bf16 cache of that shape beside it as a different function;
+   phi3-mini-3.8b, qwen2.5-32b, olmoe-1b-7b and the internvl2-76b
+   backbone (24 of 80 layers) at full width, each fed a 64-token prompt
+   one decode step at a time from empty int8 caches and then 8 greedy
+   tokens, every launch count zeroed just before and read just after
+   (the kernel once a layer a step), and the same input tokens again on
+   a bf16 cache (agreeing greedy tokens and logit cosines printed, not
+   gated: the weights are random); and reduced fp32 phi3, danube (its
+   16-slot ring wraps) and qwen 24 steps on the card against the CPU.
+
 It prints a ``{"simt": ...}`` line, a ``{"serve": ...}`` line, a
-``{"timings": ...}`` line, a ``{"train": ...}`` line, one
-``{"kernels": [...]}`` line, the card's name and power limit, and ends
-with ``{"ok": true, "device": {...}}``.  Any failed check raises.
+``{"kv_q8": ...}`` line, a ``{"timings": ...}`` line, a ``{"train":
+...}`` line, one ``{"kernels": [...]}`` line, the card's name and power
+limit, and ends with ``{"ok": true, "device": {...}}``. Any failed check
+raises.
 """
 from __future__ import annotations
 
@@ -215,6 +237,9 @@ def _imports():
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.core.simt import machine, power
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_q8 import ops as q8_ops
+    from repro_torch.kernels.decode_q8.ref import (combine_pv,
+                                                   decode_attention_q8_ref)
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import ShapeConfig, TrainConfig
@@ -236,6 +261,7 @@ def _imports():
     from repro_torch.models import api
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import xlstm, xlstm_lm
+    from repro_torch.models.kv_quant import quantize_kv, valid_positions
     from repro_torch.models.moe import moe_capacity, moe_forward
     from repro_torch.obs import demo  # noqa: F401  (its imports, checked)
     from repro_torch.runtime.asm import assemble
@@ -256,6 +282,9 @@ def _imports():
                 faults=faults, kv_pool=kv_pool,
                 get_config=get_config, reduced_config=reduced_config,
                 build=build, fa_ops=fa_ops, attention_ref=attention_ref,
+                q8_ops=q8_ops, combine_pv=combine_pv,
+                decode_attention_q8_ref=decode_attention_q8_ref,
+                quantize_kv=quantize_kv, valid_positions=valid_positions,
                 dispatch_ops=dispatch_ops, moe_dispatch_ref=moe_dispatch_ref,
                 moe_dispatch_bwd_ref=moe_dispatch_bwd_ref, moe_mod=moe_mod,
                 rms_ops=rms_ops, rmsnorm_ref=rmsnorm_ref, ssd_ops=ssd_ops,
@@ -273,7 +302,7 @@ def _check(ok: bool, what: str) -> None:
 
 
 def _zero_counts(m) -> None:
-    for mod in ("rms_ops", "fa_ops", "dispatch_ops", "ssd_ops"):
+    for mod in ("rms_ops", "fa_ops", "dispatch_ops", "ssd_ops", "q8_ops"):
         m[mod].launches = 0
     for mod in ("rms_ops", "fa_ops", "dispatch_ops", "ssd_ops"):
         m[mod].bwd_launches = 0
@@ -284,13 +313,15 @@ def _zero_counts(m) -> None:
 
 
 def _counts(m) -> dict:
-    """Launches of each kernel of KERNELS and BWD_KERNELS (the RMSNorm
-    wrapper counts its plain and fused forms apart)."""
+    """Launches of each kernel of KERNELS and BWD_KERNELS, and of
+    decode_attention_q8 (the RMSNorm wrapper counts its plain and fused
+    forms apart)."""
     bwd = m["rms_ops"].bwd_launches_by_form
     return {**m["rms_ops"].launches_by_form,
             "flash_attention": m["fa_ops"].launches,
             "moe_dispatch": m["dispatch_ops"].launches,
             "ssd_intra": m["ssd_ops"].launches,
+            "decode_attention_q8": m["q8_ops"].launches,
             "flash_attention_bwd": m["fa_ops"].bwd_launches,
             "rmsnorm_bwd": bwd["rmsnorm"],
             "add_rmsnorm_bwd": bwd["add_rmsnorm"],
@@ -3150,6 +3181,331 @@ def simt_phase(m) -> dict:
                     for c, v in cells.items()}}
 
 
+# ---------------------------------------------------------------------------
+# the int8 KV-cache decode path: the decode_attention_q8 kernel
+# ---------------------------------------------------------------------------
+
+INT8_OPS = 1979e12                 # dense int8 tensor-core peak
+Q8_CHECKS = {  # B, Smax, KV, G, D, per-slot lens, window
+    "phi3": (2, 256, 32, 1, 96, (256, 256), None),
+    "qwen2.5-32b": (2, 256, 8, 5, 128, (256, 200), None),
+    "internvl": (2, 256, 8, 8, 128, (256, 131), None),
+    "danube ring": (2, 4096, 8, 4, 80, (4100, 5000), 4096),
+    "window 64, not a ring": (2, 256, 8, 4, 80, (200, 256), 64),
+    "per-slot lens": (3, 256, 8, 5, 128, (1, 77, 256), None),
+    "minitron G 3": (2, 256, 8, 3, 128, (256, 100), None)}
+# the kernel's output against the plain version's sums over the
+# kernel's own pq (max |Δ| / max |want|): fp32 rounding of ps, and bf16's
+# of the output; pq may sit one step from the plain version's where
+# pv/ps lands on a rounding tie within the two softmax sums' ulps, at
+# no more than Q8_MAX_FLIPS of the entries
+Q8_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+Q8_MAX_FLIPS = 1e-3
+Q8_TIMING = (16, 32768, 8, 5, 128)  # qwen2.5-32b decode_32k, 16 of 128 slots
+Q8_MODELS = ((PHI3, None), (QWEN, None), (OLMOE, None),
+             (INTERNVL, INTERNVL_LAYERS))
+Q8_PROMPT, Q8_NEW = 64, 8
+# each Q8_MODELS path's own shape (one slot, Q8_PROMPT + Q8_NEW
+# positions, its config's heads) at lens of its first step, one between
+# and its last, checked beside Q8_CHECKS
+Q8_PATH_LENS = (1, 37, Q8_PROMPT + Q8_NEW)
+Q8_REDUCED_STEPS = 24              # danube's reduced ring of 16 wraps
+# reduced fp32 decode, card vs CPU: a new k or v entry (or its fp16
+# scale) quantized one step apart moves the logits by ~1e-3 of max
+# |logit| (tests/test_torch_kv_q8.py measures the same against JAX)
+Q8_REDUCED_TOL, Q8_REDUCED_FLIPS = 5e-3, 16
+
+
+def _q8_compare(m, q, cache, lens, window, what) -> dict:
+    """The kernel against its plain version on the same inputs: equal
+    int32 scores where attended, pq at most one step apart at few
+    entries, the output within Q8_TOL of the plain sums over the
+    kernel's pq, and the same bits on a second run."""
+    torch, ops = m["torch"], m["q8_ops"]
+    Smax = cache["k"].shape[1]
+    got, s_i32, pq = ops.decode_attention_q8_cuda(q, cache, lens,
+                                                  window=window, debug=True)
+    want, s_want, pq_want, ps = m["decode_attention_q8_ref"](
+        q, cache, lens, window=window, debug=True)
+    valid = m["valid_positions"](lens, Smax, window)[:, None, None, :]
+    _check(torch.equal(torch.where(valid, s_want, 0), s_i32),
+           f"{what}: int32 scores differ from the plain version's")
+    apart = (pq.int() - pq_want.int()).abs()
+    flips = int((apart != 0).sum())
+    _check(int(apart.max()) <= 1 and flips <= Q8_MAX_FLIPS * apart.numel(),
+           f"{what}: pq {flips} entries apart, up to {int(apart.max())}")
+    redo = m["combine_pv"](pq, ps, cache["v"]).reshape(got.shape)
+    dt = str(q.dtype).replace("torch.", "")
+    err, rel = _rel_err(torch, got, redo, Q8_TOL[dt], what)
+    again = ops.decode_attention_q8_cuda(q, cache, lens, window=window)
+    _check(torch.equal(got, again), f"{what}: bits differ between runs")
+    return {"max_abs_err": err, "normalized_err": rel,
+            "vs_plain_output": float((got.float() - want.float()).abs().max()
+                                     / want.float().abs().max()),
+            "pq_flips": flips, "pq_entries": apart.numel(),
+            "attended": int(valid.sum()), "pq": pq}
+
+
+def kv_q8_checks(m) -> dict:
+    """The kernel against its plain version at Q8_CHECKS and at each
+    Q8_MODELS path's own shape, bf16 and fp32 q, from N(0, 1) caches
+    quantized by ``quantize_kv``."""
+    torch = m["torch"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    out = {}
+    checks = dict(Q8_CHECKS)
+    for arch, _ in Q8_MODELS:
+        cfg = m["get_config"](arch)
+        KV = cfg.num_kv_heads
+        for n in Q8_PATH_LENS:
+            checks[f"{arch} path, len {n}"] = (
+                1, Q8_PROMPT + Q8_NEW, KV, cfg.num_heads // KV,
+                cfg.resolved_head_dim, (n,), cfg.sliding_window)
+    for name, (B, Smax, KV, G, D, lens, window) in checks.items():
+        k, v = (torch.randn((B, Smax, KV, D), generator=g, device="cuda")
+                for _ in range(2))
+        (kq, ks), (vq, vs) = m["quantize_kv"](k), m["quantize_kv"](v)
+        cache = dict(k=kq, v=vq, k_scale=ks, v_scale=vs)
+        q = torch.randn((B, 1, KV * G, D), generator=g, device="cuda")
+        for dt in (torch.bfloat16, torch.float32):
+            what = f"{name} {str(dt).replace('torch.', '')}"
+            out[what] = _q8_compare(m, q.to(dt), cache,
+                                    torch.tensor(lens, device="cuda"),
+                                    window, f"decode_attention_q8 {what}")
+            del out[what]["pq"]
+            out[what]["shape"] = [B, Smax, KV, G, D]
+    return out
+
+
+def kv_q8_timing(m) -> dict:
+    """At Q8_TIMING, bf16 q over full int8 caches of random payload and
+    scales: the kernel against its plain version, then its device ms
+    (CUDA-graph replays) and per-call ms, each launch's device ms under
+    the profiler, the plain version's (fp64 products), and the bound:
+    the bytes this run needs (every k row and scale, the v rows whose
+    pq is not all 0, q and the output) at 3.35 TB/s against its int8
+    products at the int8 peak.  For context only, SDPA over a bf16
+    cache of the same shape: a different function, not a yardstick."""
+    torch, F, ops = m["torch"], m["F"], m["q8_ops"]
+    B, S, KV, G, D = Q8_TIMING
+    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    q = torch.randn((B, 1, KV * G, D), generator=g, device="cuda").bfloat16()
+    cache = {n: torch.randint(-127, 128, (B, S, KV, D), generator=g,
+                              device="cuda", dtype=torch.int8)
+             for n in ("k", "v")}
+    for n in ("k_scale", "v_scale"):
+        cache[n] = (torch.rand((B, S, KV), generator=g, device="cuda")
+                    * 0.02 + 1e-3).half()
+    lens = torch.full((B,), S, device="cuda")
+    chk = _q8_compare(m, q, cache, lens, None, "decode_attention_q8 timing")
+    v_rows = int((chk.pop("pq") != 0).any(dim=2).sum())
+    out = {"shape": [B, S, KV, G, D], "check": chk, "v_rows_read": v_rows,
+           "v_rows": B * KV * S}
+
+    def kernel():
+        return ops.decode_attention_q8_cuda(q, cache, lens)
+
+    def plain():
+        return m["decode_attention_q8_ref"](q, cache, lens)
+
+    out.update(ms=_device_ms(torch, kernel), call_ms=_time_ms(torch, kernel),
+               plain_ms=_device_ms(torch, plain, reps=5, inner=2),
+               plain_call_ms=_time_ms(torch, plain, reps=5, inner=2),
+               library_ms=None)
+    out["launch_ms"] = _launch_ms(torch, kernel, "q8_")
+    nbytes = (B * S * KV * D + v_rows * D + 2 * 2 * B * S * KV
+              + 2 * 2 * B * KV * G * D + 8 * B)
+    out.update(_bound(nbytes, 4.0 * B * KV * G * S * D, INT8_OPS))
+    del cache
+    qh = q.reshape(B, KV * G, 1, D)
+    kb, vb = (torch.randn((B, KV, S, D), generator=g, device="cuda",
+                          dtype=torch.bfloat16) for _ in range(2))
+    out["sdpa_bf16_cache_ms"] = _device_ms(
+        torch, lambda: F.scaled_dot_product_attention(qh, kb, vb,
+                                                      enable_gqa=True))
+    out["sdpa_bf16_cache_bound_ms"] = 1e3 * (2 * 2 * B * KV * S * D
+                                             ) / HBM_BYTES_PER_S
+    del kb, vb
+    _free(torch)
+    return out
+
+
+def kv_q8_path(m, cfg, params, prompt) -> dict:
+    """The int8 decode path of a full-width model: `prompt` fed one token
+    a step through ``api.forward(mode="decode")`` from empty int8
+    caches (``kv_quant``), then Q8_NEW greedy tokens; every launch count
+    zeroed just before, read just after.  Then the same input tokens on
+    a bf16 cache: the greedy tokens that agree and each step's logit
+    cosine with the int8 run are readings (random weights), not gates."""
+    torch, api = m["torch"], m["api"]
+    steps = len(prompt) + Q8_NEW
+
+    def run(kv_quant, feed):
+        caches = api.init_caches(cfg, 1, steps, device="cuda",
+                                 kv_quant=kv_quant)
+        gc.collect()
+        _zero_counts(m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        inputs, out, logits = [], [], []
+        for i in range(steps):
+            tok = feed[i] if feed else (prompt[i] if i < len(prompt)
+                                        else out[-1])
+            inputs.append(tok)
+            step, _, caches = api.forward(
+                params, {"tokens": torch.tensor([[tok]], dtype=torch.int32,
+                                                device="cuda")},
+                cfg, mode="decode", caches=caches)
+            logits.append(step[0, -1].float())
+            if i >= len(prompt) - 1:
+                out.append(int(logits[-1].argmax()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        logits = torch.stack(logits)
+        _check(bool(torch.isfinite(logits).all()),
+               f"{cfg.name}: non-finite logits (kv_quant={kv_quant})")
+        return {"inputs": inputs, "out": out, "logits": logits,
+                "ms_per_step": 1e3 * wall / steps,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": _counts(m),
+                "flash_launches_by_route": dict(
+                    m["fa_ops"].launches_by_route)}
+
+    q8 = run(True, None)
+    bf = run(False, q8["inputs"])
+    cos = [_cosine(torch, a, b) for a, b in zip(q8["logits"], bf["logits"])]
+    n, nb = q8["launches"], bf["launches"]
+    _check(n["decode_attention_q8"] == cfg.num_layers * steps
+           and nb["decode_attention_q8"] == 0,
+           f"{cfg.name}: decode_attention_q8 launches {n} int8, {nb} bf16")
+    for name in ("rmsnorm", "add_rmsnorm") + (
+            ("moe_dispatch",) if cfg.is_moe else ()):
+        _check(n[name] > 0, f"{cfg.name} int8 decode: no {name} launch")
+    rec = {"arch": cfg.name, "mode": "api.forward decode, int8 KV",
+           "layers": cfg.num_layers, "steps": steps,
+           "prompt_tokens": len(prompt), "out": [q8["out"]],
+           "tokens_digest": token_digest([q8["out"]]),
+           "bf16_tokens_digest": token_digest([bf["out"]]),
+           "equal_greedy_tokens": sum(a == b for a, b in zip(q8["out"],
+                                                             bf["out"])),
+           "greedy_tokens": len(q8["out"]),
+           "logit_cosine_vs_bf16": cos,
+           "ms_per_step": q8["ms_per_step"],
+           "bf16_ms_per_step": bf["ms_per_step"],
+           "peak_mem_gb": q8["peak_mem_gb"],
+           "bf16_peak_mem_gb": bf["peak_mem_gb"], "launches": n,
+           "flash_launches_by_route": q8["flash_launches_by_route"]}
+    print(f"[kv_q8] {cfg.name} ({cfg.num_layers} layers): int8 tokens "
+          f"{q8['out']} ({rec['tokens_digest']}), bf16 {bf['out']} "
+          f"({rec['bf16_tokens_digest']}), equal "
+          f"{rec['equal_greedy_tokens']}/{len(q8['out'])}, logit cosine vs "
+          f"bf16 min {min(cos):.6f} last {cos[-1]:.6f}, "
+          f"{q8['ms_per_step']:.2f} ms a step (bf16 "
+          f"{bf['ms_per_step']:.2f}), peak {q8['peak_mem_gb']:.2f} GB, "
+          f"decode_attention_q8 launches {n['decode_attention_q8']}",
+          flush=True)
+    return rec
+
+
+def kv_q8_reduced(m) -> dict:
+    """Reduced fp32 phi3, danube and qwen, two layers and two slots: 24
+    decode steps on int8 caches, the card (kernel) against the CPU
+    (plain version) on the same weights and tokens: the logits within
+    Q8_REDUCED_TOL of max |logit| at every step, and the caches equal
+    but for Q8_REDUCED_FLIPS entries one step apart (int8) or scales
+    within an fp16 ulp."""
+    torch, api, bridge = m["torch"], m["api"], m["bridge"]
+    out = {}
+    for arch in (PHI3, DANUBE, QWEN):
+        cfg = m["reduced_config"](arch).replace(num_layers=2,
+                                                dtype="float32")
+        cpu = api.build_params(cfg, torch.Generator().manual_seed(SEED),
+                               device="cpu")
+        gpu = bridge.from_numpy(bridge.to_numpy(cpu), cfg, device="cuda")
+        max_len = 40
+        cc = api.init_caches(cfg, 2, max_len, device="cpu", kv_quant=True)
+        cg = api.init_caches(cfg, 2, max_len, device="cuda", kv_quant=True)
+        toks = torch.randint(0, cfg.vocab_size, (Q8_REDUCED_STEPS, 2, 1),
+                             generator=torch.Generator().manual_seed(SEED),
+                             dtype=torch.int32)
+        errs = []
+        _zero_counts(m)
+        for t in toks:
+            want, _, cc = api.forward(cpu, {"tokens": t}, cfg, mode="decode",
+                                      caches=cc)
+            got, _, cg = api.forward(gpu, {"tokens": t.cuda()}, cfg,
+                                     mode="decode", caches=cg)
+            errs.append(float((got.cpu() - want).abs().max()
+                              / want.abs().max()))
+        n = _counts(m)["decode_attention_q8"]
+        flips = 0
+        for name in ("k", "v", "k_scale", "v_scale"):
+            a, b = cg["stage1"][name].cpu(), cc["stage1"][name]
+            if a.dtype == torch.int8:
+                d = (a.int() - b.int()).abs()
+                _check(int(d.max()) <= 1,
+                       f"reduced {arch} int8 {name} {int(d.max())} apart")
+            else:
+                d = a.view(torch.int16) != b.view(torch.int16)
+                _check(bool(((a.float() - b.float()).abs()
+                             <= 2e-3 * b.float().abs()).all()),
+                       f"reduced {arch} {name} beyond an fp16 ulp")
+            flips += int((d != 0).sum())
+        ring = cc["stage1"]["k"].shape[2]
+        out[arch] = {"max_normalized_err": max(errs), "errs": errs,
+                     "cache_entries_apart": flips, "cache_slots": ring,
+                     "launches": n}
+        _check(max(errs) <= Q8_REDUCED_TOL and flips <= Q8_REDUCED_FLIPS
+               and n == cfg.num_layers * Q8_REDUCED_STEPS,
+               f"reduced fp32 {arch} int8 decode, card vs CPU: {out[arch]}")
+    _check(out[DANUBE]["cache_slots"] < Q8_REDUCED_STEPS,
+           "the reduced danube ring did not wrap")
+    return out
+
+
+def kv_q8_phase(m) -> dict:
+    """The int8 KV-cache decode path: the kernel against its plain
+    version (Q8_CHECKS), its timing (Q8_TIMING), the four full-width
+    model paths (Q8_MODELS, each on an otherwise empty card) and the
+    reduced fp32 card-vs-CPU decode."""
+    torch, np = m["torch"], m["np"]
+    t0 = time.perf_counter()
+    out = {"checks": kv_q8_checks(m)}
+    brief = {k: {x: v[x] for x in ("normalized_err", "vs_plain_output",
+                                    "pq_flips")}
+             for k, v in out["checks"].items()}
+    print(f"[kv_q8] kernel vs plain: {json.dumps(brief)}", flush=True)
+    out["timing"] = kv_q8_timing(m)
+    t = out["timing"]
+    print(f"[kv_q8] timing {t['shape']}: {t['ms']:.4f} device ms, "
+          f"{t['call_ms']:.4f} per call, plain {t['plain_ms']:.3f}, bound "
+          f"{t['bound_ms']:.4f} ({t['bound_by']}), SDPA over a bf16 cache "
+          f"(another function) {t['sdpa_bf16_cache_ms']:.4f}; launches "
+          f"{t['launch_ms']}; vs plain output "
+          f"{t['check']['vs_plain_output']:.3e}", flush=True)
+    rng = np.random.default_rng(SEED + 25)
+    out["paths"] = {}
+    for arch, layers in Q8_MODELS:
+        cfg, params = _build_model(m, arch, layers)
+        prompt = rng.integers(0, cfg.vocab_size, Q8_PROMPT).tolist()
+        key = f"kv_q8_{arch}"
+        out["paths"][key] = kv_q8_path(m, cfg, params, prompt)
+        if layers is not None:
+            out["paths"][key]["depth_cut"] = (
+                f"{layers} of {m['get_config'](arch).num_layers} layers")
+        del params
+        _free(torch)
+    out["reduced"] = kv_q8_reduced(m)
+    out["seconds"] = time.perf_counter() - t0
+    brief = {a: {k: v[k] for k in ("max_normalized_err",
+                                   "cache_entries_apart", "launches")}
+             for a, v in out["reduced"].items()}
+    print(f"[kv_q8] reduced fp32 card vs cpu: {json.dumps(brief)}; phase "
+          f"{out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def _kernel_name(mangled: str) -> str:
     """kernel<template arguments> of an Itanium-mangled kernel name:
     ints and bools as numbers, ``float`` as fp32 and ``__nv_bfloat16``
@@ -3270,6 +3626,8 @@ def main() -> int:
     serve = serve_phase(m)
     serve["zamba_long_context"] = long_context_phase(m)
     print(json.dumps({"serve": serve}), flush=True)
+    kv_q8 = kv_q8_phase(m)
+    print(json.dumps({"kv_q8": kv_q8}), flush=True)
 
     timings = timing_phase(m)
     print(json.dumps({"timings": timings}), flush=True)
@@ -3423,6 +3781,31 @@ def main() -> int:
         "sm_clocks_per_cycle": cell["sm_clocks_per_cycle"],
         "grid_ns_per_cycle": simt["ns_per_cycle"],
         "grid_sm_clocks_per_cycle": simt["sm_clocks_per_cycle"]})
+    # the int8 decode kernel: its main paths are the four full-width
+    # int8 decode paths; timed at qwen2.5-32b's decode_32k layer
+    t = kv_q8["timing"]
+    by_path = {p: v["launches"]["decode_attention_q8"]
+               for p, v in kv_q8["paths"].items()}
+    kernels.append({
+        "name": "decode_attention_q8", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention_q8.cu",
+        "replaces": "src/repro/models/attention.py:396",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(c["max_abs_err"] for c in
+                           list(kv_q8["checks"].values()) + [t["check"]]),
+        "normalized_err": {k: c["normalized_err"]
+                           for k, c in kv_q8["checks"].items()},
+        "pq_flips": {k: c["pq_flips"] for k, c in kv_q8["checks"].items()},
+        "vs_plain_output": {k: c["vs_plain_output"]
+                            for k, c in kv_q8["checks"].items()},
+        "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "call_ms": t["call_ms"],
+        "plain_call_ms": t["plain_call_ms"], "launch_ms": t["launch_ms"],
+        "sdpa_over_a_bf16_cache_ms (another function)":
+            t["sdpa_bf16_cache_ms"]})
+    _check(all(n > 0 for n in by_path.values()),
+           f"decode_attention_q8: a path launched it no time: {by_path}")
     print(f"[done] {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_card(), flush=True)

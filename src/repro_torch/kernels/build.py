@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS: Tuple[str, ...] = ("rmsnorm", "flash_attention",
                             "flash_attention_bwd", "moe_dispatch",
-                            "ssm_scan", "ssm_scan_bwd", "simt_machine")
+                            "ssm_scan", "ssm_scan_bwd", "simt_machine",
+                            "decode_attention_q8")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

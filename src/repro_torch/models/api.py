@@ -14,8 +14,11 @@ carries patch embeddings, an audio batch frame embeddings
 (``input_specs``).  Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.  ``long_context`` gives zamba2's shared
 attention a window of ``ZAMBA_LONG_WINDOW`` keys (its caches a ring of
-that many slots), as in the JAX package's long-context cell.  Int8 KV
-caches (``kv_quant``) raise ``NotImplementedError``.
+that many slots), as in the JAX package's long-context cell.
+``kv_quant`` gives the dense, moe and vlm families int8 KV caches with
+fp16 per-(token, head) scales, which 'decode' reads through the
+``decode_attention_q8`` kernel; the other families ignore it, and
+'chunk' on such a cache raises, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -102,11 +105,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     """Decode caches; every leaf but ``len`` has its batch (slot) axis
     at 1, behind the stacked-layer axis.  `long_context`: zamba2's
     shared-attention caches are rings of ``min(max_len,
-    ZAMBA_LONG_WINDOW)`` slots."""
+    ZAMBA_LONG_WINDOW)`` slots.  `kv_quant`: int8 caches for the dense,
+    moe and vlm families (decode only); hybrid, xlstm and audio ignore
+    it, as in the JAX package."""
     bridge.model_class(cfg)             # other families raise
-    if kv_quant:
-        raise NotImplementedError(
-            "int8 KV caches (kv_quant) come with a later slice of the port")
     dt = dtype or dtype_of(cfg.dtype)
     dev = resolve_device(device)
     if cfg.family == "hybrid":
@@ -119,7 +121,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
         return whisper.init_whisper_caches(cfg, batch, max_len, dtype=dt,
                                            device=dev)
     return transformer.init_lm_caches(cfg, batch, max_len, dtype=dt,
-                                      device=dev)
+                                      device=dev, quantized=kv_quant)
 
 
 class TensorSpec(NamedTuple):

@@ -20,8 +20,15 @@ capacity drops couple a token's output to every token in the batch.
 
 The prefill branch of ``attn_forward`` goes through the flash-attention
 kernel wrapper: the CUDA kernel for CUDA tensors, the plain version for
-CPU tensors.  The int8 decode path (``decode_attention_q8``) and the
-FA-2 backward come with later slices.
+CPU tensors.
+
+An int8 cache (``init_kv_cache(quantized=True)``: int8 k, v and fp16
+per-(token, head) k_scale, v_scale) is decode-only, as in the JAX
+package: the decode branch quantizes the new k (after RoPE) and v with
+``quantize_kv``, writes payload and scales at the same ring-aware
+positions and attends through the ``decode_attention_q8`` kernel
+wrapper; 'chunk' on an int8 cache raises, and prefill returns a float
+cache.
 """
 from __future__ import annotations
 
@@ -30,8 +37,10 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_q8.ops import decode_attention_q8
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import common
+from repro_torch.models.kv_quant import quantize_kv, valid_positions
 
 NEG_INF = -1e30
 
@@ -124,13 +133,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     lens = _lens(cache_len, B, q.device)
     qg = q.reshape(B, KV, G, D).float()
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale
-    pos = torch.arange(Smax, device=q.device)
-    if window is not None and Smax == window:
-        valid = pos[None] < torch.clamp(lens, max=Smax)[:, None]  # ring
-    else:
-        valid = pos[None] < lens[:, None]
-        if window is not None:
-            valid &= pos[None] >= (lens - window)[:, None]
+    valid = valid_positions(lens, Smax, window)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
@@ -287,23 +290,35 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     new_cache = cache
     if mode in ("chunk", "decode") and kv_override is None:
         assert cache is not None
+        quantized = "k_scale" in cache
+        if quantized and mode == "chunk":
+            raise ValueError("chunked prefill does not support int8 KV "
+                             "caches (they are decode-only)")
         kc, vc = cache["k"], cache["v"]
         lens = _lens(cache["len"], B, kc.device)
         ring = mode == "decode" and wdw is not None and kc.shape[1] == wdw
         pos = _write_positions(lens, S, kc.shape[1], ring)
+        names = ("k", "v", "k_scale", "v_scale") if quantized else ("k", "v")
         saved = None
         if keep is not None:
-            saved = (kc[keep[:, None], pos[keep]].clone(),
-                     vc[keep[:, None], pos[keep]].clone())
-        _write(kc, vc, k, v, pos, None)
+            saved = {n: cache[n][keep[:, None], pos[keep]].clone()
+                     for n in names}
+        new_k, new_v = k, v
+        if quantized:
+            (new_k, ks), (new_v, vs) = quantize_kv(k), quantize_kv(v)
+            _write(cache["k_scale"], cache["v_scale"], ks, vs, pos, None)
+        _write(kc, vc, new_k, new_v, pos, None)
         if mode == "chunk":
             out = chunk_attention(q, kc, vc, cache["len"], window=wdw)
+        elif quantized:
+            out = decode_attention_q8(q, cache, cache["len"] + 1, window=wdw)
         else:
             out = decode_attention(q, kc, vc, cache["len"] + 1, window=wdw)
         if saved is not None:
-            kc[keep[:, None], pos[keep]] = saved[0]
-            vc[keep[:, None], pos[keep]] = saved[1]
-        new_cache = {"k": kc, "v": vc, "len": cache["len"] + S}
+            for n in names:
+                cache[n][keep[:, None], pos[keep]] = saved[n]
+        new_cache = {n: cache[n] for n in names}
+        new_cache["len"] = cache["len"] + S
     elif mode == "decode":
         # cross-attention while decoding: every encoder position
         out = decode_attention(q, k, v, k.shape[1])
@@ -325,15 +340,21 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                   dtype: torch.dtype, device: torch.device,
-                  window: Optional[int] = None) -> Dict[str, Any]:
+                  window: Optional[int] = None,
+                  quantized: bool = False) -> Dict[str, Any]:
     """A [batch, size, KV, D] cache; a windowed cache (`window`, else the
     config's `sliding_window`) is a ring of that many positions when
-    that is shorter than max_len."""
+    that is shorter than max_len.  `quantized`: int8 k and v and fp16
+    k_scale, v_scale [batch, size, KV] (decode only)."""
     _, kvh, hd = attn_dims(cfg)
     wdw = window if window is not None else cfg.sliding_window
     size = min(max_len, wdw) if wdw is not None else max_len
-    return {
-        "k": torch.zeros((batch, size, kvh, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, size, kvh, hd), dtype=dtype, device=device),
-        "len": torch.tensor(0, dtype=torch.int32, device=device),
-    }
+    kv_dtype = torch.int8 if quantized else dtype
+    cache = {n: torch.zeros((batch, size, kvh, hd), dtype=kv_dtype,
+                            device=device) for n in ("k", "v")}
+    if quantized:
+        cache.update({n: torch.zeros((batch, size, kvh), device=device,
+                                     dtype=torch.float16)
+                      for n in ("k_scale", "v_scale")})
+    cache["len"] = torch.tensor(0, dtype=torch.int32, device=device)
+    return cache

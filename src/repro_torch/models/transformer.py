@@ -202,8 +202,8 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
             else:
                 cache = None
                 if lens is not None:
-                    kv = caches[name]
-                    cache = {"k": kv["k"][i], "v": kv["v"][i], "len": lens}
+                    cache = {n: t[i] for n, t in caches[name].items()}
+                    cache["len"] = lens
                 x, y, aux_i, nc = _block(x, y, lp, positions, cfg, kind,
                                          mode, cache, keep)
                 if mode == "prefill":
@@ -231,13 +231,16 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
 
 
 def init_lm_caches(cfg: ModelConfig, batch: int, max_len: int, *,
-                   dtype: torch.dtype, device: torch.device
-                   ) -> Dict[str, Any]:
+                   dtype: torch.dtype, device: torch.device,
+                   quantized: bool = False) -> Dict[str, Any]:
+    """Per stage, each cache leaf of ``attention.init_kv_cache`` stacked
+    over its layers: [n, B, S, KV, D] k and v (int8 when `quantized`,
+    with fp16 [n, B, S, KV] k_scale and v_scale)."""
     one = attention.init_kv_cache(cfg, batch, max_len, dtype=dtype,
-                                  device=device)
+                                  device=device, quantized=quantized)
     caches: Dict[str, Any] = {"len": one["len"]}
     for name, n, _kind, _dff in stage_plan(cfg):
-        caches[name] = {k: torch.zeros((n,) + tuple(one[k].shape),
-                                       dtype=dtype, device=device)
-                        for k in ("k", "v")}
+        caches[name] = {k: torch.zeros((n,) + tuple(t.shape), dtype=t.dtype,
+                                       device=device)
+                        for k, t in one.items() if k != "len"}
     return caches

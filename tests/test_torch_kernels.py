@@ -1,10 +1,11 @@
 """The port's kernels: plain versions against the JAX package's Pallas
 kernels (interpret mode) and oracles on the CPU; the CUDA kernels
-(RMSNorm plain and fused with the residual add, flash attention, the
-MoE dispatch, SSD intra-chunk, and the backward kernels of RMSNorm,
-flash attention, the MoE dispatch and SSD) against the plain versions
-on a card (``gpu`` marker, skipped here).  The MoE and SSD plain versions' CPU
-parity tests are in ``test_torch_moe.py`` and ``test_torch_hybrid.py``.
+(RMSNorm plain and fused with the residual add, flash attention, the MoE
+dispatch, SSD intra-chunk, the int8 KV-cache decode attention, and the
+backward kernels of RMSNorm, flash attention, the MoE dispatch and SSD)
+against the plain versions on a card (``gpu`` marker, skipped here). The
+MoE and SSD plain versions' CPU parity tests are in
+``test_torch_moe.py`` and ``test_torch_hybrid.py``.
 
 JAX is imported inside the CPU parity tests only, so the ``gpu`` tests
 also run on a machine without JAX:
@@ -18,6 +19,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.decode_q8 import ops as q8_ops  # noqa: E402
+from repro_torch.kernels.decode_q8.ref import (  # noqa: E402
+    combine_pv, decode_attention_q8_ref)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref, flash_bwd_ref, flash_fwd_ref)
@@ -30,6 +34,8 @@ from repro_torch.kernels.rmsnorm.ref import (  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import (  # noqa: E402
     ssd_intra_bwd_ref, ssd_intra_ref)
+from repro_torch.models.kv_quant import (  # noqa: E402
+    quantize_kv, valid_positions)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -825,3 +831,81 @@ def test_moe_and_ssd_autograd_on_cuda_run_the_kernels(cuda):
                              torch.zeros(_s.shape, device=cuda))
     for a, w in zip(got, want):
         assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+# int8 KV-cache decode attention at the shapes of chip_smoke.py's
+# kv_q8_phase: B, Smax, KV, G, D, lens, window
+Q8_CASES = [
+    (2, 256, 32, 1, 96, [256, 256], None),     # phi3-mini-3.8b
+    (2, 256, 8, 5, 128, [256, 200], None),     # qwen2.5-32b
+    (2, 256, 8, 8, 128, [256, 131], None),     # internvl2-76b
+    (2, 4096, 8, 4, 80, [4100, 5000], 4096),   # danube's ring, wrapped
+    (2, 256, 8, 4, 80, [200, 256], 64),        # a window, not a ring
+    (3, 256, 8, 5, 128, [1, 77, 256], None),   # per-slot lens
+    (2, 64, 4, 2, 32, [64, 9], None),          # D 32, G 2
+    (2, 256, 8, 3, 128, [256, 100], None),     # minitron-4b's G 3
+    # the full-width decode paths of chip_smoke.py: one slot, a cache
+    # of 72 positions (a 64-token prompt and 8 new), lens up to 72
+    (1, 72, 32, 1, 96, [72], None),            # phi3-mini-3.8b
+    (1, 72, 8, 5, 128, [37], None),            # qwen2.5-32b
+    (1, 72, 16, 1, 128, [72], None),           # olmoe-1b-7b
+    (1, 72, 16, 1, 128, [1], None),            # olmoe, the first step
+    (1, 72, 8, 8, 128, [50], None),            # internvl2-76b
+]
+# The kernel's output against the plain version's sums over the
+# kernel's own pq (max |Δ| / max |want|): what is left is fp32 rounding
+# of ps (and bf16's of the output).  Its pq may sit one step from the
+# plain version's where pv/ps lands on a rounding tie within the two
+# softmax sums' ulps: at most Q8_MAX_FLIPS of the entries.
+Q8_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+Q8_MAX_FLIPS = 1e-3
+
+
+def q8_inputs(g, B, Smax, KV, G, D, dtype, device):
+    q = torch.randn((B, 1, KV * G, D), generator=g, device=device)
+    k, v = (torch.randn((B, Smax, KV, D), generator=g, device=device)
+            for _ in range(2))
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return q.to(DTYPES[dtype]), dict(k=kq, v=vq, k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Smax,KV,G,D,lens,window", Q8_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_q8_kernel_matches_plain(cuda, B, Smax, KV, G, D, lens,
+                                        window, dtype):
+    """Equal int32 scores where attended, pq within one step at few
+    entries, the output within Q8_TOL of the plain sums over the
+    kernel's pq, and the same bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(Smax + 7 * G + D)
+    q, cache = q8_inputs(g, B, Smax, KV, G, D, dtype, cuda)
+    lens = torch.tensor(lens, device=cuda)
+    got, s_i32, pq = q8_ops.decode_attention_q8_cuda(q, cache, lens,
+                                                     window=window,
+                                                     debug=True)
+    want, s_want, pq_want, ps = decode_attention_q8_ref(
+        q, cache, lens, window=window, debug=True)
+    valid = valid_positions(lens, Smax, window)[:, None, None, :]
+    assert torch.equal(torch.where(valid, s_want, 0), s_i32)
+    apart = (pq.int() - pq_want.int()).abs()
+    assert int(apart.max()) <= 1
+    assert int((apart != 0).sum()) <= Q8_MAX_FLIPS * apart.numel()
+    redo = combine_pv(pq, ps, cache["v"]).reshape(got.shape)
+    err = (got.float() - redo).abs().max() / redo.abs().max()
+    assert float(err) <= Q8_TOL[dtype], float(err)
+    assert got.dtype == q.dtype and torch.isfinite(got.float()).all()
+    assert torch.equal(q8_ops.decode_attention_q8_cuda(q, cache, lens,
+                                                       window=window), got)
+
+
+@pytest.mark.gpu
+def test_decode_q8_kernel_raises_on_shapes_it_does_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, cache = q8_inputs(g, 1, 64, 2, 2, 64, "float32", cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        q8_ops.decode_attention_q8(q, cache, 64)
+    q, cache = q8_inputs(g, 1, 64, 1, 16, 32, "float32", cuda)
+    with pytest.raises(ValueError, match="query heads"):
+        q8_ops.decode_attention_q8(q, cache, 64)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        q8_ops.decode_attention_q8(q.half(), cache, 64)

@@ -229,5 +229,5 @@ def test_entry_points_raise_without_a_gpu():
         api.build_params(CFG)
     with pytest.raises(RuntimeError):
         api.init_caches(CFG, 1, 16)
-    with pytest.raises(NotImplementedError):
-        api.init_caches(CFG, 1, 16, device="cpu", kv_quant=True)
+    with pytest.raises(RuntimeError):
+        api.init_caches(CFG, 1, 16, kv_quant=True)

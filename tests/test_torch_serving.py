@@ -194,9 +194,10 @@ def test_deadline_shed_and_nan_guard(weights):
 
 
 def test_deferred_features_raise(weights, family_weights):
-    """What the port still refuses: zamba2 with the paged layout (its
-    SSM and conv states have no sequence axis to page, and it prefills
-    legacy only, as in the JAX engine) and int8 KV caches.  (zamba2's
+    """What the port refuses: zamba2 with the paged layout (its SSM and
+    conv states have no sequence axis to page, and it prefills legacy
+    only, as in the JAX engine) and chunked prefill into int8 KV caches
+    (decode-only, as in the JAX package).  (zamba2's
     long-context windowed attention is ported: its parity test is
     ``test_torch_hybrid.test_long_context_matches_jax_through_ring_wrap``.)
     """
@@ -209,8 +210,11 @@ def test_deferred_features_raise(weights, family_weights):
     with pytest.raises(ValueError, match="multiple of kv_page_size"):
         Engine(CFG, weights[1], max_len=64, kv_layout="paged",
                kv_page_size=24)
-    with pytest.raises(NotImplementedError):
-        api.init_caches(CFG, 1, 64, device="cpu", kv_quant=True)
+    caches = api.init_caches(CFG, 1, 64, device="cpu", kv_quant=True)
+    with pytest.raises(ValueError, match="int8"):
+        api.forward(weights[1], {"tokens": torch.zeros(1, 4,
+                                                       dtype=torch.int32)},
+                    CFG, mode="chunk", caches=caches)
 
 
 def test_sample_guarded_greedy_matches_jax():
