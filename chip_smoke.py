@@ -162,24 +162,31 @@ of JAX and nothing of the ``repro`` package.  In order:
    RMSNorm backward instances its widths picked.
 
 10. drives the int8 KV-cache decode path (``kv_q8_phase``, after the
-   serve phase): the ``decode_attention_q8`` kernel against its plain
+   serve phase): the ``decode_attention_q8`` kernel, one launch a call
+   (a thread-block cluster a (b, kv), the scores in shared memory; the
+   scratch form for caches whose scores do not fit), against its plain
    version (fp64 products on the card) at phi3's, qwen2.5-32b's and
    internvl2-76b's decode shapes, danube's 4096-slot ring after it
-   wraps, a window of 64 that is not a ring, per-slot lens (1, 77, 256)
-   and minitron-4b's 3 query heads a kv head, bf16 and fp32 q: the int32
-   scores equal, pq at most one step apart at few entries, the output
-   within tolerance of the plain sums over the kernel's pq, the same
-   bits twice; its timing at [16,32768,8,G 5,128] (qwen2.5-32b's
-   decode_32k layer over 16 slots) against its bytes bound, with SDPA
-   over a bf16 cache of that shape beside it as a different function;
-   phi3-mini-3.8b, qwen2.5-32b, olmoe-1b-7b and the internvl2-76b
-   backbone (24 of 80 layers) at full width, each fed a 64-token prompt
-   one decode step at a time from empty int8 caches and then 8 greedy
-   tokens, every launch count zeroed just before and read just after
-   (the kernel once a layer a step), and the same input tokens again on
-   a bf16 cache (agreeing greedy tokens and logit cosines printed, not
-   gated: the weights are random); and reduced fp32 phi3, danube (its
-   16-slot ring wraps) and qwen 24 steps on the card against the CPU.
+   wraps, a window of 64 that is not a ring, per-slot lens (1, 77, 256),
+   minitron-4b's 3 query heads a kv head and [1,131072,2,8,128] (the
+   scratch form), bf16 and fp32 q: the int32 scores equal, pq at most
+   one step apart at few entries, the output within tolerance of the
+   plain sums over the kernel's pq, the same bits twice; its timing at
+   [16,32768,8,G 5,128] (qwen2.5-32b's decode_32k layer over 16 slots)
+   against its bytes bound, with SDPA over a bf16 cache of that shape
+   beside it as a different function, its plan (form, cluster size,
+   shared bytes a block, clusters in flight), its launches a call (the
+   kernel nodes of a CUDA graph that captured one call) and every
+   instance's ptxas registers and spill bytes (none may spill),
+   and its device ms a call at each path's shape; phi3-mini-3.8b,
+   qwen2.5-32b, olmoe-1b-7b and the internvl2-76b backbone (24 of 80
+   layers) at full width, each fed a 64-token prompt one decode step at
+   a time from empty int8 caches and then 8 greedy tokens, every launch
+   count zeroed just before and read just after (the kernel once a
+   layer a step), and the same input tokens again on a bf16 cache
+   (agreeing greedy tokens and logit cosines printed, not gated: the
+   weights are random); and reduced fp32 phi3, danube (its 16-slot ring
+   wraps) and qwen 24 steps on the card against the CPU.
 
 It prints a ``{"simt": ...}`` line, a ``{"serve": ...}`` line, a
 ``{"kv_q8": ...}`` line, a ``{"timings": ...}`` line, a ``{"train":
@@ -2650,7 +2657,8 @@ def _launch_ms(torch, fn, prefix: str, reps: int = 10) -> dict:
     """Device ms per launch of each CUDA function of `fn` whose name
     starts with `prefix` (by name and template arguments), from
     ``torch.profiler`` over `reps` calls (per recorded launch: the
-    profiler may drop some of a window's launches)."""
+    profiler may drop some of a window's launches, so this is no count
+    of them; ``_launches_per_call`` counts them)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -3193,7 +3201,9 @@ Q8_CHECKS = {  # B, Smax, KV, G, D, per-slot lens, window
     "danube ring": (2, 4096, 8, 4, 80, (4100, 5000), 4096),
     "window 64, not a ring": (2, 256, 8, 4, 80, (200, 256), 64),
     "per-slot lens": (3, 256, 8, 5, 128, (1, 77, 256), None),
-    "minitron G 3": (2, 256, 8, 3, 128, (256, 100), None)}
+    "minitron G 3": (2, 256, 8, 3, 128, (256, 100), None),
+    # scores too large for the blocks' shared memory: the scratch form
+    "scratch form": (1, 131072, 2, 8, 128, (100000,), None)}
 # the kernel's output against the plain version's sums over the
 # kernel's own pq (max |Δ| / max |want|): fp32 rounding of ps, and bf16's
 # of the output; pq may sit one step from the plain version's where
@@ -3277,18 +3287,8 @@ def kv_q8_checks(m) -> dict:
     return out
 
 
-def kv_q8_timing(m) -> dict:
-    """At Q8_TIMING, bf16 q over full int8 caches of random payload and
-    scales: the kernel against its plain version, then its device ms
-    (CUDA-graph replays) and per-call ms, each launch's device ms under
-    the profiler, the plain version's (fp64 products), and the bound:
-    the bytes this run needs (every k row and scale, the v rows whose
-    pq is not all 0, q and the output) at 3.35 TB/s against its int8
-    products at the int8 peak.  For context only, SDPA over a bf16
-    cache of the same shape: a different function, not a yardstick."""
-    torch, F, ops = m["torch"], m["F"], m["q8_ops"]
-    B, S, KV, G, D = Q8_TIMING
-    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
+def _q8_random(torch, g, B, S, KV, G, D):
+    """bf16 q over full int8 caches of random payload and scales."""
     q = torch.randn((B, 1, KV * G, D), generator=g, device="cuda").bfloat16()
     cache = {n: torch.randint(-127, 128, (B, S, KV, D), generator=g,
                               device="cuda", dtype=torch.int8)
@@ -3296,11 +3296,64 @@ def kv_q8_timing(m) -> dict:
     for n in ("k_scale", "v_scale"):
         cache[n] = (torch.rand((B, S, KV), generator=g, device="cuda")
                     * 0.02 + 1e-3).half()
-    lens = torch.full((B,), S, device="cuda")
+    return q, cache, torch.full((B,), S, device="cuda")
+
+
+def _launches_per_call(torch, fn, prefix: str) -> int:
+    """Launches of CUDA functions whose name contains `prefix` in one
+    call of `fn`: the kernel nodes of a CUDA graph that captured the
+    call, read from the graph's DOT dump.  Unlike ``torch.profiler``,
+    which may drop some of a window's launches, a capture records every
+    launch."""
+    import tempfile
+    fn()
+    torch.cuda.synchronize()
+    # kept (not instantiated and dropped at the end of the capture) so
+    # that it can be dumped
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        dot = Path(tmp) / "call.dot"
+        graph.debug_dump(str(dot))
+        text = dot.read_text()
+    del graph
+    # each node's definition runs from its name and '[' to the next's
+    nodes = re.split(r'"graph_\d+_node_\d+"\s*\[', text)[1:]
+    _check(nodes, f"no node in the CUDA graph's dump: {text[:2000]}")
+    return sum(prefix in node for node in nodes)
+
+
+def kv_q8_timing(m, q8_ptxas: dict) -> dict:
+    """At Q8_TIMING, bf16 q over full int8 caches of random payload and
+    scales: the kernel against its plain version, then its device ms
+    (CUDA-graph replays) and per-call ms, each launch's device ms under
+    the profiler, its launches a call (the kernel nodes of a CUDA graph
+    that captured one call), the plain version's (fp64
+    products), and the bound: the bytes this run needs (every k row and
+    scale, the v rows whose pq is not all 0, q and the output) at 3.35
+    TB/s against its int8 products at the int8 peak.  Its plan (form,
+    cluster size, shared bytes a block) and the clusters of it that fit
+    on the card; `q8_ptxas`: every instance's registers and spill bytes
+    (none may spill).  For context only, SDPA over a bf16 cache of the
+    same shape: a different function, not a yardstick.  Then the device
+    ms a call at each Q8_MODELS path's shape, all positions attended."""
+    torch, F, ops = m["torch"], m["F"], m["q8_ops"]
+    B, S, KV, G, D = Q8_TIMING
+    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    q, cache, lens = _q8_random(torch, g, B, S, KV, G, D)
     chk = _q8_compare(m, q, cache, lens, None, "decode_attention_q8 timing")
     v_rows = int((chk.pop("pq") != 0).any(dim=2).sum())
+    pl = ops.plan(B, S, KV, G, D)
+    instances = {k: v for k, v in q8_ptxas.items() if k.startswith("q8_")}
+    _check(all(v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0
+               for v in instances.values()),
+           f"decode_attention_q8 spills: {instances}")
     out = {"shape": [B, S, KV, G, D], "check": chk, "v_rows_read": v_rows,
-           "v_rows": B * KV * S}
+           "v_rows": B * KV * S, "plan": pl._asdict(),
+           "active_clusters": ops.active_clusters(pl, B, KV, D),
+           "ptxas": instances}
 
     def kernel():
         return ops.decode_attention_q8_cuda(q, cache, lens)
@@ -3313,6 +3366,9 @@ def kv_q8_timing(m) -> dict:
                plain_call_ms=_time_ms(torch, plain, reps=5, inner=2),
                library_ms=None)
     out["launch_ms"] = _launch_ms(torch, kernel, "q8_")
+    out["launches_per_call"] = _launches_per_call(torch, kernel, "q8_")
+    _check(out["launches_per_call"] == 1,
+           f"decode_attention_q8: {out['launches_per_call']} launches a call")
     nbytes = (B * S * KV * D + v_rows * D + 2 * 2 * B * S * KV
               + 2 * 2 * B * KV * G * D + 8 * B)
     out.update(_bound(nbytes, 4.0 * B * KV * G * S * D, INT8_OPS))
@@ -3327,6 +3383,17 @@ def kv_q8_timing(m) -> dict:
                                              ) / HBM_BYTES_PER_S
     del kb, vb
     _free(torch)
+    out["path_ms"] = {}
+    for arch, _ in Q8_MODELS:
+        cfg = m["get_config"](arch)
+        KV = cfg.num_kv_heads
+        shape = (1, Q8_PROMPT + Q8_NEW, KV, cfg.num_heads // KV,
+                 cfg.resolved_head_dim)
+        q, cache, lens = _q8_random(torch, g, *shape)
+        out["path_ms"][arch] = {
+            "shape": list(shape), "plan": ops.plan(*shape)._asdict(),
+            "ms": _device_ms(torch, lambda: ops.decode_attention_q8_cuda(
+                q, cache, lens))}
     return out
 
 
@@ -3464,11 +3531,12 @@ def kv_q8_reduced(m) -> dict:
     return out
 
 
-def kv_q8_phase(m) -> dict:
+def kv_q8_phase(m, q8_ptxas: dict) -> dict:
     """The int8 KV-cache decode path: the kernel against its plain
-    version (Q8_CHECKS), its timing (Q8_TIMING), the four full-width
-    model paths (Q8_MODELS, each on an otherwise empty card) and the
-    reduced fp32 card-vs-CPU decode."""
+    version (Q8_CHECKS), its timing (Q8_TIMING and the paths' shapes;
+    `q8_ptxas`: its instances' ptxas usage), the four full-width model
+    paths (Q8_MODELS, each on an otherwise empty card) and the reduced
+    fp32 card-vs-CPU decode."""
     torch, np = m["torch"], m["np"]
     t0 = time.perf_counter()
     out = {"checks": kv_q8_checks(m)}
@@ -3476,14 +3544,23 @@ def kv_q8_phase(m) -> dict:
                                     "pq_flips")}
              for k, v in out["checks"].items()}
     print(f"[kv_q8] kernel vs plain: {json.dumps(brief)}", flush=True)
-    out["timing"] = kv_q8_timing(m)
+    out["timing"] = kv_q8_timing(m, q8_ptxas)
     t = out["timing"]
+    pl = t["plan"]
     print(f"[kv_q8] timing {t['shape']}: {t['ms']:.4f} device ms, "
           f"{t['call_ms']:.4f} per call, plain {t['plain_ms']:.3f}, bound "
           f"{t['bound_ms']:.4f} ({t['bound_by']}), SDPA over a bf16 cache "
           f"(another function) {t['sdpa_bf16_cache_ms']:.4f}; launches "
-          f"{t['launch_ms']}; vs plain output "
-          f"{t['check']['vs_plain_output']:.3e}", flush=True)
+          f"{t['launch_ms']}, {t['launches_per_call']} a call; vs plain "
+          f"output {t['check']['vs_plain_output']:.3e}", flush=True)
+    print(f"[kv_q8] plan: {'on chip' if pl['on_chip'] else 'scratch'}, "
+          f"cluster {pl['cluster']}, {pl['block_positions']} positions a "
+          f"block, {pl['smem_bytes']} shared bytes a block, "
+          f"{t['active_clusters']} clusters in flight; ptxas "
+          f"{json.dumps(t['ptxas'])}", flush=True)
+    print("[kv_q8] device ms a call at the paths' shapes: "
+          + json.dumps({a: [v["shape"], v["ms"]]
+                        for a, v in t["path_ms"].items()}), flush=True)
     rng = np.random.default_rng(SEED + 25)
     out["paths"] = {}
     for arch, layers in Q8_MODELS:
@@ -3626,7 +3703,7 @@ def main() -> int:
     serve = serve_phase(m)
     serve["zamba_long_context"] = long_context_phase(m)
     print(json.dumps({"serve": serve}), flush=True)
-    kv_q8 = kv_q8_phase(m)
+    kv_q8 = kv_q8_phase(m, ptxas.get("decode_attention_q8", {}))
     print(json.dumps({"kv_q8": kv_q8}), flush=True)
 
     timings = timing_phase(m)
@@ -3802,6 +3879,8 @@ def main() -> int:
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "call_ms": t["call_ms"],
         "plain_call_ms": t["plain_call_ms"], "launch_ms": t["launch_ms"],
+        "launches_per_call": t["launches_per_call"], "plan": t["plan"],
+        "path_ms": {a: v["ms"] for a, v in t["path_ms"].items()},
         "sdpa_over_a_bf16_cache_ms (another function)":
             t["sdpa_bf16_cache_ms"]})
     _check(all(n > 0 for n in by_path.values()),

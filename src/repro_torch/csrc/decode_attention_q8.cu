@@ -11,11 +11,11 @@
 //
 //   qq, qs = quantize(q row)        qs = max(max|q|/127, 1e-8) in fp32,
 //                                   qq = clip(rint(q/qs)); qs kept as fp16
-//   s_i32[s] = sum_d qq[d]*k[s,d]   int32 (dp4a over 4 d at a time)
+//   s_i32[s] = sum_d qq[d]*k[s,d]   int32
 //   s[s]  = ((s_i32*qs)*ks[s])*(1/sqrt(D)), NEG_INF where masked
 //   p     = exp(s - max s) / sum exp(s - max s)
 //   pv    = p*vs[s]; ps = max(max|pv|/127, 1e-20); pq = clip(rint(pv/ps))
-//   o[d]  = (sum_s pq[s]*v[s,d]) * ps     int32 sums (dp4a), then fp32
+//   o[d]  = (sum_s pq[s]*v[s,d]) * ps     int32 sums, then fp32
 //
 // in JAX's order of operations, so that only the exponentials and the
 // order of the softmax sum differ from the reference.  The masks are
@@ -23,81 +23,130 @@
 // below min(len, Smax)), a window that is not a ring (len - window <= s
 // < len), or s < len; len is per slot.
 //
-// What bounds it on this card: bytes.  Every int8 of k and v is read
-// once, plus the fp16 scales: at qwen2.5-32b's decode over 16 slots of
-// 32768 tokens (8 kv heads, D 128) 1.09 GB, 0.326 ms at 3.35 TB/s, half
-// what a bf16 cache costs.  pq needs the max over the whole row, so the
-// work is four launches in stream order, no float atomics and a fixed
-// order for every float sum, so every run gives the same bits:
+// What bounds it on this card: bytes.  Every int8 of k is read once,
+// the fp16 scales, and the v rows whose pq is not 0 for some query row:
+// at qwen2.5-32b's decode over 16 slots of 32768 tokens (8 kv heads, D
+// 128) about 1.0 GB, 0.30 ms at 3.35 TB/s.  pq needs the softmax of the
+// whole row first; four launches over an fp32 scratch [B,KV,G,Smax]
+// (this kernel's first form) moved a third as much again, and spent its
+// time in the passes between them.
 //
-//   q8_scores_kernel  a block per (b, kv) and 256 positions, a thread
-//                     per position: quantizes the G query rows into
-//                     shared memory (a warp a row), reads its k row with
-//                     16-byte loads and writes the G scores to an fp32
-//                     scratch [B,KV,G,Smax] and each row's block max;
-//   q8_stats_kernel   a block per (b, kv, g) row: the max, the sum of
-//                     exponentials (each thread in order, then a fixed
-//                     tree) and ps; zeroes the row's int32 sums;
-//   q8_pv_kernel      a block per (b, kv) and 1024 positions: forms pq
-//                     for the G rows in shared memory, then a thread per
-//                     (4 columns d, a lane of positions) reads 4 v rows
-//                     as 4-byte words (coalesced across the warp), four
-//                     position quads ahead, transposes them with byte
-//                     permutes and takes dp4a against 4 positions of pq
-//                     (accumulators for G rounded up to 1, 2, 4, 5 or 8);
-//                     sums go to shared and then global int32 sums by
-//                     integer atomics (exact, so their order does not
-//                     matter).  Four positions whose pq are all 0
-//                     (masked, or too small to count) are not read;
-//   q8_out_kernel     o = float(sum) * ps, in q's dtype.
+// The design: one launch, nothing in device memory but the output.  A
+// thread-block cluster per (b, kv) (cudaLaunchKernelEx, at most 8 blocks:
+// the portable size), its C blocks splitting the Smax positions into
+// slices of ops.py's `block_positions`; (b, kv) is the cluster's index,
+// so the clusters in flight read every kv head of the same positions,
+// whole records of KV*D bytes.  Each block, 256 threads:
 //
-// In the [B,Smax,KV,D] layout a head's rows lie KV*D bytes apart, so the
-// grid's fastest axis is (b, kv): the blocks in flight read every head
-// of the same positions, whole records of KV*D bytes, not one row of
-// each.
-// The scores scratch costs 4·G bytes a position and kv head (written
-// once, read three times); a later version can keep it on chip.
+//   A. quantizes the G query rows into shared memory; then each warp
+//      streams its own 16-row m-tiles of k through registers (16-byte
+//      loads, two m-tiles in flight, masked rows not read, no block
+//      barrier) into mma.sync m16n8k32 s8, the G <= 8 query rows the N
+//      of 8 (zero past G and past D), and writes the fp32 scores into
+//      the block's shared memory (or, for caches too large, a global
+//      scratch: the kOnChip flag), keeping the row maxima in registers
+//      and the rows' v scales in shared memory;
+//   B. the cluster's softmax statistics through distributed shared
+//      memory, behind cluster barriers: the row max over the C blocks;
+//      each block's sum of exp(s - m) (each thread in order, then a fixed
+//      tree), the C partial sums added in rank order, so every run gives
+//      the same bits; pv = p*vs in place and the cluster-wide max |pv|,
+//      so ps is JAX's; then pq, laid out for the mma below, and a bit a
+//      position that says whether any query row's pq is not 0;
+//   C. each warp streams 32-position groups of v rows, 64 columns wide,
+//      through registers (8-byte loads, two groups in flight), reading
+//      only rows whose live bit is set, transposes them by byte permutes
+//      into the A operand (columns by positions) and takes mma.sync
+//      m16n8k32 s8 against pq with int32 sums;
+//   D. the warps' sums into shared memory (integer atomics: exact), one
+//      cluster barrier, and rank 0 adds the C blocks' sums and writes
+//      o = float(sum)*ps in q's dtype.
+//
+// Why registers and not a ring of shared-memory stages: the scores take
+// most of a block's shared memory (82,000 of 112,800 bytes at the timing
+// shape), so a ring had room for two or three stages in flight, and its
+// barrier a stage put each stage's mma and score stores on the path of
+// the next load: the k pass alone took 0.48–0.66 ms that way, 0.21 ms
+// through registers.  A block's shared memory (ops.py's `smem_bytes`
+// mirrors `layout` below) is then the scores, pq and the v scales; at
+// the timing shape two blocks share an SM (the occupancy the plan aims
+// for: 30 clusters of 8 in flight), and one takes the other's barriers
+// and softmax passes with its loads.  Shapes whose scores do not fit two
+// to an SM run one block an SM; shapes whose scores do not fit one take
+// the scratch form.  Registers are capped at 128 for two blocks of 256
+// threads an SM.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;
-constexpr int kScoreRows = 256;      // positions a scores block, a thread each
-constexpr int kStatThreads = 1024;
-constexpr int kPvRows = 1024;        // positions a P·V block
-constexpr int kPvThreads = 256;
-constexpr int kPvAhead = 4;          // position quads loaded ahead
+constexpr int kMaxCluster = 8;      // the portable cluster size
+constexpr int kMaxSmem = 232448;    // dynamic shared memory a block
 constexpr float kNegInf = -1e30f;
 
-int score_tiles(int Smax) { return (Smax + kScoreRows - 1) / kScoreRows; }
+__host__ __device__ constexpr size_t round16(size_t n) {
+  return (n + 15) / 16 * 16;
+}
+__host__ __device__ constexpr size_t larger(size_t a, size_t b) {
+  return a > b ? a : b;
+}
 
-size_t align256(size_t n) { return (n + 255) / 256 * 256; }
-
-struct Workspace {
-  float* scores;     // [B*KV*G, Smax]
-  float* tile_max;   // [B*KV*G, score_tiles(Smax)]
-  float* stats;      // [B*KV*G, 4]: max, sum, ps
-  int* sums;         // [B*KV*G, D]
+// Byte offsets in dynamic shared memory.  `np`: the block's positions
+// rounded up to whole groups of 32.
+//   qq    int8 [8][128]     the quantized query rows, zero past G and D
+//   stat  float [8][8]      per row: qs, m, l, ps and this block's
+//                           partials of m, l and max |pv|
+//   red   float [8][8]      a partial a warp
+//   live  u32 [np/32]       a bit a position: some pq is not 0
+//   vs    fp16 [np]         the v scales, stored in phase A
+//   x     pq [G][np + 16] (bytes, mma order)
+//   y     the fp32 scores [G][np + 4] (on chip), then the block's int32
+//         sums [G][D]
+struct Layout {
+  int np;
+  size_t stat, red, live, vs, x, y, total;
 };
 
-size_t workspace_bytes(int B, int KV, int G, int Smax, int D,
-                       Workspace* ws, char* base) {
-  const size_t rows = (size_t)B * KV * G;
-  const size_t tiles = score_tiles(Smax);
-  const size_t sizes[4] = {align256(rows * Smax * 4),
-                           align256(rows * tiles * 4), align256(rows * 16),
-                           align256(rows * D * 4)};
-  if (ws != nullptr) {
-    ws->scores = reinterpret_cast<float*>(base);
-    ws->tile_max = reinterpret_cast<float*>(base + sizes[0]);
-    ws->stats = reinterpret_cast<float*>(base + sizes[0] + sizes[1]);
-    ws->sums = reinterpret_cast<int*>(base + sizes[0] + sizes[1] + sizes[2]);
-  }
-  return sizes[0] + sizes[1] + sizes[2] + sizes[3];
+__host__ __device__ Layout layout(bool on_chip, int n, int G, int D) {
+  Layout L;
+  L.np = (n + 31) / 32 * 32;
+  L.stat = 8 * 128;
+  L.red = L.stat + 8 * 8 * 4;
+  L.live = L.red + 8 * 8 * 4;
+  L.vs = L.live + round16(L.np / 8);
+  L.x = L.vs + round16((size_t)2 * L.np);
+  L.y = L.x + round16((size_t)G * (L.np + 16));
+  size_t y = (size_t)4 * G * D;
+  if (on_chip) y = larger(y, (size_t)4 * G * (L.np + 4));
+  L.total = L.y + round16(y);
+  return L;
 }
+
+enum Stat { kQs = 0, kM = 1, kL = 2, kPs = 3, kMPart = 4, kLPart = 5,
+            kPPart = 6 };
+
+struct Params {
+  const void* q;
+  const int8_t* k;
+  const int8_t* v;
+  const __half* k_scale;
+  const __half* v_scale;
+  const long long* lens;
+  void* out;
+  float* scratch;     // [B,KV,G,Smax] fp32, the scratch form only
+  int* dbg_s;
+  int8_t* dbg_pq;
+  int q_bf16, Smax, KV, G, window, n;
+  float scale;
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -112,21 +161,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// max (or sum, in warp order) over the block, the same value to every
-// thread; `red` holds one float a warp
-template <bool kSum>
-__device__ float block_reduce(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = kSum ? warp_sum(v) : warp_max(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
-    r = kSum ? r + red[w] : fmaxf(r, red[w]);
-  return r;
-}
-
 __device__ __forceinline__ int8_t quantize(float x, float scale) {
   return static_cast<int8_t>(fminf(fmaxf(rintf(x / scale), -127.f), 127.f));
 }
@@ -137,326 +171,581 @@ __device__ __forceinline__ bool attended(int s, long long len, int Smax,
   return s < len && (window <= 0 || s >= len - window);
 }
 
-// The G query rows of (b, kv), a warp each: fp32 scale, int8 payload
-// into qw (D bytes a row), the scale rounded to fp16 into qs_f.
-template <int D>
-__device__ void quantize_q(const void* __restrict__ q, int q_bf16,
-                           size_t row0, int G, int* qw, float* qs_f) {
-  constexpr int kPerLane = (D + 31) / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (warp >= G) return;
-  const size_t off = (row0 + warp) * D;
-  float x[kPerLane];
-  float amax = 0.f;
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    const int d = lane + 32 * i;
-    x[i] = 0.f;
-    if (d < D)
-      x[i] = q_bf16 ? __bfloat162float(
-                          static_cast<const __nv_bfloat16*>(q)[off + d])
-                    : static_cast<const float*>(q)[off + d];
-    amax = fmaxf(amax, fabsf(x[i]));
-  }
-  amax = warp_max(amax);
-  const float qs = fmaxf(amax / 127.f, 1e-8f);
-  int8_t* row = reinterpret_cast<int8_t*>(qw + warp * (D / 4));
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) row[d] = quantize(x[i], qs);
-  }
-  if (lane == 0) qs_f[warp] = __half2float(__float2half_rn(qs));
+__device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kScoreRows) q8_scores_kernel(
-    const void* __restrict__ q, int q_bf16, const int8_t* __restrict__ k,
-    const __half* __restrict__ k_scale, const long long* __restrict__ lens,
-    Workspace ws, int* __restrict__ dbg_s, int Smax, int KV, int G,
-    int window, float scale) {
-  constexpr int kVecs = D / 16;
-  __shared__ __align__(16) int qw[kMaxG][D / 4];
-  __shared__ float qs_f[kMaxG];
-  __shared__ float red[kScoreRows / 32][kMaxG];
-  const int bk = blockIdx.x, b = bk / KV, kv = bk % KV;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  quantize_q<D>(q, q_bf16, (size_t)bk * G, G, &qw[0][0], qs_f);
-  __syncthreads();
-
-  const int s = blockIdx.y * kScoreRows + threadIdx.x;
-  float val[kMaxG];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) val[g] = kNegInf;
-  if (s < Smax) {
-    const size_t pos = (size_t)b * Smax + s;
-    const size_t row0 = (size_t)bk * G * Smax + s;
-    if (attended(s, lens[b], Smax, window)) {
-      const int4* kr = reinterpret_cast<const int4*>(k + (pos * KV + kv) * D);
-      int4 kw[kVecs];
-#pragma unroll
-      for (int j = 0; j < kVecs; ++j) kw[j] = __ldg(kr + j);
-      const float ks = __half2float(k_scale[pos * KV + kv]);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g >= G) break;
-        int acc = 0;
-#pragma unroll
-        for (int j = 0; j < kVecs; ++j) {
-          const int4 qv = *reinterpret_cast<const int4*>(&qw[g][4 * j]);
-          acc = __dp4a(kw[j].x, qv.x, acc);
-          acc = __dp4a(kw[j].y, qv.y, acc);
-          acc = __dp4a(kw[j].z, qv.z, acc);
-          acc = __dp4a(kw[j].w, qv.w, acc);
-        }
-        val[g] = ((static_cast<float>(acc) * qs_f[g]) * ks) * scale;
-        if (dbg_s != nullptr) dbg_s[row0 + (size_t)g * Smax] = acc;
-      }
-    } else if (dbg_s != nullptr) {
-      for (int g = 0; g < G; ++g) dbg_s[row0 + (size_t)g * Smax] = 0;
-    }
-    for (int g = 0; g < G; ++g) ws.scores[row0 + (size_t)g * Smax] = val[g];
-  }
-  // each row's max over this block's positions
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g >= G) break;
-    const float m = warp_max(val[g]);
-    if (lane == 0) red[warp][g] = m;
-  }
-  __syncthreads();
-  if (threadIdx.x < G) {
-    float m = red[0][threadIdx.x];
-    for (int w = 1; w < kScoreRows / 32; ++w)
-      m = fmaxf(m, red[w][threadIdx.x]);
-    ws.tile_max[((size_t)bk * G + threadIdx.x) * gridDim.y + blockIdx.y] = m;
-  }
+// d += a·b, a 16x32 s8 (row), b 32x8 s8 (col), d 16x8 s32
+__device__ __forceinline__ void mma_s8(int d[4], const uint32_t a[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__global__ void __launch_bounds__(kStatThreads) q8_stats_kernel(
-    const __half* __restrict__ v_scale, Workspace ws, int Smax, int KV,
-    int G, int D, int tiles) {
-  __shared__ float red[kStatThreads / 32];
-  const int r = blockIdx.x, bk = r / G, b = bk / KV, kv = bk % KV;
-  float m = kNegInf;
-  for (int t = threadIdx.x; t < tiles; t += blockDim.x)
-    m = fmaxf(m, ws.tile_max[(size_t)r * tiles + t]);
-  m = block_reduce<false>(m, red);
-  const float* sr = ws.scores + (size_t)r * Smax;
-  float l = 0.f;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < Smax; i += blockDim.x) l += expf(sr[i] - m);
-  l = block_reduce<true>(l, red);
-  float pm = 0.f;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < Smax; i += blockDim.x) {
-    const float vs = __half2float(v_scale[((size_t)b * Smax + i) * KV + kv]);
-    pm = fmaxf(pm, fabsf((expf(sr[i] - m) / l) * vs));
-  }
-  pm = block_reduce<false>(pm, red);
-  if (threadIdx.x == 0) {
-    ws.stats[4 * r] = m;
-    ws.stats[4 * r + 1] = l;
-    ws.stats[4 * r + 2] = fmaxf(pm / 127.f, 1e-20f);
-  }
-  for (int d = threadIdx.x; d < D; d += blockDim.x)
-    ws.sums[(size_t)r * D + d] = 0;
-}
-
-// rows w[0..3] (positions s..s+3, 4 columns each) -> t[i] = column i at
-// the 4 positions
-__device__ __forceinline__ void transpose4(const int w[4], int t[4]) {
-  const unsigned x0 = __byte_perm(w[0], w[1], 0x5140);
-  const unsigned x1 = __byte_perm(w[0], w[1], 0x7362);
-  const unsigned y0 = __byte_perm(w[2], w[3], 0x5140);
-  const unsigned y1 = __byte_perm(w[2], w[3], 0x7362);
+// rows w[0..3] (4 positions, 4 columns each) -> t[c] = column c at the
+// 4 positions
+__device__ __forceinline__ void transpose4(const uint32_t w[4],
+                                           uint32_t t[4]) {
+  const uint32_t x0 = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t x1 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t y0 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t y1 = __byte_perm(w[2], w[3], 0x7362);
   t[0] = __byte_perm(x0, y0, 0x5410);
   t[1] = __byte_perm(x0, y0, 0x7632);
   t[2] = __byte_perm(x1, y1, 0x5410);
   t[3] = __byte_perm(x1, y1, 0x7632);
 }
 
-// kG: the query rows a kv head this instance holds in registers, G <=
-// kG at run time (1, 2, 4, 5 or 8); registers capped for three blocks
-// an SM, so that enough loads are in flight
-template <int D, int kG>
-__global__ void __launch_bounds__(kPvThreads, 3) q8_pv_kernel(
-    const int8_t* __restrict__ v, const __half* __restrict__ v_scale,
-    Workspace ws, int8_t* __restrict__ dbg_pq, int Smax, int KV, int G) {
-  constexpr int kQuads = D / 4;                  // column quads
-  constexpr int kLanes = kPvThreads / kQuads;    // position lanes
-  __shared__ __align__(16) int8_t pq_s[kG][kPvRows];
-  __shared__ float vs_s[kPvRows];
-  __shared__ int sum_s[kG * D];
-  const int bk = blockIdx.x, b = bk / KV, kv = bk % KV;
-  const int t0 = blockIdx.y * kPvRows;
-  const int n = min(kPvRows, Smax - t0);
-  const int n4 = (n + 3) & ~3;
+// kAhead m-tiles of k rows in flight a warp: a lane's chunks of its two
+// rows, and their fp16 scales of k and v
+constexpr int kAhead = 2;
+template <int kCh>
+struct KTile {
+  int4 r[2][kCh];
+  unsigned short ks[2], vs[2];
+};
 
-  for (int i = threadIdx.x; i < kG * D; i += blockDim.x) sum_s[i] = 0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    vs_s[i] = __half2float(v_scale[((size_t)b * Smax + t0 + i) * KV + kv]);
-  __syncthreads();
-  // pq of the G rows at this block's positions (0 past Smax and for
-  // rows past G)
+// kVAhead groups of v rows in flight a warp: a lane's 8 bytes of its 8
+// rows, [h][i] at position 8i + 2tig + h of the group
+constexpr int kVAhead = 2;
+struct VTile {
+  uint2 w[2][4];
+};
+
+__device__ __forceinline__ uint32_t word(const int4& v, int i) {
+  return static_cast<uint32_t>(i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z
+                                                                    : v.w);
+}
+
+// Position p (0..31) of a group of 32 sits at k = 16h + 4kq + i of the
+// P·V mma (p = 8i + 2kq + h): lane (gid, kq) holds the rows of its k
+// quads, and one load of the warp reads four whole row segments.
+__device__ __forceinline__ int mma_order(int p) {
+  return 16 * (p & 1) + 4 * ((p & 7) >> 1) + (p >> 3);
+}
+
+template <int D, bool kOnChip>
+__global__ void __launch_bounds__(kThreads, 2) q8_decode_kernel(Params p) {
+  constexpr int kChunks = D / 16;             // 16-byte chunks a row
+  constexpr int kCh = (kChunks + 3) / 4;      // of them a lane, a k row
+  constexpr int kStepsK = 2 * kCh;            // k-steps of the scores mma
+  constexpr int kHalves = (D + 63) / 64;      // 64-column halves of v
+  constexpr int kGroupStride = kWarps / kHalves;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), C = (int)gridDim.x;
+  const int bk = blockIdx.y, b = bk / p.KV, kv = bk % p.KV, G = p.G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int t0 = rank * p.n;
+  const int nv = max(0, min(p.n, p.Smax - t0));  // this block's positions
+  const Layout L = layout(kOnChip, p.n, G, D);
+  int8_t* qq = reinterpret_cast<int8_t*>(smem);
+  float* stat = reinterpret_cast<float*>(smem + L.stat);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  uint32_t* live = reinterpret_cast<uint32_t*>(smem + L.live);
+  unsigned short* vss = reinterpret_cast<unsigned short*>(smem + L.vs);
+  unsigned char* xr = smem + L.x;
+  unsigned char* yr = smem + L.y;
+  int8_t* pqs = reinterpret_cast<int8_t*>(xr);
+  const int pq_stride = L.np + 16;
+  float* sc;                 // scores, row g at sc + g * ss
+  size_t ss;
+  if (kOnChip) {
+    sc = reinterpret_cast<float*>(yr);
+    ss = L.np + 4;
+  } else {
+    sc = p.scratch + (size_t)bk * G * p.Smax + t0;
+    ss = p.Smax;
+  }
+  const long long len = p.lens[b];
+  const size_t pos0 = (size_t)b * p.Smax + t0;   // cache position of j = 0
+
+  // ---- A. the query rows, then the scores ------------------------------
+  {
+    float x[4];
+    float amax = 0.f;
+    const size_t off = ((size_t)bk * G + warp) * D;
 #pragma unroll
-  for (int g = 0; g < kG; ++g) {
-    const size_t r = (size_t)bk * G + g;
-    float m = 0.f, l = 1.f, ps = 1.f;
-    if (g < G) {
-      m = ws.stats[4 * r];
-      l = ws.stats[4 * r + 1];
-      ps = ws.stats[4 * r + 2];
+    for (int i = 0; i < 4; ++i) {
+      const int d = lane + 32 * i;
+      x[i] = 0.f;
+      if (warp < G && d < D)
+        x[i] = p.q_bf16 ? __bfloat162float(
+                              static_cast<const __nv_bfloat16*>(p.q)[off + d])
+                        : static_cast<const float*>(p.q)[off + d];
+      amax = fmaxf(amax, fabsf(x[i]));
     }
-    for (int j = threadIdx.x; j < n4; j += blockDim.x) {
-      int8_t pq = 0;
-      if (g < G && j < n) {
-        const float p = expf(ws.scores[r * Smax + t0 + j] - m) / l;
-        pq = quantize(p * vs_s[j], ps);
-        if (dbg_pq != nullptr) dbg_pq[r * Smax + t0 + j] = pq;
-      }
-      pq_s[g][j] = pq;
+    amax = warp_max(amax);
+    const float qs = fmaxf(amax / 127.f, 1e-8f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = lane + 32 * i;
+      qq[warp * 128 + d] = (warp < G && d < D) ? quantize(x[i], qs) : 0;
     }
+    if (lane == 0)
+      stat[kQs * 8 + warp] = warp < G ? __half2float(__float2half_rn(qs)) : 0.f;
   }
   __syncthreads();
 
-  const int quad = threadIdx.x % kQuads, lane = threadIdx.x / kQuads;
-  int acc[kG][4];
+  // A lane takes, of rows gid and gid + 8 of a 16-row m-tile, the 16-byte
+  // chunks tig + 4i of D; its words 2s and 2s + 1 are its A operand of
+  // k-step s.  The B operand takes the same bytes of qq, so the int32
+  // sums are those of d in order.  Each warp streams its own m-tiles
+  // through registers, kAhead in flight, with no block barrier.
+  uint32_t qb[kStepsK][2];
 #pragma unroll
-  for (int g = 0; g < kG; ++g)
+  for (int s = 0; s < kStepsK; ++s) {
+    const int c = tig + 4 * (s / 2), at = gid * 128 + 16 * c + 8 * (s % 2);
+    qb[s][0] = c < kChunks ? ld32(reinterpret_cast<unsigned char*>(qq) + at)
+                           : 0u;
+    qb[s][1] = c < kChunks ? ld32(reinterpret_cast<unsigned char*>(qq) + at +
+                                  4)
+                           : 0u;
+  }
+  const float qs_e[2] = {stat[kQs * 8 + 2 * tig], stat[kQs * 8 + 2 * tig + 1]};
+  float mx[2] = {kNegInf, kNegInf};   // rows 2tig, 2tig+1
+  const int m_tiles = (nv + 15) / 16;
+  KTile<kCh> buf[kAhead];
+  auto load_k = [&](KTile<kCh>& t, int mt) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[g][i] = 0;
-  if (lane < kLanes) {
-    const size_t stride = (size_t)KV * D;
-    const int8_t* vb = v + ((size_t)b * Smax * KV + kv) * D + 4 * quad;
-    for (int base = lane; 4 * base < n; base += kPvAhead * kLanes) {
-      // kPvAhead position quads: their pq words, then all their v loads
-      int pw[kPvAhead][kG], w[kPvAhead][4];
+    for (int h = 0; h < 2; ++h) {
+      const int j = 16 * mt + gid + 8 * h;
+      const bool on = mt < m_tiles && j < nv &&
+                      attended(t0 + j, len, p.Smax, p.window);
+      const size_t row = (pos0 + j) * p.KV + kv;
 #pragma unroll
-      for (int u = 0; u < kPvAhead; ++u) {
-        const int s4 = base + u * kLanes;
-        bool any = false;
+      for (int i = 0; i < kCh; ++i) {
+        const int c = tig + 4 * i;
+        t.r[h][i] = on && c < kChunks
+                        ? __ldg(reinterpret_cast<const int4*>(p.k + row * D) +
+                                c)
+                        : make_int4(0, 0, 0, 0);
+      }
+      t.ks[h] = on ? __ldg(reinterpret_cast<const unsigned short*>(
+                         p.k_scale) + row)
+                   : (unsigned short)0;
+      t.vs[h] = mt < m_tiles && j < nv && tig == 0
+                    ? __ldg(reinterpret_cast<const unsigned short*>(
+                          p.v_scale) + row)
+                    : (unsigned short)0;
+    }
+  };
+  auto scores = [&](const KTile<kCh>& t, int mt) {
+    int acc[4] = {0, 0, 0, 0};
 #pragma unroll
-        for (int g = 0; g < kG; ++g) {
-          pw[u][g] = 4 * s4 < n ? reinterpret_cast<const int*>(pq_s[g])[s4]
-                                : 0;
-          any |= pw[u][g] != 0;
+    for (int s = 0; s < kStepsK; ++s) {
+      const uint32_t a[4] = {word(t.r[0][s / 2], 2 * (s % 2)),
+                             word(t.r[1][s / 2], 2 * (s % 2)),
+                             word(t.r[0][s / 2], 2 * (s % 2) + 1),
+                             word(t.r[1][s / 2], 2 * (s % 2) + 1)};
+      mma_s8(acc, a, qb[s][0], qb[s][1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 16 * mt + gid + 8 * h;
+      if (j >= nv) continue;
+      if (tig == 0) vss[j] = t.vs[h];
+      const bool att = attended(t0 + j, len, p.Smax, p.window);
+      const float ks = __half2float(__ushort_as_half(t.ks[h]));
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int g = 2 * tig + e;
+        if (g >= G) continue;
+        const int si = acc[2 * h + e];
+        const float s =
+            att ? ((static_cast<float>(si) * qs_e[e]) * ks) * p.scale
+                : kNegInf;
+        sc[g * ss + j] = s;
+        mx[e] = fmaxf(mx[e], s);
+        if (p.dbg_s != nullptr)
+          p.dbg_s[((size_t)bk * G + g) * p.Smax + t0 + j] = att ? si : 0;
+      }
+    }
+  };
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u) load_k(buf[u], warp + kWarps * u);
+  for (int base = warp; base < m_tiles; base += kWarps * kAhead) {
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int mt = base + kWarps * u;
+      if (mt < m_tiles) scores(buf[u], mt);
+      load_k(buf[u], mt + kWarps * kAhead);
+    }
+  }
+
+  // ---- B. the cluster's softmax statistics -----------------------------
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1)
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], o));
+  if (gid == 0) {
+    red[warp * 8 + 2 * tig] = mx[0];
+    red[warp * 8 + 2 * tig + 1] = mx[1];
+  }
+  __syncthreads();
+  if (tid < G) {
+    float m = red[tid];
+    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w * 8 + tid]);
+    stat[kMPart * 8 + tid] = m;
+  }
+  cluster.sync();
+  if (tid < G) {
+    float m = kNegInf;
+    for (int r = 0; r < C; ++r)
+      m = fmaxf(m, cluster.map_shared_rank(stat, r)[kMPart * 8 + tid]);
+    stat[kM * 8 + tid] = m;
+  }
+  __syncthreads();
+
+  // exp(s - m) in place, summed by each thread in order, then a fixed
+  // tree, then the warps in order, then the blocks in rank order
+  {
+    float m[kMaxG], l[kMaxG];
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      m[g] = g < G ? stat[kM * 8 + g] : 0.f;
+      l[g] = 0.f;
+    }
+    for (int j0 = tid; j0 < nv; j0 += 2 * kThreads) {
+      float x[2][kMaxG];      // two positions' scores, loaded together
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g)
+          x[u][g] = g < G && j0 + kThreads * u < nv
+                        ? sc[g * ss + j0 + kThreads * u] : 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (j0 + kThreads * u >= nv) break;
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g) {
+          if (g >= G) break;
+          const float e = expf(x[u][g] - m[g]);
+          sc[g * ss + j0 + kThreads * u] = e;
+          l[g] += e;
         }
-        const int s = t0 + 4 * s4;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          w[u][i] = (any && s + i < Smax)
-                        ? __ldg(reinterpret_cast<const int*>(
-                              vb + (size_t)(s + i) * stride))
-                        : 0;
-      }
-#pragma unroll
-      for (int u = 0; u < kPvAhead; ++u) {
-        int t[4];
-        transpose4(w[u], t);
-#pragma unroll
-        for (int g = 0; g < kG; ++g)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[g][i] = __dp4a(t[i], pw[u][g], acc[g][i]);
       }
     }
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= G) break;
+      l[g] = warp_sum(l[g]);
+      if (lane == 0) red[warp * 8 + g] = l[g];
+    }
   }
-#pragma unroll
-  for (int g = 0; g < kG; ++g)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (acc[g][i] != 0) atomicAdd(&sum_s[g * D + 4 * quad + i], acc[g][i]);
   __syncthreads();
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x)
-    if (sum_s[i] != 0) atomicAdd(&ws.sums[(size_t)bk * G * D + i], sum_s[i]);
+  if (tid < G) {
+    float l = red[tid];
+    for (int w = 1; w < kWarps; ++w) l += red[w * 8 + tid];
+    stat[kLPart * 8 + tid] = l;
+  }
+  cluster.sync();
+  if (tid < G) {
+    float l = cluster.map_shared_rank(stat, 0)[kLPart * 8 + tid];
+    for (int r = 1; r < C; ++r)
+      l += cluster.map_shared_rank(stat, r)[kLPart * 8 + tid];
+    stat[kL * 8 + tid] = l;
+  }
+  __syncthreads();
+
+  // pv = (e / l) * vs in place, and max |pv|
+  {
+    float l[kMaxG], pm[kMaxG];
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      l[g] = g < G ? stat[kL * 8 + g] : 1.f;
+      pm[g] = 0.f;
+    }
+    auto pv_at = [&](int j, float vs) {
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g >= G) break;
+        const float pv = (sc[g * ss + j] / l[g]) * vs;
+        sc[g * ss + j] = pv;
+        pm[g] = fmaxf(pm[g], fabsf(pv));
+      }
+    };
+    for (int j = tid; j < nv; j += kThreads)
+      pv_at(j, __half2float(__ushort_as_half(vss[j])));
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= G) break;
+      pm[g] = warp_max(pm[g]);
+      if (lane == 0) red[warp * 8 + g] = pm[g];
+    }
+  }
+  __syncthreads();
+  if (tid < G) {
+    float pm = red[tid];
+    for (int w = 1; w < kWarps; ++w) pm = fmaxf(pm, red[w * 8 + tid]);
+    stat[kPPart * 8 + tid] = pm;
+  }
+  cluster.sync();
+  if (tid < G) {
+    float pm = 0.f;
+    for (int r = 0; r < C; ++r)
+      pm = fmaxf(pm, cluster.map_shared_rank(stat, r)[kPPart * 8 + tid]);
+    stat[kPs * 8 + tid] = fmaxf(pm / 127.f, 1e-20f);
+  }
+  __syncthreads();
+
+  // pq in mma order, and the live bits; a warp
+  // takes 32 positions, so one ballot gives a group's bits
+  {
+    float ps[kMaxG];
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) ps[g] = g < G ? stat[kPs * 8 + g] : 1.f;
+    for (int j = tid; j < L.np; j += kThreads) {
+      const int at = (j & ~31) + mma_order(j & 31);
+      bool any = false;
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g >= G) break;
+        int8_t v = 0;
+        if (j < nv) {
+          v = quantize(sc[g * ss + j], ps[g]);
+          if (p.dbg_pq != nullptr)
+            p.dbg_pq[((size_t)bk * G + g) * p.Smax + t0 + j] = v;
+        }
+        pqs[g * pq_stride + at] = v;
+        any |= v != 0;
+      }
+      const unsigned bits = __ballot_sync(0xffffffffu, any);
+      if (lane == 0) live[j >> 5] = bits;
+    }
+  }
+  __syncthreads();
+  int* sums = reinterpret_cast<int*>(yr);   // over the dead scores
+  for (int i = tid; i < G * D; i += kThreads) sums[i] = 0;
+
+  // ---- C. P·V over the live v rows -------------------------------------
+  // A unit: a group of 32 positions by 64 columns of v.  Lane (gid, tig)
+  // takes 8 bytes (columns 64·half + 8gid ..) of the 8 rows at positions
+  // 8i + 2tig + h, so that its rows are the four positions of each k
+  // half of the mma (mma_order), transposed in registers into the A
+  // operand (8 columns by 4 positions); pq is the B operand.  A warp
+  // keeps one half of the columns and streams its groups through
+  // registers, kVAhead in flight, skipping rows whose pq are all 0.
+  const int groups = (nv + 31) / 32;
+  const int half = warp % kHalves, gw = warp / kHalves;
+  const int col0 = 64 * half + 8 * gid;
+  auto load_v = [&](VTile& t, int grp) {
+    const uint32_t bits = grp < groups ? live[grp] : 0u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int at = 8 * i + 2 * tig + h, j = 32 * grp + at;
+        t.w[h][i] = (bits >> at & 1u) && col0 < D
+                        ? __ldg(reinterpret_cast<const uint2*>(
+                              p.v + ((pos0 + j) * p.KV + kv) * D + col0))
+                        : make_uint2(0u, 0u);
+      }
+  };
+  int acc[4][4] = {};
+  auto pv = [&](const VTile& t, int grp) {
+    if (live[grp] == 0) return;
+    const int8_t* pg = pqs + grp * 32 + 4 * tig + gid * pq_stride;
+    const uint32_t b0 = gid < G ? ld32(reinterpret_cast<const unsigned char*>(
+                                      pg)) : 0u;
+    const uint32_t b1 = gid < G ? ld32(reinterpret_cast<const unsigned char*>(
+                                      pg + 16)) : 0u;
+    uint32_t tr[2][2][4];   // [h][4-column slice][column]: 4 positions
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t lo[4] = {t.w[h][0].x, t.w[h][1].x, t.w[h][2].x,
+                              t.w[h][3].x};
+      const uint32_t hi[4] = {t.w[h][0].y, t.w[h][1].y, t.w[h][2].y,
+                              t.w[h][3].y};
+      transpose4(lo, tr[h][0]);
+      transpose4(hi, tr[h][1]);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {  // rows gid, gid + 8: columns 2m, 2m + 1
+      const uint32_t a[4] = {tr[0][m / 2][2 * (m % 2)],
+                             tr[0][m / 2][2 * (m % 2) + 1],
+                             tr[1][m / 2][2 * (m % 2)],
+                             tr[1][m / 2][2 * (m % 2) + 1]};
+      mma_s8(acc[m], a, b0, b1);
+    }
+  };
+  VTile vbuf[kVAhead];
+#pragma unroll
+  for (int u = 0; u < kVAhead; ++u) load_v(vbuf[u], gw + kGroupStride * u);
+  for (int base = gw; base < groups; base += kGroupStride * kVAhead) {
+#pragma unroll
+    for (int u = 0; u < kVAhead; ++u) {
+      const int grp = base + kGroupStride * u;
+      if (grp < groups) pv(vbuf[u], grp);
+      load_v(vbuf[u], grp + kGroupStride * kVAhead);
+    }
+  }
+  __syncthreads();
+
+  // ---- D. the cluster's sums, and the output ---------------------------
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // row gid (+8 for e >= 2) of mma m is column col0 + 2m (+1)
+      const int d = col0 + 2 * m + (e >> 1), g = 2 * tig + (e & 1);
+      if (g < G && d < D && acc[m][e] != 0)
+        atomicAdd(&sums[g * D + d], acc[m][e]);
+    }
+  cluster.sync();
+  if (rank == 0) {
+    for (int i = tid; i < G * D; i += kThreads) {
+      int total = 0;
+      for (int r = 0; r < C; ++r) total += cluster.map_shared_rank(sums, r)[i];
+      const float o = static_cast<float>(total) * stat[kPs * 8 + i / D];
+      const size_t at = (size_t)bk * G * D + i;
+      if (p.q_bf16)
+        static_cast<__nv_bfloat16*>(p.out)[at] = __float2bfloat16(o);
+      else
+        static_cast<float*>(p.out)[at] = o;
+    }
+  }
+  cluster.sync();   // no block leaves while rank 0 reads its sums
 }
 
-__global__ void q8_out_kernel(Workspace ws, void* __restrict__ out,
-                              int out_bf16, int D) {
-  const int r = blockIdx.x, d = threadIdx.x;
-  const float o = static_cast<float>(ws.sums[(size_t)r * D + d]) *
-                  ws.stats[4 * r + 2];
-  if (out_bf16)
-    static_cast<__nv_bfloat16*>(out)[(size_t)r * D + d] = __float2bfloat16(o);
-  else
-    static_cast<float*>(out)[(size_t)r * D + d] = o;
+// up to kMaxSmem of dynamic shared memory, and the carveout that gives
+// shared memory all it can, so that two blocks of the plan fit an SM
+template <int D, bool kOnChip>
+cudaError_t configure() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      q8_decode_kernel<D, kOnChip>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(q8_decode_kernel<D, kOnChip>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  done = e == cudaSuccess;
+  return e;
 }
 
-template <int D, int kG>
-void launch_pv(const int8_t* v, const __half* v_scale, const Workspace& ws,
-               int8_t* dbg_pq, int B, int Smax, int KV, int G,
-               cudaStream_t st) {
-  q8_pv_kernel<D, kG><<<dim3(B * KV, (Smax + kPvRows - 1) / kPvRows),
-                        kPvThreads, 0, st>>>(v, v_scale, ws, dbg_pq, Smax,
-                                             KV, G);
+// a grid of clusters of `cluster` blocks along x, one a (b, kv) along y
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(int cluster, int pairs, int smem, cudaStream_t st) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3(cluster, pairs);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <int D, bool kOnChip>
+cudaError_t launch(const Params& p, int B, int cluster, int smem,
+                   cudaStream_t st) {
+  cudaError_t e = configure<D, kOnChip>();
+  if (e != cudaSuccess) return e;
+  ClusterLaunch l(cluster, B * p.KV, smem, st);
+  e = cudaLaunchKernelEx(&l.cfg, q8_decode_kernel<D, kOnChip>, p);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <int D>
-cudaError_t run(const void* q, int q_bf16, const int8_t* k, const int8_t* v,
-                const __half* k_scale, const __half* v_scale,
-                const long long* lens, void* out, const Workspace& ws,
-                int* dbg_s, int8_t* dbg_pq, int B, int Smax, int KV, int G,
-                int window, float scale, cudaStream_t st) {
-  const int tiles = score_tiles(Smax);
-  const int rows = B * KV * G;
-  q8_scores_kernel<D><<<dim3(B * KV, tiles), kScoreRows, 0, st>>>(
-      q, q_bf16, k, k_scale, lens, ws, dbg_s, Smax, KV, G, window, scale);
-  q8_stats_kernel<<<rows, kStatThreads, 0, st>>>(v_scale, ws, Smax, KV, G,
-                                                 D, tiles);
-  if (G == 1)
-    launch_pv<D, 1>(v, v_scale, ws, dbg_pq, B, Smax, KV, G, st);
-  else if (G == 2)
-    launch_pv<D, 2>(v, v_scale, ws, dbg_pq, B, Smax, KV, G, st);
-  else if (G <= 4)
-    launch_pv<D, 4>(v, v_scale, ws, dbg_pq, B, Smax, KV, G, st);
-  else if (G == 5)
-    launch_pv<D, 5>(v, v_scale, ws, dbg_pq, B, Smax, KV, G, st);
-  else
-    launch_pv<D, 8>(v, v_scale, ws, dbg_pq, B, Smax, KV, G, st);
-  q8_out_kernel<<<rows, D, 0, st>>>(ws, out, q_bf16, D);
-  return cudaGetLastError();
+template <int D, bool kOnChip>
+int active_clusters(int cluster, int pairs, int smem) {
+  int n = -1;
+  if (configure<D, kOnChip>() != cudaSuccess) return -1;
+  ClusterLaunch l(cluster, pairs, smem, nullptr);
+  return cudaOccupancyMaxActiveClusters(&n, q8_decode_kernel<D, kOnChip>,
+                                        &l.cfg) == cudaSuccess ? n : -1;
+}
+
+template <bool kOnChip>
+cudaError_t dispatch(const Params& p, int B, int D, int cluster, int smem,
+                     cudaStream_t st) {
+  switch (D) {
+    case 32: return launch<32, kOnChip>(p, B, cluster, smem, st);
+    case 80: return launch<80, kOnChip>(p, B, cluster, smem, st);
+    case 96: return launch<96, kOnChip>(p, B, cluster, smem, st);
+    case 128: return launch<128, kOnChip>(p, B, cluster, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool kOnChip>
+int occupancy(int D, int cluster, int pairs, int smem) {
+  switch (D) {
+    case 32: return active_clusters<32, kOnChip>(cluster, pairs, smem);
+    case 80: return active_clusters<80, kOnChip>(cluster, pairs, smem);
+    case 96: return active_clusters<96, kOnChip>(cluster, pairs, smem);
+    case 128: return active_clusters<128, kOnChip>(cluster, pairs, smem);
+    default: return -1;
+  }
 }
 
 }  // namespace
 
-// Bytes of scratch decode_attention_q8 needs at these sizes.
-extern "C" size_t decode_attention_q8_workspace(int B, int KV, int G,
-                                                int Smax, int D) {
-  return workspace_bytes(B, KV, G, Smax, D, nullptr, nullptr);
-}
-
 // q: [B,1,KV*G,D] bf16 (q_bf16) or fp32, contiguous; k, v: int8
 // [B,Smax,KV,D] contiguous and 16-byte aligned; k_scale, v_scale: fp16
-// [B,Smax,KV]; lens: int64 [B]; out: [B,1,KV*G,D] in q's dtype;
-// workspace: decode_attention_q8_workspace bytes, 256-byte aligned;
-// dbg_s (int32) and dbg_pq (int8), [B,KV,G,Smax], may be null: when
-// given, they receive the int32 scores (0 where masked) and pq.
-// window <= 0: none.  Returns cudaGetLastError() after the launches.
+// [B,Smax,KV]; lens: int64 [B]; out: [B,1,KV*G,D] in q's dtype.  The
+// plan (ops.py `plan`): on_chip (the scores in shared memory; else
+// `scratch` holds B*KV*G*Smax fp32 and must be given, and null
+// otherwise), the cluster size, the positions a block and the dynamic
+// shared bytes a block, which must cover the layout.  dbg_s (int32) and dbg_pq (int8), [B,KV,G,Smax], may be
+// null: when given, they receive the int32 scores (0 where masked) and
+// pq.  window <= 0: none.  One launch; returns its error, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int decode_attention_q8(
     const void* q, int q_bf16, const void* k, const void* v,
     const void* k_scale, const void* v_scale, const void* lens, void* out,
-    void* workspace, void* dbg_s, void* dbg_pq, int B, int Smax, int KV,
-    int G, int D, int window, float scale, void* stream) {
-  if (B <= 0 || Smax <= 0 || KV <= 0 || G <= 0 || G > kMaxG)
+    void* scratch, void* dbg_s, void* dbg_pq, int B, int Smax, int KV,
+    int G, int D, int window, float scale, int on_chip, int cluster,
+    int block_positions, int smem_bytes, void* stream) {
+  if (B <= 0 || Smax <= 0 || KV <= 0 || G <= 0 || G > kMaxG ||
+      (long long)B * KV > 65535 || cluster < 1 || cluster > kMaxCluster ||
+      block_positions < 1 || (long long)cluster * block_positions < Smax ||
+      (long long)(cluster - 1) * block_positions >= Smax ||
+      smem_bytes > kMaxSmem || (on_chip != 0) != (scratch == nullptr) ||
+      layout(on_chip != 0, block_positions, G, D).total >
+          (size_t)smem_bytes)
     return cudaErrorInvalidValue;
-  Workspace ws;
-  workspace_bytes(B, KV, G, Smax, D, &ws, static_cast<char*>(workspace));
+  Params p;
+  p.q = q;
+  p.k = static_cast<const int8_t*>(k);
+  p.v = static_cast<const int8_t*>(v);
+  p.k_scale = static_cast<const __half*>(k_scale);
+  p.v_scale = static_cast<const __half*>(v_scale);
+  p.lens = static_cast<const long long*>(lens);
+  p.out = out;
+  p.scratch = static_cast<float*>(scratch);
+  p.dbg_s = static_cast<int*>(dbg_s);
+  p.dbg_pq = static_cast<int8_t*>(dbg_pq);
+  p.q_bf16 = q_bf16;
+  p.Smax = Smax;
+  p.KV = KV;
+  p.G = G;
+  p.window = window;
+  p.n = block_positions;
+  p.scale = scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define Q8_RUN(DIM)                                                        \
-  run<DIM>(q, q_bf16, static_cast<const int8_t*>(k),                       \
-           static_cast<const int8_t*>(v),                                  \
-           static_cast<const __half*>(k_scale),                            \
-           static_cast<const __half*>(v_scale),                            \
-           static_cast<const long long*>(lens), out, ws,                   \
-           static_cast<int*>(dbg_s), static_cast<int8_t*>(dbg_pq), B, Smax, \
-           KV, G, window, scale, st)
-  switch (D) {
-    case 32: return Q8_RUN(32);
-    case 80: return Q8_RUN(80);
-    case 96: return Q8_RUN(96);
-    case 128: return Q8_RUN(128);
-    default: return cudaErrorInvalidValue;
-  }
-#undef Q8_RUN
+  return on_chip ? dispatch<true>(p, B, D, cluster, smem_bytes, st)
+                 : dispatch<false>(p, B, D, cluster, smem_bytes, st);
+}
+
+// Clusters of the plan's size that fit on the card at once
+// (cudaOccupancyMaxActiveClusters), or -1 on an error.
+extern "C" int decode_attention_q8_active_clusters(int D, int on_chip,
+                                                   int cluster,
+                                                   int smem_bytes, int B,
+                                                   int KV) {
+  return on_chip ? occupancy<true>(D, cluster, B * KV, smem_bytes)
+                 : occupancy<false>(D, cluster, B * KV, smem_bytes);
 }

@@ -8,15 +8,19 @@ including the token being decoded; it returns [B,1,Hq,D] in q's dtype,
 as ``decode_attention_q8_ref`` (the twin of the JAX package's
 ``decode_attention_q8``).  The kernel (``csrc/decode_attention_q8.cu``)
 quantizes q, forms the int32 scores, the masked softmax, the quantized
-probabilities and the int32 P·V sums itself, in four launches over one
-scratch buffer; ``launches`` counts wrapper calls that launched it.
-It takes D in ``HEAD_DIMS`` and up to ``MAX_GROUP`` query heads a kv
-head, and raises on anything else.
+probabilities and the int32 P·V sums itself, in one launch: a
+thread-block cluster a (b, kv), its blocks splitting the positions,
+with the scores in shared memory.  ``plan`` picks the form, the cluster
+size, the positions a block and the shared bytes from the shape; only a cache whose scores do not fit the blocks' shared
+memory takes the scratch form, and only then does the wrapper allocate
+more than the output.  ``launches`` counts wrapper calls that launched
+the kernel.  It takes D in ``HEAD_DIMS`` and up to ``MAX_GROUP`` query
+heads a kv head, and raises on anything else.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, Optional
+from typing import Mapping, NamedTuple, Optional
 
 import torch
 
@@ -30,11 +34,65 @@ MAX_GROUP = 8
 # the int32 sums of Smax products of two int8 (|x| <= 127) stay exact
 MAX_SMAX = (2 ** 31 - 1) // (127 * 127)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = ([_P, _I] + [_P] * 9 + [_I] * 6
-             + [ctypes.c_float, _P])
-_WS_ARGTYPES = [_I] * 5
+_ARGTYPES = ([_P, _I] + [_P] * 9 + [_I] * 6 + [ctypes.c_float]
+             + [_I] * 4 + [_P])
+_OCC_ARGTYPES = [_I] * 6
+
+# the card's limits (H100): dynamic shared memory a block, and shared
+# memory an SM, of which each resident block also takes 1 KB
+MAX_SMEM_BLOCK = 232_448
+SMEM_SM, SMEM_RESERVED = 233_472, 1_024
+MAX_CLUSTER = 8            # the portable cluster size
+BLOCK_POSITIONS = 512      # a cluster grows by a block for each of these
 
 launches = 0
+
+
+class Plan(NamedTuple):
+    """How the kernel runs one call: ``on_chip`` (the scores in shared
+    memory) or the scratch form, ``cluster`` blocks a (b, kv), each
+    taking ``block_positions`` of the Smax positions, ``smem_bytes`` of
+    dynamic shared memory a block, ``blocks_per_sm`` the occupancy the
+    plan aims for, and the scratch the wrapper allocates (0 on chip)."""
+    on_chip: bool
+    cluster: int
+    block_positions: int
+    smem_bytes: int
+    blocks_per_sm: int
+    scratch_bytes: int
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def smem_bytes(on_chip: bool, n: int, G: int, D: int) -> int:
+    """Dynamic shared memory of one block: the kernel's ``layout``."""
+    np_ = _up(n, 32)
+    x = 8 * 128 + 2 * 8 * 8 * 4 + _up(np_ // 8, 16) + _up(2 * np_, 16)
+    y = max(4 * G * D, 4 * G * (np_ + 4) if on_chip else 0)
+    return x + _up(G * (np_ + 16), 16) + _up(y, 16)
+
+
+def plan(B: int, Smax: int, KV: int, G: int, D: int) -> Plan:
+    """A cluster of up to MAX_CLUSTER blocks a (b, kv), a block for each
+    BLOCK_POSITIONS positions; the scores in shared memory wherever they
+    fit a block (two blocks an SM where they fit so), else the scratch
+    form."""
+    if Smax > MAX_SMAX:
+        raise ValueError(f"decode_attention_q8 kernel takes up to "
+                         f"{MAX_SMAX} cache positions, got {Smax}")
+    cluster = min(MAX_CLUSTER, -(-Smax // BLOCK_POSITIONS))
+    n = -(-Smax // cluster)
+    cluster = -(-Smax // n)           # every block has positions
+    for on_chip in (True, False):
+        smem = smem_bytes(on_chip, n, G, D)
+        for per_sm in (2, 1):
+            if smem <= min(MAX_SMEM_BLOCK, SMEM_SM // per_sm - SMEM_RESERVED):
+                return Plan(on_chip, cluster, n, smem, per_sm,
+                            0 if on_chip else 4 * B * KV * G * Smax)
+    raise ValueError(f"decode_attention_q8: no plan fits "
+                     f"{(B, Smax, KV, G, D)}")
 
 
 def _decode_attention_q8(q: torch.Tensor, cache: Mapping[str, torch.Tensor],
@@ -115,10 +173,11 @@ def decode_attention_q8_cuda(q: torch.Tensor,
     q = q.contiguous()
     lens = torch.as_tensor(cache_len, device=q.device).long().expand(B)
     lens = lens.contiguous()
-    size = build.function("decode_attention_q8",
-                          "decode_attention_q8_workspace", _WS_ARGTYPES,
-                          ctypes.c_size_t)(B, KV, G, Smax, D)
-    ws = torch.empty(size, dtype=torch.uint8, device=q.device)
+    pl = plan(B, Smax, KV, G, D)
+    scratch = None
+    if not pl.on_chip:
+        scratch = torch.empty(pl.scratch_bytes // 4, dtype=torch.float32,
+                              device=q.device)
     out = torch.empty_like(q)
     dbg_s = dbg_pq = None
     if debug:
@@ -131,11 +190,20 @@ def decode_attention_q8_cuda(q: torch.Tensor,
     err = _launch(fn, q.device, q.data_ptr(), int(q.dtype == torch.bfloat16),
                   k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                   v_scale.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                  ws.data_ptr(), dbg_s.data_ptr() if debug else None,
+                  None if scratch is None else scratch.data_ptr(),
+                  dbg_s.data_ptr() if debug else None,
                   dbg_pq.data_ptr() if debug else None, B, Smax, KV, G, D,
-                  window or 0, 1.0 / (D ** 0.5))
+                  window or 0, 1.0 / (D ** 0.5), int(pl.on_chip), pl.cluster,
+                  pl.block_positions, pl.smem_bytes)
     build.check(err, "decode_attention_q8")
     launches += 1
     if debug:
         return out, dbg_s, dbg_pq
     return out
+
+
+def active_clusters(pl: Plan, B: int, KV: int, D: int) -> int:
+    """Clusters of the plan that fit on the card at once."""
+    fn = build.function("decode_attention_q8",
+                        "decode_attention_q8_active_clusters", _OCC_ARGTYPES)
+    return fn(D, int(pl.on_chip), pl.cluster, pl.smem_bytes, B, KV)

@@ -851,6 +851,16 @@ Q8_CASES = [
     (1, 72, 16, 1, 128, [72], None),           # olmoe-1b-7b
     (1, 72, 16, 1, 128, [1], None),            # olmoe, the first step
     (1, 72, 8, 8, 128, [50], None),            # internvl2-76b
+    # the seams of the cluster design (ops.plan): a cluster of 6 blocks
+    # of 501 positions over 3001, the last block short
+    (2, 3001, 4, 5, 128, [3001, 2500], None),
+    # slot 0 attends one position: 7 of its 8 blocks wholly masked
+    (2, 8192, 4, 4, 128, [1, 5000], None),
+    (2, 2048, 8, 4, 80, [1500, 2048], 700),    # a window across blocks
+    (2, 1024, 4, 8, 80, [1024, 700], None),    # G 8 at D 80
+    (2, 1024, 4, 8, 96, [1024, 333], None),    # G 8 at D 96
+    # scores too large for shared memory: the scratch form
+    (1, 131072, 2, 8, 128, [100000], None),
 ]
 # The kernel's output against the plain version's sums over the
 # kernel's own pq (max |Δ| / max |want|): what is left is fp32 rounding

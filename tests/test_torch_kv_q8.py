@@ -5,11 +5,14 @@ D 32 / 80 / 96, a ring, a window that is not a ring, per-slot lens) and
 its quantized probabilities through an identity V payload, decode
 through ``api.forward`` on int8 caches for reduced fp32 phi3, danube
 (its window-16 ring wraps), qwen, olmoe and internvl through ``bridge``
-weights, the families that ignore ``kv_quant``, and the error paths (no
+weights, the families that ignore ``kv_quant``, the error paths (no
 chunked prefill into an int8 cache; a CUDA call that cannot build or
-launch raises and never falls back).  Inputs come from numpy seeds.
+launch raises and never falls back), and the kernel's plan at every
+shape the card runs.  Inputs come from numpy seeds.
 """
 import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,7 +26,7 @@ from repro.configs import reduced_config as jax_reduced_config  # noqa: E402
 from repro.models import api as japi  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_q8 import ops as q8_ops  # noqa: E402
 from repro_torch.kernels.decode_q8.ref import (  # noqa: E402
@@ -179,13 +182,91 @@ def test_cuda_wrapper_raises_and_never_falls_back(monkeypatch):
         _cuda_call(q, cache)
 
     class Lib:
-        decode_attention_q8_workspace = staticmethod(lambda *a: 256)
         decode_attention_q8 = staticmethod(lambda *a: 700)
     monkeypatch.setattr(build, "load", lambda name: Lib)
     monkeypatch.setattr(q8_ops, "_launch", lambda fn, dev, *a: fn(*a))
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         _cuda_call(q, cache)
     assert q8_ops.launches == n
+
+
+# ---------------------------------------------------------------------------
+# the kernel's plan (ops.plan): every shape the card runs
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _module(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _card_shapes():
+    """(B, Smax, KV, G, D) of every gpu case of test_torch_kernels.py, of
+    chip_smoke.py's kv_q8 checks, its paths and its timing."""
+    cases = _module("_q8_card_cases", ROOT / "tests" / "test_torch_kernels.py")
+    smoke = _module("_q8_chip_smoke", ROOT / "chip_smoke.py")
+    shapes = {tuple(c[:5]) for c in cases.Q8_CASES}
+    shapes |= {tuple(c[:5]) for c in smoke.Q8_CHECKS.values()}
+    shapes.add(tuple(smoke.Q8_TIMING))
+    for arch, _ in smoke.Q8_MODELS:
+        cfg = get_config(arch)
+        shapes.add((1, smoke.Q8_PROMPT + smoke.Q8_NEW, cfg.num_kv_heads,
+                    cfg.num_heads // cfg.num_kv_heads,
+                    cfg.resolved_head_dim))
+    return sorted(shapes)
+
+
+SCRATCH_SHAPE = (1, 131072, 2, 8, 128)
+ON_CHIP_SHAPES = [s for s in _card_shapes() if s != SCRATCH_SHAPE]
+
+
+def _check_plan(pl, B, Smax, KV, G, D):
+    assert 1 <= pl.cluster <= q8_ops.MAX_CLUSTER
+    assert pl.cluster * pl.block_positions >= Smax
+    assert (pl.cluster - 1) * pl.block_positions < Smax
+    assert pl.smem_bytes == q8_ops.smem_bytes(pl.on_chip, pl.block_positions,
+                                              G, D)
+    assert pl.smem_bytes <= 232_448
+    per_sm = q8_ops.SMEM_SM // (pl.smem_bytes + q8_ops.SMEM_RESERVED)
+    assert per_sm >= pl.blocks_per_sm
+
+
+@pytest.mark.parametrize("B,Smax,KV,G,D", ON_CHIP_SHAPES)
+def test_plan_keeps_the_scores_on_chip(B, Smax, KV, G, D):
+    """Every shape the card tests, checks, serves and times: the on-chip
+    form (no scratch), a legal cluster, shared memory within a block's."""
+    pl = q8_ops.plan(B, Smax, KV, G, D)
+    assert pl.on_chip and pl.scratch_bytes == 0
+    _check_plan(pl, B, Smax, KV, G, D)
+
+
+def test_plan_of_the_timing_shape_fits_two_blocks_an_sm():
+    smoke = _module("_q8_chip_smoke", ROOT / "chip_smoke.py")
+    pl = q8_ops.plan(*smoke.Q8_TIMING)
+    assert (pl.on_chip, pl.cluster, pl.blocks_per_sm) == (True, 8, 2)
+    assert 2 * (pl.smem_bytes + q8_ops.SMEM_RESERVED) <= q8_ops.SMEM_SM
+
+
+@pytest.mark.parametrize("shape", [SCRATCH_SHAPE, (1, q8_ops.MAX_SMAX, 1, 8,
+                                                   128)])
+def test_plan_takes_the_scratch_form_where_scores_do_not_fit(shape):
+    pl = q8_ops.plan(*shape)
+    B, Smax, KV, G, D = shape
+    assert not pl.on_chip and pl.scratch_bytes == 4 * B * KV * G * Smax
+    _check_plan(pl, B, Smax, KV, G, D)
+
+
+def test_plan_and_wrapper_refuse_caches_past_max_smax():
+    with pytest.raises(ValueError, match="cache positions"):
+        q8_ops.plan(1, q8_ops.MAX_SMAX + 1, 1, 1, 32)
+    rng = np.random.default_rng(7)
+    cache, _ = _cache(rng, 1, q8_ops.MAX_SMAX + 1, 1, 32)
+    with pytest.raises(ValueError, match="cache positions"):
+        _cuda_call(torch.zeros((1, 1, 1, 32)), cache)
 
 
 # ---------------------------------------------------------------------------
