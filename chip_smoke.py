@@ -22,7 +22,9 @@ of JAX and nothing of the ``repro`` package.  In order:
    cells, ``benchmarks/fig9_rodinia.py``'s settings) through the Rodinia
    benches, each cell passing its numpy oracle and matching the
    committed ``benchmarks/baselines/BENCH_fig9_rodinia.json`` in its 16
-   counters and cycles, each cell's kernel time under the profiler and
+   counters and cycles, each cell's kernel time under the profiler (a
+   cell whose profile misses a kernel's record is run and profiled
+   again, at most twice) and
    its SM clocks per simulated cycle (``nvidia-smi``'s SM clock sampled
    through the grid); the paper's four claims
    (``tests/test_paper_claims.py``) on the port's own numbers, the Fig 8
@@ -188,15 +190,28 @@ of JAX and nothing of the ``repro`` package.  In order:
    weights are random); and reduced fp32 phi3, danube (its 16-slot ring
    wraps) and qwen 24 steps on the card against the CPU.
 
+11. drives the distributed layer (``mesh_phase``, after the train
+   phase) in a world of one rank over NCCL: full-width
+   h2o-danube-1.8b through ``launch.train.main`` for 2 steps without
+   and with ``--mesh`` (losses and grad norms bit-equal; the
+   data-parallel step's NCCL all-reduces counted); one full-width
+   olmoe-1b-7b MoE layer, x [2,4096,2048] bf16 with no capacity drops,
+   through the expert-parallel a2a path at ep 1 against the sort path
+   (y, aux and the grad of x; the dispatch kernel and its backward
+   launched on ``mesh_a2a``; each form's forward device ms); and
+   ``compressed_psum``, ``ring_all_gather``, ``barrier`` and
+   ``grid_spawn`` on CUDA tensors.
+
 It prints a ``{"simt": ...}`` line, a ``{"serve": ...}`` line, a
 ``{"kv_q8": ...}`` line, a ``{"timings": ...}`` line, a ``{"train":
-...}`` line, one ``{"kernels": [...]}`` line, the card's name and power
-limit, and ends with ``{"ok": true, "device": {...}}``. Any failed check
-raises.
+...}`` line, a ``{"mesh": ...}`` line, one ``{"kernels": [...]}`` line,
+the card's name and power limit, and ends with ``{"ok": true,
+"device": {...}}``. Any failed check raises.
 """
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import gc
 import json
 import math
@@ -260,6 +275,10 @@ def _imports():
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_bwd_ref,
                                                  rmsnorm_bwd_ref, rmsnorm_ref)
+    from repro_torch.core import combinators, spawn
+    from repro_torch.distributed import collectives, compression
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import train as train_cli
     from repro_torch.kernels.simt_machine import ops as simt_ops
     from repro_torch.kernels.ssm_scan import ops as ssd_ops
@@ -267,6 +286,7 @@ def _imports():
                                                   ssd_intra_ref)
     from repro_torch.models import api
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import moe_a2a
     from repro_torch.models import xlstm, xlstm_lm
     from repro_torch.models.kv_quant import quantize_kv, valid_positions
     from repro_torch.models.moe import moe_capacity, moe_forward
@@ -284,6 +304,9 @@ def _imports():
                 flash_fwd_ref=flash_fwd_ref,
                 add_rmsnorm_bwd_ref=add_rmsnorm_bwd_ref,
                 rmsnorm_bwd_ref=rmsnorm_bwd_ref, train_cli=train_cli,
+                combinators=combinators, spawn=spawn,
+                collectives=collectives, compression=compression, shd=shd,
+                mesh_mod=mesh_mod, moe_a2a=moe_a2a,
                 train_loop=train_loop,
                 train_with_recovery=train_with_recovery,
                 faults=faults, kv_pool=kv_pool,
@@ -2895,6 +2918,207 @@ def train_phase(m) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the distributed layer on a world of one rank over NCCL
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 2
+A2A_SHAPE = (2, 4096)            # olmoe-1b-7b's train batch: x [2, 4096, 2048]
+# bf16 outputs of two orders of the same fp32 sums: one bf16 ulp (2^-8)
+# of the largest entry, normalized as BWD_TOL is; aux is fp32
+A2A_TOL = {"y": 1e-2, "dx": 1e-2, "aux": 1e-6}
+
+
+def mesh_phase(m) -> dict:
+    """The distributed layer on the card, in a world of one rank over
+    NCCL (``launch.mesh.init_world``), destroyed at the end:
+
+    (a) full-width h2o-danube-1.8b through ``launch.train.main`` with
+        ``train_cli_phase``'s settings for MESH_STEPS steps, without and
+        with ``--mesh``: every step's loss and grad norm bit-equal, and
+        the data-parallel step's NCCL all-reduces counted (> 0);
+    (b) one olmoe-1b-7b MoE layer at full width (d 2048, 64 experts, top
+        8; capacity raised to C = T so nothing drops) on x [2, 4096,
+        2048] bf16: ``moe_a2a.moe_forward_a2a`` at ep 1 against the sort
+        path (``moe_forward`` with no mesh): y, aux and the grad of x of
+        sum(y * g) + aux within A2A_TOL (equal bits expected), the
+        dispatch kernel and its backward launched on the a2a path
+        (``mesh_a2a``), each form's forward in device ms (the sum of its
+        kernels under the profiler: NCCL calls are not captured in a
+        graph here) and the dispatch kernel at this shape, bit-exact
+        with its plain version and timed as ``timing_phase`` times it;
+    (c) ``compressed_psum``, ``ring_all_gather``, ``barrier`` (CUDA
+        tensors, identities at one rank) and ``grid_spawn`` (the grid
+        covered exactly)."""
+    torch = m["torch"]
+    dist = torch.distributed
+    mesh_mod, shd = m["mesh_mod"], m["shd"]
+    out = {}
+    # (a) danube, plain and --mesh (which starts and ends its own world)
+    argv = ["--arch", DANUBE, "--device", "cuda", "--steps",
+            str(MESH_STEPS), "--seq", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--microbatch", str(TRAIN_MICRO), "--lr",
+            str(TRAIN_LR), "--log-every", "1"]
+    runs = {}
+    for form in ("plain", "mesh"):
+        hist = []
+        m["train_loop"].grad_all_reduces = 0
+        t0 = time.perf_counter()
+        _check(m["train_cli"].main(
+            argv + (["--mesh"] if form == "mesh" else []),
+            history=hist) == 0, f"train CLI ({form}) failed")
+        runs[form] = {"wall_s": time.perf_counter() - t0,
+                      "all_reduces": m["train_loop"].grad_all_reduces,
+                      "steps": [{k: h[k] for k in (
+                          "step", "loss", "grad_norm", "step_s")}
+                          for h in hist]}
+        _free(torch)
+    same = [(a["loss"], a["grad_norm"]) == (b["loss"], b["grad_norm"])
+            for a, b in zip(runs["plain"]["steps"],
+                            runs["mesh"]["steps"])]
+    _check(len(same) == MESH_STEPS and all(same),
+           f"--mesh danube differs from the plain CLI: {runs}")
+    _check(runs["mesh"]["all_reduces"] > 0
+           and runs["plain"]["all_reduces"] == 0,
+           f"NCCL all-reduces: {runs['mesh']['all_reduces']} (mesh), "
+           f"{runs['plain']['all_reduces']} (plain)")
+    out["danube"] = runs
+    _check(not dist.is_initialized(), "--mesh left its process group")
+
+    _, started = mesh_mod.init_world("cuda")
+    _check(started and dist.get_backend() == "nccl"
+           and dist.get_world_size() == 1,
+           f"mesh phase: backend {dist.get_backend()}, world "
+           f"{dist.get_world_size()}")
+    try:
+        # (b) one olmoe MoE layer: a2a at ep 1 against the sort path
+        cfg = m["get_config"](OLMOE)
+        E, k, d = cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=E / k))          # C = T: no drops
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        ff = cfg.moe.d_ff
+
+        def w(*shape, fan_in, dt=torch.bfloat16):
+            return (torch.randn(shape, generator=g, device="cuda")
+                    / fan_in ** 0.5).to(dt).requires_grad_()
+        p = {"router": w(d, E, fan_in=d, dt=torch.float32),
+             "w_gate": w(E, d, ff, fan_in=d), "w_up": w(E, d, ff, fan_in=d),
+             "w_down": w(E, ff, d, fan_in=ff)}
+        B, S = A2A_SHAPE
+        x0 = torch.randn(B, S, d, generator=g, device="cuda").to(
+            torch.bfloat16)
+        gy = torch.randn(B, S, d, generator=g, device="cuda")
+        mesh = mesh_mod.make_test_mesh(1, 1)
+        rules = shd.train_rules(mesh)
+
+        def sort_fwd(x):
+            return m["moe_forward"](p, x, cfg)
+
+        def a2a_fwd(x):
+            with shd.axis_rules(mesh, rules):
+                return m["moe_a2a"].moe_forward_a2a(p, x, cfg)
+
+        res = {}
+        for form, fwd in (("sort", sort_fwd), ("a2a", a2a_fwd)):
+            x = x0.clone().requires_grad_()
+            _zero_counts(m)
+            y, aux = fwd(x)
+            ((y.float() * gy).sum() + aux).backward()
+            torch.cuda.synchronize()
+            res[form] = {"y": y.detach(), "aux": aux.detach(),
+                         "dx": x.grad, "launches": _counts(m),
+                         "flash_launches_by_route": dict(
+                             m["fa_ops"].launches_by_route)}
+        errs = {}
+        for key in ("y", "dx"):
+            errs[key] = _rel_err(torch, res["a2a"][key], res["sort"][key],
+                                 A2A_TOL[key], f"a2a vs sort {key}")[1]
+        aux_err = abs(float(res["a2a"]["aux"]) - float(res["sort"]["aux"]))
+        _check(aux_err <= A2A_TOL["aux"] * abs(float(res["sort"]["aux"])),
+               f"a2a vs sort aux: {aux_err}")
+        counts = res["a2a"]["launches"]
+        _check(counts["moe_dispatch"] > 0 and counts["moe_dispatch_bwd"] > 0,
+               f"a2a path launches: {counts}")
+        with torch.no_grad():
+            ms = {form: _profiled_ms(torch, lambda f=fwd: f(x0))
+                  for form, fwd in (("sort", sort_fwd), ("a2a", a2a_fwd),
+                                    ("sort#2", sort_fwd), ("a2a#2", a2a_fwd))}
+            # the dispatch kernel at this shape, as timing_phase times it
+            T, C = B * S, m["moe_capacity"](B * S, cfg)
+            xf = x0.reshape(T, d)
+            eidx = m["moe_mod"].route(p["router"], xf, k)[2]
+            want = m["moe_dispatch_ref"](eidx, xf, E, C)
+            got = m["dispatch_ops"].moe_dispatch_cuda(eidx, xf, E, C)
+            _check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                   f"moe_dispatch at {[T, k, d, E, C]}: not the plain "
+                   f"version's buffer, slots and counts")
+            _, dest_tk, cnt = want
+            del got
+            slot = torch.full((E * C + 1,), T, dtype=torch.long,
+                              device="cuda")
+            slot[dest_tk.long()] = torch.arange(T * k, device="cuda") // k
+            idx = slot[:E * C].contiguous()
+            xz = torch.cat([xf, torch.zeros(1, d, dtype=xf.dtype,
+                                            device="cuda")])
+            filled = int(torch.clamp(cnt, max=C).sum())
+
+            def kernel():
+                return m["dispatch_ops"].moe_dispatch_cuda(eidx, xf, E, C)
+
+            def library():
+                return torch.index_select(xz, 0, idx)
+            # each call writes a 2.1 GB buffer: 4 calls a graph, not 20
+            dispatch_t = {
+                "shape": [T, k, d, E, C], "dtype": "bfloat16",
+                "filled": filled,
+                "ms": _device_ms(torch, kernel, reps=10, inner=4),
+                "call_ms": _time_ms(torch, kernel, reps=10, inner=4),
+                "plain_ms": _profiled_ms(torch, lambda: m["moe_dispatch_ref"](
+                    eidx, xf, E, C), reps=5),
+                "library_ms": _device_ms(torch, library, reps=10, inner=4),
+                **_bound(8 * T * k + 2 * d * (filled + E * C) + 4 * T * k
+                         + 4 * E, 0, BF16_FLOPS)}
+            del slot, idx, xz
+        out["a2a"] = {
+            "shape": [B, S, d], "experts": E, "top_k": k,
+            "capacity": m["moe_capacity"](B * S, cfg),
+            "normalized_err": errs, "aux_abs_err": aux_err,
+            "bit_equal": {key: bool(torch.equal(res["a2a"][key],
+                                                res["sort"][key]))
+                          for key in ("y", "aux", "dx")},
+            "forward_device_ms": ms, "dispatch_timing": dispatch_t,
+            "launches": counts,
+            "flash_launches_by_route": res["a2a"]["flash_launches_by_route"]}
+        del res, p, x0, gy
+        _free(torch)
+
+        # (c) the collectives, barrier and grid_spawn on CUDA tensors
+        xc = torch.randn(4, 64, generator=g, device="cuda")
+        got = {
+            "compressed_psum": m["compression"].compressed_psum(
+                xc, "data", mesh=mesh),
+            "ring_all_gather": m["collectives"].ring_all_gather(
+                xc, "model", mesh=mesh),
+            "barrier": m["combinators"].barrier(xc, "data", mesh=mesh)}
+        for name, t in got.items():
+            _check(t.is_cuda and torch.equal(t, xc),
+                   f"{name} is not the identity at one rank")
+        N = 1 << 20
+        parts = m["spawn"].grid_spawn(
+            lambda c, ids, v: c + torch.where(v, ids + 1, 0).sum(), N,
+            mesh=mesh, items_per_step=1 << 16,
+            init=torch.zeros((), dtype=torch.int64, device="cuda"))()
+        _check(parts.is_cuda and tuple(parts.shape) == (1,)
+               and int(parts.sum()) == N * (N + 1) // 2,
+               f"grid_spawn over {N} ids: {parts}")
+        out["collectives"] = {"identities": sorted(got),
+                              "grid_spawn_items": N}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the SIMT machine: one kernel launch per machine run
 # ---------------------------------------------------------------------------
 
@@ -2913,6 +3137,7 @@ FIG9_BASELINE = ROOT / "benchmarks" / "baselines" / "BENCH_fig9_rodinia.json"
 FIG8_CONFIGS = [(1, 1), (2, 2), (2, 8), (4, 4), (2, 32), (8, 4), (8, 8),
                 (8, 32), (16, 16), (32, 32)]           # benchmarks/fig8_dse.py
 CLAIM_CONFIGS = [(2, 2), (2, 8), (8, 2), (8, 8)]      # test_paper_claims.py
+SIMT_REPROFILE = 2      # profiles of a Fig 9 cell beyond the first, at most
 NAMED_CELLS = ("vecadd/8w8t", "bfs/2w2t")
 
 
@@ -3070,20 +3295,32 @@ def simt_phase(m) -> dict:
     baseline = json.loads(FIG9_BASELINE.read_text())
     keys = machine.STAT_KEYS + ("cycles",)
     stats, cells = {}, {}
-    m["simt_ops"].launches = 0
+    grid_launches, reprofiled = 0, {}
     t0 = time.perf_counter()
     with _SmClock() as clock:
         for name, (kw, ml) in FIG9_BENCHES.items():
             for w, t in FIG9_CONFIGS:
                 cell = f"{name}/{w}w{t}t"
-                ((res, ok), calls), dev = _profiled_cell(m, lambda: _recorded(
-                    m, lambda: m["rodinia"].BENCHMARKS[name](
-                        _simt_config(m, w, t, ml), device="cuda", **kw)))
-                _check(ok, f"simt {cell} failed its numpy oracle")
-                want = {k: baseline[cell]["stats"][k] for k in keys}
-                got = {k: res.stats[k] for k in keys}
-                _check(got == want, f"simt {cell}: counters {got} != the "
-                       f"committed baseline's {want}")
+                # the profiler drops a kernel's record at times (47 of 48
+                # once): a cell whose profile shows fewer kernels than
+                # its wrapper launched is run and profiled again, up to
+                # SIMT_REPROFILE times; every run is checked in full
+                for attempt in range(1 + SIMT_REPROFILE):
+                    m["simt_ops"].launches = 0
+                    ((res, ok), calls), dev = _profiled_cell(
+                        m, lambda: _recorded(
+                            m, lambda: m["rodinia"].BENCHMARKS[name](
+                                _simt_config(m, w, t, ml), device="cuda",
+                                **kw)))
+                    _check(ok, f"simt {cell} failed its numpy oracle")
+                    want = {k: baseline[cell]["stats"][k] for k in keys}
+                    got = {k: res.stats[k] for k in keys}
+                    _check(got == want, f"simt {cell}: counters {got} != "
+                           f"the committed baseline's {want}")
+                    if dev["kernel"][1] >= m["simt_ops"].launches:
+                        break
+                    reprofiled[cell] = attempt + 1
+                grid_launches += m["simt_ops"].launches
                 stats[(name, w, t)] = res.stats
                 cycles = res.stats["cycles"]
                 cells[cell] = {
@@ -3098,7 +3335,6 @@ def simt_phase(m) -> dict:
     mhz = clock.mhz
     for c in cells.values():
         c["sm_clocks_per_cycle"] = _clocks(c["ns_per_cycle"], mhz)
-    grid_launches = m["simt_ops"].launches
     n_launch = sum(c["launches"] for c in cells.values())
     want = len(cells) + len(FIG9_CONFIGS)       # gaussian launches twice
     _check(grid_launches == n_launch == want,
@@ -3111,7 +3347,7 @@ def simt_phase(m) -> dict:
           f"{total_cycles} cycles in {kernel_ms:.2f} kernel ms "
           f"({ns_cycle:.1f} ns/cycle, {_clocks(ns_cycle, mhz)} SM clocks "
           f"a cycle at {mhz} MHz), {grid_launches} launches, "
-          f"{wall:.2f} s wall", flush=True)
+          f"{wall:.2f} s wall; profiled again: {reprofiled}", flush=True)
     for c in NAMED_CELLS:
         print(f"[simt] {c}: {cells[c]['kernel_ms']:.4f} kernel ms, "
               f"{cells[c]['ns_per_cycle']:.1f} ns and "
@@ -3167,7 +3403,7 @@ def simt_phase(m) -> dict:
     return {
         "cells_matched": len(cells), "cells": 42,
         "total_cycles": total_cycles, "launches": grid_launches,
-        "kernel_ms": kernel_ms,
+        "reprofiled": reprofiled, "kernel_ms": kernel_ms,
         "kernel_ms_per_launch": kernel_ms / grid_launches,
         "ns_per_cycle": ns_cycle, "sm_mhz": mhz,
         "sm_clocks_per_cycle": _clocks(ns_cycle, mhz),
@@ -3711,6 +3947,17 @@ def main() -> int:
 
     train = train_phase(m)
     print(json.dumps({"train": train}), flush=True)
+    mesh = mesh_phase(m)
+    for form, run in mesh["danube"].items():
+        print(f"[mesh] {DANUBE} {form}: " + ", ".join(
+            f"step {s['step']} loss {s['loss']:.6f} gnorm "
+            f"{s['grad_norm']:.6f} {1e3 * s['step_s']:.1f} ms"
+            for s in run["steps"])
+            + f"; NCCL all-reduces {run['all_reduces']}", flush=True)
+    print(f"[mesh] olmoe MoE layer {mesh['a2a']['shape']}: forward device "
+          f"ms {mesh['a2a']['forward_device_ms']}, bit-equal "
+          f"{mesh['a2a']['bit_equal']}", flush=True)
+    print(json.dumps({"mesh": mesh}), flush=True)
     sources = {  # name: (source, replaces, index of the main-path shape)
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/kernel.py:31", 2),
@@ -3730,6 +3977,7 @@ def main() -> int:
     paths["train_hybrid"] = train["train_hybrid"]
     for key in NEW_TRAIN:
         paths[key] = train[key]
+    paths["mesh_a2a"] = mesh["a2a"]
     kernels = []
     for name, (source, replaces, main_shape) in sources.items():
         t = timings[name][main_shape]
@@ -3751,6 +3999,8 @@ def main() -> int:
             "max_abs_err": {k: v for k, v in errs["new_shapes"].items()
                             if k.split()[0] == name},
             "timings": [t for t in timings[name] if t.get("new")]}
+        if name == "moe_dispatch":
+            kernels[-1]["mesh_a2a_timing"] = mesh["a2a"]["dispatch_timing"]
         if name == "flash_attention":
             kernels[-1]["new_shapes"]["normalized_err"] = \
                 errs["noncausal_normalized"]

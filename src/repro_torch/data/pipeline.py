@@ -5,12 +5,13 @@ synthetic LM stream with a resumable cursor.
 its numpy arrays equal the JAX package's.  ``Loader`` puts them on the
 device as torch tensors (int32 tokens and labels; float leaves in the
 model's dtype).  The source is addressed by (seed, step), so a restart
-rewinds by assigning the cursor.
+rewinds by assigning the cursor.  Under data parallelism a rank's
+``Loader`` takes its rows of each global batch (``rank_rows``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,17 +52,45 @@ class SyntheticLM:
         return out
 
 
+def rank_rows(batch: int, microbatch: Optional[int], rank: int,
+              n: int) -> np.ndarray:
+    """The rows of a global batch that data-parallel rank `rank` of `n`
+    trains on: its share of every microbatch, microbatch by microbatch.
+    The JAX step splits the batch into contiguous microbatches of
+    `microbatch` rows (one microbatch when it is unset or does not
+    divide the batch) and shards each over the data axis, so rank r
+    holds rows [i*mb + r*mb/n, i*mb + (r+1)*mb/n) of microbatch i."""
+    mb = microbatch
+    if not mb or mb >= batch or batch % mb:
+        mb = batch
+    if mb % n:
+        raise ValueError(f"a microbatch of {mb} rows does not split over "
+                         f"{n} data-parallel ranks")
+    share = mb // n
+    return np.concatenate([np.arange(i * mb + rank * share,
+                                     i * mb + (rank + 1) * share)
+                           for i in range(batch // mb)])
+
+
 class Loader:
     """Iterates a source from a cursor, putting each batch on `device`
-    (``cuda`` unless the caller asks for the CPU)."""
+    (``cuda`` unless the caller asks for the CPU).  With `shard`
+    (rank, n) and the step's `microbatch`, each batch is the rank's
+    rows of the global one (``rank_rows``)."""
 
     def __init__(self, source: SyntheticLM, *, device: DeviceLike = None,
                  start_step: int = 0,
-                 model_dtype: torch.dtype = torch.bfloat16):
+                 model_dtype: torch.dtype = torch.bfloat16,
+                 shard: Tuple[int, int] = (0, 1),
+                 microbatch: Optional[int] = None):
         self.source = source
         self.device = resolve_device(device)
         self.step = start_step
         self.model_dtype = model_dtype
+        self.rows = None
+        if shard[1] > 1:
+            self.rows = rank_rows(source.shape.global_batch, microbatch,
+                                  *shard)
 
     def state_dict(self) -> Dict[str, Any]:
         return {"step": self.step, "seed": self.source.seed}
@@ -77,6 +106,8 @@ class Loader:
         self.step += 1
         out = {}
         for k, v in raw.items():
+            if self.rows is not None:
+                v = v[self.rows]
             t = torch.from_numpy(v)
             if v.dtype == np.float32:
                 t = t.to(self.model_dtype)

@@ -1,2 +1,3 @@
-"""Distributed pieces of the port: gradient compression only (the
-sharding, collectives and elastic modules come with a later slice)."""
+"""Distributed pieces of the port: the logical-axis sharding rules
+(``sharding``), collectives over a mesh axis (``collectives``), gradient
+compression (``compression``) and elastic rescaling (``elastic``)."""

@@ -14,9 +14,17 @@ width, or on the CPU with ``--device cpu`` (use ``--reduced`` there):
 Without a GPU and without ``--device cpu`` it raises.  Weights are
 random from seed 0 (``TrainConfig.seed``); the data is the synthetic LM
 stream addressed by (seed, step), so ``--ckpt`` with ``--restore auto``
-resumes exactly.  The flags are the JAX CLI's, plus ``--device``;
-``--mesh`` raises ``NotImplementedError`` (sharding is ROADMAP Queue 1,
-item 6).  The observability plane (``--trace``, ``--metrics-port``,
+resumes exactly.  The flags are the JAX CLI's, plus ``--device``.
+
+``--mesh`` trains data-parallel over ``make_test_mesh(data=world,
+model=1)`` under ``axis_rules(mesh, train_rules(mesh))``, as the JAX
+CLI does (``training/loop.py`` says how).  In a single process it
+starts a world of one rank (NCCL on ``cuda``, gloo on ``cpu``); under
+``torchrun --nproc-per-node N`` it takes the environment's world, one
+GPU a rank (NCCL refuses two ranks on one GPU).  Each rank loads its
+rows of every global batch; rank 0 alone writes checkpoints, and
+``--chaos-seed`` runs on a world of one rank only.  The observability
+plane (``--trace``, ``--metrics-port``,
 ``--flight-dir``) and ``--chaos-seed`` (a seeded fault plan through
 ``training.resilient``) are wired as in ``launch/serve.py``.
 
@@ -34,6 +42,7 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.checkpoint.manager import CheckpointManager
@@ -41,6 +50,8 @@ from repro_torch.configs import (ARCH_IDS, ShapeConfig, TrainConfig,
                                  get_config, reduced_config)
 from repro_torch.data.pipeline import Loader, SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.common import dtype_of
 from repro_torch.obs.flight import flight
 from repro_torch.training import loop as tl
@@ -51,7 +62,6 @@ last_server: obs.ObsServer = None
 
 def main(argv=None, history: Optional[List[Dict[str, float]]] = None
          ) -> int:
-    global last_server
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -87,11 +97,24 @@ def main(argv=None, history: Optional[List[Dict[str, float]]] = None
                     help="enable the flight recorder; dumps flight_*.json "
                          "here on crash or SIGUSR1")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharded training comes with the distributed slice of "
-            "the port (ROADMAP Queue 1, item 6)")
-    device = resolve_device(args.device)
+    if not args.mesh:
+        return _main(args, resolve_device(args.device), None, history)
+    device, started = mesh_mod.init_world(args.device)
+    try:
+        return _main(args, device, mesh_mod.make_test_mesh(
+            data=dist.get_world_size(), model=1), history)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _main(args, device, mesh, history) -> int:
+    global last_server
+    rank, world = (dist.get_rank(), dist.get_world_size()) if mesh \
+        else (0, 1)
+    if args.chaos_seed is not None and world > 1:
+        raise NotImplementedError("--chaos-seed runs on a world of one "
+                                  f"rank, this one has {world}")
     if args.trace:
         obs.enable_tracing()
     if history is None:
@@ -109,12 +132,16 @@ def main(argv=None, history: Optional[List[Dict[str, float]]] = None
     state = tl.init_train_state(cfg, tc, device=device)
     step_fn = tl.make_train_step(cfg, tc)
     loader = Loader(SyntheticLM(cfg, shape, seed=tc.seed), device=device,
-                    model_dtype=dtype_of(cfg.dtype))
+                    model_dtype=dtype_of(cfg.dtype), shard=(rank, world),
+                    microbatch=tc.microbatch)
     n_params = sum(p.numel() for p in state.params.parameters())
     print(f"[train] {cfg.name}{' (reduced)' if args.reduced else ''} "
           f"{n_params / 1e9:.3f}B params {cfg.dtype}, seq {args.seq} "
           f"batch {args.batch} microbatch {args.microbatch or args.batch} "
-          f"remat {tc.remat}, device={device}", flush=True)
+          f"remat {tc.remat}, device={device}"
+          + (f", mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+             f"({dist.get_backend()}) rank {rank}" if mesh else ""),
+          flush=True)
 
     injector = None
     if args.chaos_seed is not None:
@@ -157,18 +184,22 @@ def main(argv=None, history: Optional[List[Dict[str, float]]] = None
                 loader.load_state_dict({"step": meta.get("data_step", start),
                                         "seed": tc.seed})
                 print(f"[restore] resumed from step {start}", flush=True)
-        # the step writes every tensor of `state` in place (opt.step
-        # too) and runs inside mgr.held(), so the flush reads the state
-        # and the data cursor of the last whole step
-        mgr.install_preemption_flush(lambda: (loader.step, state))
+        if rank == 0:            # the one writer of a data-parallel run
+            # the step writes every tensor of `state` in place (opt.step
+            # too) and runs inside mgr.held(), so the flush reads the
+            # state and the data cursor of the last whole step
+            mgr.install_preemption_flush(lambda: (loader.step, state))
+        else:
+            mgr = None
 
     try:
-        if injector is not None:
-            _train_chaos(args, state, step_fn, loader, mgr, live, injector,
-                         start, history)
-        else:
-            _train_plain(args, state, step_fn, loader, mgr, live, shape,
-                         start, device, history)
+        with shd.axis_rules(mesh, shd.train_rules(mesh) if mesh else None):
+            if injector is not None:
+                _train_chaos(args, state, step_fn, loader, mgr, live,
+                             injector, start, history)
+            else:
+                _train_plain(args, state, step_fn, loader, mgr, live, shape,
+                             start, device, history)
     except BaseException as e:
         if args.flight_dir:
             path = flight.crash_dump(args.flight_dir, e)

@@ -31,7 +31,14 @@ layer's backward gives the same bits run to run, and a layer recomputed
 under remat routes as its first forward did (topk and the dispatch are
 deterministic).
 
-The expert-parallel all-to-all path (``moe_a2a``) is not ported.
+Under a mesh (``sharding.axis_rules``) x is the rank's rows of the
+batch, as the data-parallel trainer gives them, and the dispatch is
+chosen as in the JAX package: the expert-parallel all-to-all path
+(``moe_a2a``) where it applies (a model axis of more than one rank
+that divides S), else this sort path over the GLOBAL tokens: the rows
+are all-gathered over the batch axes (with autograd), routed, dispatched
+and combined as on one device, and the rank keeps its rows, so
+capacity, drops and the aux loss are the JAX program's.
 """
 from __future__ import annotations
 
@@ -40,7 +47,10 @@ from typing import Mapping, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.moe_dispatch.ops import moe_dispatch
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import params as P
 from repro_torch.models.common import swiglu
 from repro_torch.models.mlp import mlp_forward
@@ -64,20 +74,65 @@ def moe_spec(cfg: ModelConfig):
     return spec
 
 
+def route(router: torch.Tensor, xf: torch.Tensor, k: int):
+    """Top-k routing in fp32: (probs [T, E], gates [T, k] renormalized,
+    eidx [T, k] int64)."""
+    logits = xf.float() @ router                           # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = torch.topk(probs, k, dim=-1)             # [T, k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return probs, gates, eidx
+
+
+def experts(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor) -> torch.Tensor:
+    """The grouped expert GEMMs: [E', C', d] -> [E', C', d]."""
+    h = swiglu(torch.bmm(buf, w_gate), torch.bmm(buf, w_up))
+    return torch.bmm(h, w_down)
+
+
+def combine(out: torch.Tensor, dest_tk: torch.Tensor, gates: torch.Tensor
+            ) -> torch.Tensor:
+    """Each (token, slot) pair's expert row, picked with dest_tk from
+    out [E, C, d] (E*C: the zero drop row) and summed over k in fp32
+    with its gate: [T, d] fp32."""
+    E, C, d = out.shape
+    T, k = gates.shape
+    out_flat = torch.cat([out.reshape(E * C, d),
+                          torch.zeros((1, d), dtype=out.dtype,
+                                      device=out.device)])
+    picked = out_flat.index_select(0, dest_tk).reshape(T, k, d).float()
+    return (picked * gates[..., None]).sum(dim=1)
+
+
 def moe_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (y [B, S, d], aux_loss scalar fp32)."""
+    """x: [B, S, d] -> (y [B, S, d], aux_loss scalar fp32).  Under a
+    mesh, x and y are the rank's rows and aux is the global loss."""
+    from repro_torch.models import moe_a2a
+    ctx = shd.current_context()
+    if ctx is not None:
+        mesh, rules = ctx
+        B, S, d = x.shape
+        bsz = moe_a2a.batch_size(mesh, rules)
+        if moe_a2a.a2a_applicable((B * bsz, S, d)):
+            return moe_a2a.moe_forward_rows(p, x, cfg)
+        if bsz > 1:
+            group = mesh_mod.axis_group(mesh, rules["batch"])
+            y, aux = _sort_forward(p, collectives.all_gather(x, group), cfg)
+            i = mesh_mod.axis_index(mesh, rules["batch"])
+            return y[i * B:(i + 1) * B], aux
+    return _sort_forward(p, x, cfg)
+
+
+def _sort_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, d = x.shape
     m = cfg.moe
     T, k, E = B * S, m.top_k, m.num_experts
     C = moe_capacity(T, cfg)
     xf = x.reshape(T, d)
-
-    # --- routing (fp32) ---------------------------------------------------
-    logits = xf.float() @ p["router"]                      # [T, E]
-    probs = torch.softmax(logits, dim=-1)
-    gates, eidx = torch.topk(probs, k, dim=-1)             # [T, k]
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    probs, gates, eidx = route(p["router"], xf, k)
 
     # --- dispatch: each pair's slot, the per-expert counts, the buffer ----
     buf, dest_tk, counts = moe_dispatch(eidx, xf, E, C)    # [E, C, d]
@@ -86,16 +141,8 @@ def moe_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     f_e = counts.float() / (T * k)
     aux = E * torch.sum(f_e * probs.mean(dim=0)) * m.router_aux_coef
 
-    # --- grouped expert GEMMs ----------------------------------------------
-    h = swiglu(torch.bmm(buf, p["w_gate"]), torch.bmm(buf, p["w_up"]))
-    out = torch.bmm(h, p["w_down"])                        # [E, C, d]
-
-    # --- combine: each pair's row to [T, k], summed over k in fp32 ---------
-    out_flat = torch.cat([out.reshape(E * C, d),
-                          torch.zeros((1, d), dtype=out.dtype,
-                                      device=x.device)])
-    picked = out_flat.index_select(0, dest_tk).reshape(T, k, d).float()
-    y = (picked * gates[..., None]).sum(dim=1)
+    out = experts(buf, p["w_gate"], p["w_up"], p["w_down"])  # [E, C, d]
+    y = combine(out, dest_tk, gates)
 
     # --- shared experts: one dense MLP --------------------------------------
     if "shared" in p:

@@ -14,21 +14,39 @@ CUDA the forward and backward of each hand-written kernel (RMSNorm,
 flash, the MoE dispatch, SSD) are kernels.  As in the JAX trainer, a
 VLM's loss is taken over the text positions only: the logits of the
 patch positions before them are dropped.
+
+Data parallelism (the twin of the JAX CLI's ``--mesh``): under
+``sharding.axis_rules(mesh, rules)`` the step takes the rank's rows of
+the global batch, its share of every microbatch
+(``data.pipeline.rank_rows``), so microbatch i of the JAX program is
+split across the ranks and an MoE layer routes the same tokens
+(``models/moe.py`` gathers them over the batch axes).  Each rank
+accumulates its gradients as above; then every leaf is summed over the
+batch axes and divided by their size, before the grad norm, the skip,
+int8 compression and AdamW, so every replica applies the same update.
+The loss and metrics are reduced the same way.  Only the batch axes
+are trained over: a mesh with a model axis of more than one rank is
+refused.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import compression
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import api
 from repro_torch.models.params import Model
 from repro_torch.training import optimizer as opt_mod
 
 Tree = Dict[str, torch.Tensor]
+
+grad_all_reduces = 0     # the data-parallel step's all-reduce calls
 
 
 class TrainState(NamedTuple):
@@ -110,14 +128,19 @@ def _make_accumulate(cfg: ModelConfig, tc: TrainConfig):
             p.grad = None
         return grads, torch.stack([loss, ce, aux.float()]).detach()
 
-    def accumulate(params: Model, batch: Dict[str, Any]):
-        B = batch["tokens"].shape[0]
+    def accumulate(params: Model, batch: Dict[str, Any], n_dp: int = 1):
+        """`batch` is the rank's rows of a global batch n_dp times as
+        large, microbatch by microbatch."""
+        B = batch["tokens"].shape[0] * n_dp
         mb = tc.microbatch
         if not mb or mb >= B or B % mb:
             grads, lv = grads_of(params, batch)
             return ({n: g.float() for n, g in grads.items()},
                     {"loss": lv[0], "ce": lv[1], "aux": lv[2]})
-        n_mb = B // mb
+        if mb % n_dp:
+            raise ValueError(f"microbatch {mb} does not split over "
+                             f"{n_dp} data-parallel ranks")
+        n_mb, mb = B // mb, mb // n_dp
         gacc = {n: torch.zeros(p.shape, dtype=torch.float32,
                                device=p.device)
                 for n, p in params.named_parameters()}
@@ -167,16 +190,52 @@ def _apply_update(state: TrainState, grads: Tree, metrics: Dict,
     return TrainState(params=state.params, opt=opt, err=state.err), metrics
 
 
+def _data_group():
+    """(the batch axes' group, their size) of the active mesh, or
+    (None, 1) without one."""
+    ctx = shd.current_context()
+    if ctx is None:
+        return None, 1
+    mesh, rules = ctx
+    if shd.mesh_tp_degree(mesh) > 1:
+        raise NotImplementedError(
+            "the train step is data-parallel only: a model axis of "
+            f"{shd.mesh_tp_degree(mesh)} ranks is not trained over")
+    axes = rules.get("batch")
+    if axes is None:
+        return None, 1
+    return mesh_mod.axis_group(mesh, axes), mesh_mod.axis_size(mesh, axes)
+
+
+def _sync(grads: Tree, metrics: Dict, group, n: int) -> None:
+    """Sum every grad leaf and the loss metrics over the data-parallel
+    group and divide by its size, in place."""
+    global grad_all_reduces
+    for g in grads.values():
+        dist.all_reduce(g, group=group)
+        g /= n
+    lv = torch.stack([metrics["loss"], metrics["ce"], metrics["aux"]])
+    dist.all_reduce(lv, group=group)
+    lv /= n
+    grad_all_reduces += len(grads) + 1
+    metrics.update(loss=lv[0], ce=lv[1], aux=lv[2])
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     """Returns train_step(state, batch) -> (state, metrics).
 
     If tc.microbatch is set and divides the batch, gradients are
     accumulated over batch // microbatch backward passes (activation
-    memory scales with the microbatch, not the batch)."""
+    memory scales with the microbatch, not the batch).  Under a mesh
+    (``sharding.axis_rules``) `batch` is the rank's rows and the
+    gradients are averaged over the batch axes (module docstring)."""
     accumulate = _make_accumulate(cfg, tc)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        grads, metrics = accumulate(state.params, batch)
+        group, n = _data_group()
+        grads, metrics = accumulate(state.params, batch, n)
+        if group is not None:
+            _sync(grads, metrics, group, n)
         return _apply_update(state, grads, metrics, tc)
 
     return train_step

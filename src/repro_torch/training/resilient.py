@@ -13,9 +13,10 @@ Recovery contract (as in the JAX package):
     cursor assignment;
   * faults fire exactly once, so replayed steps do not re-crash.
 
-The JAX loop's `fleet` argument (pod faults as barrier waits of
-``distributed.elastic.Fleet``) comes with the distributed slice of the
-port (ROADMAP Queue 1, item 8).
+With a ``distributed.elastic.Fleet``, scheduled pod faults become
+barrier waits, as in the JAX loop: stalled pods drop out of the fleet
+step's masked-mean gradient reduce and rejoin later, failed pods leave
+for good.
 
 The step mutates the state in place, but a fault fires before the step
 runs (before the loader advances), so a recovery without a checkpoint
@@ -29,9 +30,26 @@ import contextlib
 import time
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
+
 from repro_torch.faults.plan import FaultInjector, TransientFault
 from repro_torch.obs.flight import flight
-from repro_torch.training.loop import TrainState
+from repro_torch.training.loop import TrainState, _split_batch
+
+
+def _pod_waits(injector: FaultInjector, fleet) -> np.ndarray:
+    """Convert this step's scheduled pod faults into barrier waits (a
+    stalled pod reports a wait past the policy deadline) and permanent
+    failures."""
+    n = fleet.masks.n_pods
+    waits = np.zeros(n, np.float64)
+    for f in injector.poll("pod"):
+        pod = int(f.arg) % n
+        if f.kind == "pod_stall":
+            waits[pod] = fleet.policy.deadline_s + 1.0
+        elif f.kind == "pod_fail":
+            fleet.masks.fail(pod)
+    return waits
 
 
 def train_with_recovery(
@@ -49,12 +67,16 @@ def train_with_recovery(
     backoff_max_s: float = 0.5,
     registry=None,
     on_step: Optional[Callable[[int, TrainState, Dict], None]] = None,
+    fleet=None,
 ) -> Tuple[TrainState, int]:
     """Run `step_fn` from `start_step` to `total_steps`, recovering from
     `TransientFault`s.  Returns (final_state, restarts_used).
 
-    `step_fn(state, batch) -> (state, metrics)`.  `on_step(step_1based,
-    state, metrics)` runs after every successful step."""
+    `step_fn(state, batch) -> (state, metrics)`; with `fleet` set the
+    signature is `step_fn(state, pod_batch, healthy)` (the fleet step
+    from ``loop.make_fleet_train_step``) and batches are pod-split here.
+    `on_step(step_1based, state, metrics)` runs after every successful
+    step."""
     step = start_step
     restarts = 0
     held = manager.held if manager is not None else contextlib.nullcontext
@@ -62,11 +84,20 @@ def train_with_recovery(
         with held():
             try:
                 if injector is not None:
-                    # fires BEFORE the loader advances, so a recovery
-                    # replays this step's batch exactly
+                    if fleet is not None:
+                        fleet.note_waits(_pod_waits(injector, fleet))
+                    # fires AFTER the pod bookkeeping, BEFORE the loader
+                    # advances, so a recovery replays this step's batch
+                    # exactly
                     injector.check_raise("train.step")
                 batch = next(loader)
-                state, metrics = step_fn(state, batch)
+                if fleet is not None:
+                    healthy = np.asarray(fleet.healthy(), np.float32)
+                    state, metrics = step_fn(
+                        state, _split_batch(batch, fleet.masks.n_pods),
+                        healthy)
+                else:
+                    state, metrics = step_fn(state, batch)
                 step += 1
                 if on_step is not None:
                     on_step(step, state, metrics)

@@ -31,7 +31,10 @@ SCRIPT = textwrap.dedent("""
                  "faults.chaos", "obs.tracing", "obs.flight", "obs.export",
                  "obs.perf", "obs.server", "launch.serve",
                  "core.simt.machine", "runtime.spawn",
-                 "runtime.kernels_src.rodinia", "obs.demo"):
+                 "runtime.kernels_src.rodinia", "obs.demo",
+                 "launch.mesh", "distributed.sharding",
+                 "distributed.collectives", "distributed.elastic",
+                 "core.combinators", "core.spawn", "models.moe_a2a"):
         assert "repro_torch." + want in names, (want, names)
 """)
 

@@ -7,7 +7,8 @@ grad leaf, the updated params; remat none, full and dots, and
 microbatch 2); grad-spike skipping, int8 compression, the fleet step
 with a masked pod and the synthetic data stream; the crash-and-resume
 loop against a fault-free run, bit for bit; checkpoints across the
-two packages; and the train CLI, with its preemption flush.
+two packages; and the train CLI, with its preemption flush and its
+one-rank ``--mesh`` (the same losses as the plain run).
 
 Tolerances (fp32 on both sides, sums in other orders): the plain
 backwards 1e-5; the train step's loss, ce, grad norm and lr 1e-5
@@ -527,9 +528,17 @@ def test_train_cli_on_cpu(capsys, tmp_path):
     assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0
                for h in history)
     assert store.list_steps(str(tmp_path)) == [3]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                        "--mesh"])
+    # --mesh in one process: a world of one gloo rank, the same bits
+    meshed = []
+    assert train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                           "--steps", "3", "--seq", "32", "--batch", "4",
+                           "--microbatch", "2", "--log-every", "1",
+                           "--mesh"], history=meshed) == 0
+    out = capsys.readouterr().out
+    assert "mesh {'data': 1, 'model': 1} (gloo) rank 0" in out
+    assert [(h["loss"], h["ce"], h["grad_norm"]) for h in meshed] == \
+        [(h["loss"], h["ce"], h["grad_norm"]) for h in history]
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-tiny"])
