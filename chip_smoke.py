@@ -202,9 +202,27 @@ of JAX and nothing of the ``repro`` package.  In order:
    ``compressed_psum``, ``ring_all_gather``, ``barrier`` and
    ``grid_spawn`` on CUDA tensors.
 
+12. drives the dry-run and roofline layer (``dryrun_phase``, last):
+   ``python -m repro_torch.launch.dryrun --all --mesh both`` over every
+   (arch x shape x mesh) cell on meta tensors, in separate processes,
+   where no cell may fail; then four cells that fit one card, built at
+   full width and depth through ``launch.cells`` in a world of one rank
+   over NCCL (phi3-mini-3.8b prefill [1, 4096] and decode at batch 16
+   over 4096 slots, h2o-danube-1.8b train [2, 4096] in microbatches of
+   1 with remat full, olmoe-1b-7b decode at batch 16 over 4096 slots):
+   each step timed between CUDA events, walked under
+   ``roofline.op_cost`` on CUDA and on meta (the FLOPs, bytes and
+   declared kernel costs must be equal), the placed argument bytes
+   against the materialized arguments', the state bytes against the
+   peak, the roofline bound on ``H100`` against the measured step (the
+   bound may not exceed it) and ``FlopCounterMode``'s product FLOPs
+   against ``op_cost``'s; each check cell is a path of the kernels
+   line.
+
 It prints a ``{"simt": ...}`` line, a ``{"serve": ...}`` line, a
 ``{"kv_q8": ...}`` line, a ``{"timings": ...}`` line, a ``{"train":
-...}`` line, a ``{"mesh": ...}`` line, one ``{"kernels": [...]}`` line,
+...}`` line, a ``{"mesh": ...}`` line, a ``{"dryrun": ...}`` line, one
+``{"kernels": [...]}`` line,
 the card's name and power limit, and ends with ``{"ok": true,
 "device": {...}}``. Any failed check raises.
 """
@@ -278,8 +296,12 @@ def _imports():
     from repro_torch.core import combinators, spawn
     from repro_torch.distributed import collectives, compression
     from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import cells as cells_mod
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import train as train_cli
+    from repro_torch.roofline import analysis as roof_analysis
+    from repro_torch.roofline import op_cost
+    from repro_torch.roofline.hw import H100
     from repro_torch.kernels.simt_machine import ops as simt_ops
     from repro_torch.kernels.ssm_scan import ops as ssd_ops
     from repro_torch.kernels.ssm_scan.ref import (ssd_intra_bwd_ref,
@@ -306,7 +328,8 @@ def _imports():
                 rmsnorm_bwd_ref=rmsnorm_bwd_ref, train_cli=train_cli,
                 combinators=combinators, spawn=spawn,
                 collectives=collectives, compression=compression, shd=shd,
-                mesh_mod=mesh_mod, moe_a2a=moe_a2a,
+                mesh_mod=mesh_mod, moe_a2a=moe_a2a, cells_mod=cells_mod,
+                roof_analysis=roof_analysis, op_cost=op_cost, H100=H100,
                 train_loop=train_loop,
                 train_with_recovery=train_with_recovery,
                 faults=faults, kv_pool=kv_pool,
@@ -3136,6 +3159,203 @@ FIG9_BENCHES = {  # name -> (kwargs, miss_latency)
 FIG9_BASELINE = ROOT / "benchmarks" / "baselines" / "BENCH_fig9_rodinia.json"
 FIG8_CONFIGS = [(1, 1), (2, 2), (2, 8), (4, 4), (2, 32), (8, 4), (8, 8),
                 (8, 32), (16, 16), (32, 32)]           # benchmarks/fig8_dse.py
+DRYRUN_TIMEOUT = 900    # seconds for the whole dry run (its processes)
+DRYRUN_RUNS = 3         # timed steps of a check cell
+# the dry run's cells that fit one H100, at full width and depth:
+# name: (arch, kind, seq, batch, microbatch of a train cell)
+DRYRUN_CHECKS = {
+    "phi3_prefill": (PHI3, "prefill", 4096, 1, None),
+    "phi3_decode": (PHI3, "decode", 4096, 16, None),
+    "danube_train": (DANUBE, "train", 4096, 2, 1),
+    "olmoe_decode": (OLMOE, "decode", 4096, 16, None),
+}
+
+
+def _dryrun_all(m) -> dict:
+    """(a) ``python -m repro_torch.launch.dryrun --all --mesh both`` in
+    its own processes (every cell on meta, nothing on the card) into a
+    scratch folder under ``build/``; every record read back."""
+    import os
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    jobs = max(1, min(8, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", "both", "--out", str(out_dir), "--jobs", str(jobs)],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    _check(res.returncode == 0, "dryrun failed:\n" + "\n".join(lines[-40:])
+           + res.stderr[-4000:])
+    recs = [json.loads(f.read_text()) for f in sorted(out_dir.glob("*.json"))]
+    skipped = [ln for ln in lines if ln.startswith("[skipped")]
+    errors = [r for r in recs if r["status"] == "error"]
+    _check(not errors, f"dryrun errors: {[r.get('error') for r in errors]}")
+    ok = [r for r in recs if r["status"] == "ok"]
+    walks = {(r["arch"], r["shape"]): r["walk_s"] for r in ok}
+    table = [{"arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+              "chips": r["chips"], "desc": r["desc"],
+              "per_device_gb": r["per_device_bytes"] / 1e9,
+              "fits_hbm": r["fits_hbm"],
+              "dominant": r["roofline"]["dominant"],
+              "compute_s": r["roofline"]["compute_s"],
+              "memory_s": r["roofline"]["memory_s"],
+              "collective_s": r["roofline"]["collective_s"],
+              "useful_fraction": r["roofline"]["useful_fraction"],
+              "mfu_bound": r["roofline"]["mfu_bound"],
+              "walk_s": r["walk_s"]} for r in ok]
+    return {"ok": len(ok), "skipped": len(skipped), "errors": len(errors),
+            "walk_s_total": sum(walks.values()), "wall_s": wall,
+            "jobs": jobs, "cells": table}
+
+
+def _tensors_of(m, tree) -> list:
+    torch = m["torch"]
+    leaves = m["torch"].utils._pytree.tree_leaves(
+        m["cells_mod"]._struct(tree))
+    return [t for t in leaves if isinstance(t, torch.Tensor)]
+
+
+def _check_cell(m, name: str, mesh) -> dict:
+    """(b) one check cell: built on CUDA (random weights, seed 0) and on
+    meta; a warm-up step, DRYRUN_RUNS steps between CUDA events (gaps
+    included) after the peak is reset, then a walk of the CUDA step and
+    of the meta one under ``op_cost``, and a step under
+    ``FlopCounterMode``."""
+    torch = m["torch"]
+    cm = m["cells_mod"]
+    arch, kind, seq, batch, micro = DRYRUN_CHECKS[name]
+    shape = m["ShapeConfig"](f"check_{kind}", seq, batch, kind)
+    kw = {}
+    if kind == "train":
+        kw["tc"] = m["TrainConfig"](microbatch=micro, remat="full",
+                                    learning_rate=TRAIN_LR)
+    meta = cm.build_cell(arch, shape, mesh, device="meta", **kw)
+    meta_cost, meta_out = meta.walk()
+    _free(torch)
+    cell = cm.build_cell(arch, shape, mesh, device="cuda", **kw)
+    arg_bytes = sum(t.numel() * t.element_size()
+                    for t in _tensors_of(m, cell.args))
+    _zero_counts(m)
+    cell.run()                                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(DRYRUN_RUNS):
+        cell.run()
+    b.record()
+    b.synchronize()
+    step_ms = a.elapsed_time(b) / DRYRUN_RUNS
+    peak = torch.cuda.max_memory_allocated()
+    counts = _counts(m)
+    routes = dict(m["fa_ops"].launches_by_route)
+    cuda_cost, cuda_out = cell.walk()
+    torch.cuda.synchronize()
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        cell.fn(*cell.args)
+    torch.cuda.synchronize()
+    counter_flops = fc.get_total_flops()
+    cost = cell.cost((cuda_cost, cuda_out))
+    roof = m["roof_analysis"].analyze(
+        cost, n_chips=1, model_flops=m["api"].model_flops(cell.cfg, shape),
+        chip=m["H100"])
+    state = cell.state_bytes_per_device(cuda_out)
+    placed = cell.arg_bytes_per_device()
+    rec = {
+        "arch": arch, "shape": [batch, seq], "kind": kind,
+        "desc": cell.static_desc, "microbatches": cell.microbatches,
+        "step_ms": step_ms, "bound_ms": 1e3 * roof.total_s,
+        "time_over_bound": step_ms / (1e3 * roof.total_s),
+        "dominant": roof.dominant, "compute_ms": 1e3 * roof.compute_s,
+        "memory_ms": 1e3 * roof.memory_s,
+        "collective_ms": 1e3 * roof.collective_s,
+        "flops": cost.flops, "bytes": cost.bytes,
+        "product_flops": cuda_cost.product_flops,
+        "flop_counter_flops": counter_flops,
+        "meta_flops": meta_cost.flops, "meta_bytes": meta_cost.bytes,
+        "cuda_walk_flops": cuda_cost.flops, "cuda_walk_bytes": cuda_cost.bytes,
+        "declared": cuda_cost.declared,
+        "state_gb": state / 1e9, "arg_gb": arg_bytes / 1e9,
+        "placed_arg_gb": placed / 1e9, "peak_gb": peak / 1e9,
+        "useful_fraction": roof.useful_fraction, "mfu_bound": roof.mfu_bound,
+        "launches": counts, "flash_launches_by_route": routes}
+    _check((cuda_cost.flops, cuda_cost.bytes)
+           == (meta_cost.flops, meta_cost.bytes),
+           f"{name}: the CUDA walk ({cuda_cost.flops}, {cuda_cost.bytes}) "
+           f"differs from the meta walk ({meta_cost.flops}, "
+           f"{meta_cost.bytes}); ops only on CUDA: "
+           + str({k: v for k, v in cuda_cost.op_counts.items()
+                  if meta_cost.op_counts.get(k) != v})
+           + "; only on meta: "
+           + str({k: v for k, v in meta_cost.op_counts.items()
+                  if cuda_cost.op_counts.get(k) != v}))
+    _check(cuda_cost.declared == meta_cost.declared,
+           f"{name}: declared kernel costs differ between CUDA and meta")
+    _check(placed == arg_bytes, f"{name}: placed argument bytes {placed} "
+           f"!= the materialized arguments' {arg_bytes}")
+    _check(state <= peak, f"{name}: state bytes {state} above the peak "
+           f"{peak}")
+    _check(roof.total_s * 1e3 <= step_ms, f"{name}: roofline bound "
+           f"{1e3 * roof.total_s:.3f} ms above the measured step "
+           f"{step_ms:.3f} ms (a counting fault)")
+    _check(counter_flops == cuda_cost.product_flops,
+           f"{name}: FlopCounterMode {counter_flops} != op_cost's product "
+           f"FLOPs {cuda_cost.product_flops}")
+    del cell, cuda_out, meta, meta_out
+    _free(torch)
+    return rec
+
+
+def dryrun_phase(m) -> dict:
+    """The dry-run and roofline layer (``launch/{cells,dryrun}.py``,
+    ``roofline/``):
+
+    (a) every (arch x shape x mesh) cell of ``dryrun --all --mesh both``
+        (meta tensors, separate processes): no cell may fail;
+    (b) the cells of DRYRUN_CHECKS, which fit one H100, at full width
+        and depth, in a world of one rank over NCCL (``make_test_mesh(1,
+        1)``): the CUDA walk's FLOPs, bytes and declared kernel costs
+        equal the meta walk's exactly, the placements' argument bytes
+        equal the materialized arguments', the state bytes stay at or
+        below the measured peak, the roofline bound on ``H100`` stays at
+        or below the measured step, and ``FlopCounterMode``'s product
+        FLOPs equal ``op_cost``'s.  Each check cell is a path: the
+        kernel counts are zeroed before its warm-up and read after its
+        timed steps."""
+    torch = m["torch"]
+    _free(torch)
+    out = {"all": _dryrun_all(m)}
+    dr = out["all"]
+    print(f"[dryrun] ok {dr['ok']} cells, skipped {dr['skipped']}, errors "
+          f"{dr['errors']}; walks {dr['walk_s_total']:.1f} s in total, "
+          f"{dr['wall_s']:.1f} s wall over {dr['jobs']} processes",
+          flush=True)
+    mesh_mod = m["mesh_mod"]
+    _, started = mesh_mod.init_world("cuda")
+    try:
+        mesh = mesh_mod.make_test_mesh(1, 1)
+        out["checks"] = {}
+        for name in DRYRUN_CHECKS:
+            rec = _check_cell(m, name, mesh)
+            out["checks"][name] = rec
+            print(f"[dryrun] {name} {rec['arch']} {rec['desc']} "
+                  f"{rec['shape']}: {rec['step_ms']:.2f} ms a step, bound "
+                  f"{rec['bound_ms']:.2f} ms ({rec['dominant']}), time / "
+                  f"bound {rec['time_over_bound']:.3f}; state "
+                  f"{rec['state_gb']:.2f} GB, peak {rec['peak_gb']:.2f} GB",
+                  flush=True)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+    return out
+
+
 CLAIM_CONFIGS = [(2, 2), (2, 8), (8, 2), (8, 8)]      # test_paper_claims.py
 SIMT_REPROFILE = 2      # profiles of a Fig 9 cell beyond the first, at most
 NAMED_CELLS = ("vecadd/8w8t", "bfs/2w2t")
@@ -3958,6 +4178,8 @@ def main() -> int:
           f"ms {mesh['a2a']['forward_device_ms']}, bit-equal "
           f"{mesh['a2a']['bit_equal']}", flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
+    dryrun = dryrun_phase(m)
+    print(json.dumps({"dryrun": dryrun}), flush=True)
     sources = {  # name: (source, replaces, index of the main-path shape)
         "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/kernel.py:31", 2),
@@ -3978,6 +4200,8 @@ def main() -> int:
     for key in NEW_TRAIN:
         paths[key] = train[key]
     paths["mesh_a2a"] = mesh["a2a"]
+    for name, rec in dryrun["checks"].items():
+        paths[f"dryrun_{name}"] = rec
     kernels = []
     for name, (source, replaces, main_shape) in sources.items():
         t = timings[name][main_shape]

@@ -102,13 +102,17 @@ def to_numpy(model: Model) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def init_params(cfg: ModelConfig, generator: torch.Generator, *,
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator], *,
                 device: DeviceLike = None,
                 dtype: Optional[torch.dtype] = None) -> Model:
     """Random model drawn in fp32 from `generator` (which must live on
-    `device`), each leaf by its spec's init."""
+    `device`), each leaf by its spec's init.  On ``meta`` (the dry run)
+    the leaves are allocated empty, nothing is drawn and `generator` is
+    ignored: ``torch.Generator`` has no meta device."""
     model = _empty_model(cfg, device, dtype)
     dev = model.device
+    if dev.type == "meta":
+        return model
     for _name, p, leaf, n in model.leaves():
         if leaf.init == "fill":
             p.data.fill_(leaf.value)

@@ -1,6 +1,6 @@
 """Model configuration for the PyTorch port: a copy of
 ``repro.configs.base`` (the model dataclasses, ``ShapeConfig`` and
-``TrainConfig``; the dry-run's shape cells come with a later slice).
+``TrainConfig``, and the dry run's four shape cells).
 Configs are frozen dataclasses so they hash and can key caches.
 """
 from __future__ import annotations
@@ -86,6 +86,15 @@ class ModelConfig:
         return (self.family in ("ssm", "hybrid", "xlstm")
                 or self.sliding_window is not None)
 
+    def param_count(self) -> int:
+        """Total parameters (exact, from the port's spec builders)."""
+        from repro_torch.models.api import count_params_analytic
+        return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.api import count_params_analytic
+        return count_params_analytic(self, active_only=True)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -104,6 +113,31 @@ class ShapeConfig:
     @property
     def tokens(self) -> int:
         return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeConfig("train_4k", seq_len=4_096, global_batch=256,
+                       kind="train")
+PREFILL_32K = ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32,
+                          kind="prefill")
+DECODE_32K = ShapeConfig("decode_32k", seq_len=32_768, global_batch=128,
+                         kind="decode")
+LONG_500K = ShapeConfig("long_500k", seq_len=524_288, global_batch=1,
+                        kind="decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+def applicable_shapes(cfg: ModelConfig) -> Tuple[ShapeConfig, ...]:
+    """The shape cells that are well-defined for an architecture:
+    long_500k needs a sub-quadratic decode path (SSM, recurrence or a
+    sliding window); the pure full-attention archs skip it."""
+    out = []
+    for s in ALL_SHAPES:
+        if s.name == "long_500k" and not cfg.supports_long_context:
+            continue
+        out.append(s)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

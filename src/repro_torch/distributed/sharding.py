@@ -161,10 +161,13 @@ def tree_shardings_checked(spec_tree, struct_tree, mesh: DeviceMesh,
                            rules: Rules):
     """Like tree_shardings, but drops any axis assignment whose
     dimension is not divisible by the mesh axis size.  `struct_tree`'s
-    leaves have a ``shape`` (tensors or arrays)."""
+    leaves have a ``shape`` (tensors or arrays); a None leaf (an absent
+    state, as the compression error without compression) is
+    replicated."""
     return pytree.tree_map(
         lambda lg, st: spec_placements(
-            checked_spec(lg, st.shape, mesh, rules), mesh),
+            checked_spec(lg, () if st is None else st.shape, mesh, rules),
+            mesh),
         spec_tree, struct_tree, is_leaf=_is_spec_leaf)
 
 

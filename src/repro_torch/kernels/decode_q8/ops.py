@@ -15,18 +15,21 @@ size, the positions a block and the shared bytes from the shape; only a cache wh
 memory takes the scratch form, and only then does the wrapper allocate
 more than the output.  ``launches`` counts wrapper calls that launched
 the kernel.  It takes D in ``HEAD_DIMS`` and up to ``MAX_GROUP`` query
-heads a kv head, and raises on anything else.
+heads a kv head, and raises on anything else.  Meta tensors (the dry
+run) take the plain version for their shapes; each call declares its
+cost to an active op-cost walk (``roofline.op_cost.kernel``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, NamedTuple, Optional
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import obs
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_q8.ref import decode_attention_q8_ref
+from repro_torch.roofline import op_cost
 
 SOURCE = "src/repro_torch/csrc/decode_attention_q8.cu"
 HEAD_DIMS = (32, 80, 96, 128)
@@ -95,12 +98,28 @@ def plan(B: int, Smax: int, KV: int, G: int, D: int) -> Plan:
                      f"{(B, Smax, KV, G, D)}")
 
 
+def cost(q: torch.Tensor, cache: Mapping[str, torch.Tensor]
+         ) -> Tuple[float, float]:
+    """(flops, bytes) of one call from the shapes alone: the int8 k and
+    v and their fp16 scales read over all Smax positions, q read and the
+    output written once; 4·D operations a query head and position (the
+    two products).  The kernel skips masked positions and v rows whose
+    probability rounds to 0, which no shape shows."""
+    B, _, Hq, D = q.shape
+    Smax = cache["k"].shape[1]
+    nbytes = op_cost.nbytes(cache["k"], cache["v"], cache["k_scale"],
+                            cache["v_scale"]) + 2 * op_cost.nbytes(q)
+    return 4.0 * D * Smax * Hq * B, nbytes
+
+
 def _decode_attention_q8(q: torch.Tensor, cache: Mapping[str, torch.Tensor],
                          cache_len, *, window: Optional[int] = None
                          ) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return decode_attention_q8_ref(q, cache, cache_len, window=window)
-    return decode_attention_q8_cuda(q, cache, cache_len, window=window)
+    with op_cost.kernel("decode_attention_q8", lambda: cost(q, cache)):
+        if q.device.type in ("cpu", "meta"):   # meta: the dry run's shapes
+            return decode_attention_q8_ref(q, cache, cache_len,
+                                           window=window).contiguous()
+        return decode_attention_q8_cuda(q, cache, cache_len, window=window)
 
 
 decode_attention_q8 = obs.instrument_kernel("decode_attention_q8",

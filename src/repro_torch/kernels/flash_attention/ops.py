@@ -21,17 +21,26 @@ tiles fed by TMA (P and dS rounded to bf16 before their products), fp32
 on FMA.  On the CPU plain autograd runs through
 ``attention_ref``.  ``ref.flash_fwd_ref`` / ``ref.flash_bwd_ref`` are
 the kernels' plain versions in the tests and ``chip_smoke.py``.
+
+Meta tensors (the dry run) take ``attention_ref`` for their shapes.
+The entry and the backward declare their costs to an active op-cost
+walk (``roofline.op_cost.kernel``); during a walk a CPU or meta call
+under grad runs ``_Flash`` with ``flash_fwd_ref`` / ``flash_bwd_ref``
+inside, the graph of a CUDA call, so every device counts alike.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch import obs
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     flash_bwd_ref,
+                                                     flash_fwd_ref)
+from repro_torch.roofline import op_cost
 
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
@@ -52,8 +61,15 @@ bwd_launches = 0
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out, lse = flash_attention_cuda(q, k, v, causal=causal,
-                                        window=window, with_lse=True)
+        if q.device.type == "cuda":
+            out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window, with_lse=True)
+        elif q.device.type == "meta":       # the dry run: shapes only
+            B, S, H, _ = q.shape
+            out = q.new_empty(q.shape)       # the kernel's layouts
+            lse = q.new_empty((B, H, S), dtype=torch.float32)
+        else:
+            out, lse = flash_fwd_ref(q, k, v, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
@@ -61,22 +77,55 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, do,
-                                              causal=ctx.causal,
-                                              window=ctx.window)
+        with op_cost.kernel("flash_attention_bwd",
+                            lambda: _cost(q, k, ctx.causal, ctx.window,
+                                          backward=True)):
+            if q.device.type == "cuda":
+                dq, dk, dv = flash_attention_bwd_cuda(
+                    q, k, v, out, lse, do, causal=ctx.causal,
+                    window=ctx.window)
+            elif q.device.type == "meta":   # the dry run: shapes only
+                dq, dk, dv = (t.new_empty(t.shape) for t in (q, k, v))
+            else:
+                dq, dk, dv = flash_bwd_ref(q, k, v, out, lse, do,
+                                           causal=ctx.causal,
+                                           window=ctx.window)
         return dq, dk, dv, None, None
+
+
+def _cost(q: torch.Tensor, k: torch.Tensor, causal: bool,
+          window: Optional[int], backward: bool = False,
+          lse: bool = False) -> Tuple[float, float]:
+    """(flops, bytes) of one call, PERF.md's bound: 4·D operations a
+    query head and unmasked (query, key) pair forward, 10·D backward;
+    q, k, v read and out (and the fp32 row LSE) written once, the
+    backward reading q, k, v, out, dout, LSE and writing dq, dk, dv."""
+    B, S, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    pairs = op_cost.attention_pairs(S, Sk, causal, window)
+    qb, kb = op_cost.nbytes(q), op_cost.nbytes(k)
+    lse_b = 4 * B * H * S
+    if backward:
+        return 10 * D * pairs * H * B, 4 * qb + 4 * kb + lse_b
+    return 4 * D * pairs * H * B, 2 * qb + 2 * kb + (lse_b if lse else 0)
 
 
 def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool = True,
                      window: Optional[int] = None) -> torch.Tensor:
     """q: [B,S,H,D]; k,v: [B,Sk,KV,D] -> [B,S,H,D]."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _Flash.apply(q, k, v, causal, window)
-    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    with op_cost.kernel("flash_attention",
+                        lambda: _cost(q, k, causal, window, lse=grad)):
+        if q.device.type in ("cpu", "meta"):   # meta: the dry run's shapes
+            return op_cost.plain_call(
+                _Flash, lambda q, k, v, causal, window: attention_ref(
+                    q, k, v, causal=causal, window=window).contiguous(),
+                grad, q, k, v, causal, window)
+        if grad:
+            return _Flash.apply(q, k, v, causal, window)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
 flash_attention = obs.instrument_kernel("flash_attention", _flash_attention)

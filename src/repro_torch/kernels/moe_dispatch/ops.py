@@ -16,6 +16,12 @@ kernel ``moe_dispatch_bwd`` (``moe_dispatch_bwd_cuda``, counted in
 ``bwd_launches``): a gather-sum of each token's buffer rows, bit-exact
 with ``moe_dispatch_bwd_ref``.  On the CPU plain autograd runs through
 ``moe_dispatch_ref``.
+
+Meta tensors (the dry run) take ``moe_dispatch_ref`` for their shapes.
+The entry and the backward declare their costs to an active op-cost
+walk (``roofline.op_cost.kernel``); during a walk a CPU or meta call
+under grad runs ``_MoeDispatch`` over the plain versions, the graph of
+a CUDA call, so every device counts alike.
 """
 from __future__ import annotations
 
@@ -26,7 +32,9 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels import build
-from repro_torch.kernels.moe_dispatch.ref import moe_dispatch_ref
+from repro_torch.kernels.moe_dispatch.ref import (moe_dispatch_bwd_ref,
+                                                  moe_dispatch_ref)
+from repro_torch.roofline import op_cost
 
 SOURCE = "src/repro_torch/csrc/moe_dispatch.cu"
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -40,7 +48,10 @@ bwd_launches = 0
 class _MoeDispatch(torch.autograd.Function):
     @staticmethod
     def forward(ctx, eidx, x, E, C):
-        buf, dest_tk, counts = moe_dispatch_cuda(eidx, x, E, C)
+        if x.device.type == "cuda":
+            buf, dest_tk, counts = moe_dispatch_cuda(eidx, x, E, C)
+        else:
+            buf, dest_tk, counts = moe_dispatch_ref(eidx, x, E, C)
         ctx.mark_non_differentiable(dest_tk, counts)
         ctx.save_for_backward(dest_tk)
         ctx.T, ctx.k = x.shape[0], eidx.shape[1]
@@ -49,17 +60,43 @@ class _MoeDispatch(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dbuf, _ddest, _dcounts):
         dest_tk, = ctx.saved_tensors
-        return None, moe_dispatch_bwd_cuda(dbuf, dest_tk, ctx.T, ctx.k), \
-            None, None
+        with op_cost.kernel("moe_dispatch_bwd",
+                            lambda: _bwd_cost(dbuf, ctx.T, ctx.k)):
+            if dbuf.device.type == "cuda":
+                dx = moe_dispatch_bwd_cuda(dbuf, dest_tk, ctx.T, ctx.k)
+            else:
+                dx = moe_dispatch_bwd_ref(dbuf, dest_tk, ctx.T, ctx.k)
+        return None, dx, None, None
+
+
+def _cost(eidx: torch.Tensor, x: torch.Tensor, E: int,
+          C: int) -> Tuple[float, float]:
+    """(flops, bytes) of one forward: eidx and x read, the buffer
+    [E, C, d], dest_tk and counts written (a gather: no operations)."""
+    T, k = eidx.shape
+    return 0.0, (op_cost.nbytes(eidx, x) + E * C * x.shape[1]
+                 * x.element_size() + 4 * T * k + 4 * E)
+
+
+def _bwd_cost(dbuf: torch.Tensor, T: int, k: int) -> Tuple[float, float]:
+    """(flops, bytes) of one backward: dest_tk read, at most min(T·k,
+    E·C) buffer rows gathered and summed, dx [T, d] written."""
+    E, C, d = dbuf.shape
+    rows = min(T * k, E * C)
+    return float(rows * d), (4 * T * k + (rows + T) * d
+                             * dbuf.element_size())
 
 
 def _moe_dispatch(eidx: torch.Tensor, x: torch.Tensor, E: int, C: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    if x.device.type == "cpu":
-        return moe_dispatch_ref(eidx, x, E, C)
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _MoeDispatch.apply(eidx, x, E, C)
-    return moe_dispatch_cuda(eidx, x, E, C)
+    grad = torch.is_grad_enabled() and x.requires_grad
+    with op_cost.kernel("moe_dispatch", lambda: _cost(eidx, x, E, C)):
+        if x.device.type in ("cpu", "meta"):   # meta: the dry run's shapes
+            return op_cost.plain_call(_MoeDispatch, moe_dispatch_ref, grad,
+                                      eidx, x, E, C)
+        if grad:
+            return _MoeDispatch.apply(eidx, x, E, C)
+        return moe_dispatch_cuda(eidx, x, E, C)
 
 
 moe_dispatch = obs.instrument_kernel("moe_dispatch", _moe_dispatch)

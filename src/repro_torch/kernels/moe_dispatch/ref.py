@@ -35,7 +35,9 @@ def moe_dispatch_ref(eidx: torch.Tensor, x: torch.Tensor, E: int, C: int
     T, k = eidx.shape
     dev = x.device
     flat_e = eidx.reshape(T * k)
-    counts = torch.bincount(flat_e, minlength=E)
+    # a scatter-add, not bincount: its size is E on meta tensors too
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     sort_idx = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[sort_idx]
     starts = torch.cumsum(counts, 0) - counts

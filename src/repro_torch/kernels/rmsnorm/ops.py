@@ -15,6 +15,12 @@ hand-written backward kernel (``rmsnorm_bwd``); ``bwd_launches`` /
 and the dscale sum).  On the CPU plain autograd runs through the plain
 versions; ``ref.rmsnorm_bwd_ref`` / ``ref.add_rmsnorm_bwd_ref`` are the
 backward kernel's plain versions in the tests and ``chip_smoke.py``.
+
+Meta tensors (the dry run) take the plain versions for their shapes.
+Each entry, and each backward, declares its cost to an active op-cost
+walk (``roofline.op_cost.kernel``); during a walk a CPU or meta call
+under grad runs the same ``autograd.Function`` as a CUDA one, with the
+plain forward and backward inside, so every device counts alike.
 """
 from __future__ import annotations
 
@@ -25,7 +31,10 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels import build
-from repro_torch.kernels.rmsnorm.ref import add_rmsnorm_ref, rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_bwd_ref,
+                                             add_rmsnorm_ref,
+                                             rmsnorm_bwd_ref, rmsnorm_ref)
+from repro_torch.roofline import op_cost
 
 SOURCE = "src/repro_torch/csrc/rmsnorm.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,12 +61,19 @@ class _RmsNorm(torch.autograd.Function):
     def forward(ctx, x, scale, eps):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        return _launch(x, None, scale, eps)[1]
+        if x.device.type == "cuda":
+            return _launch(x, None, scale, eps)[1]
+        return rmsnorm_ref(x, scale, eps)
 
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        dx, dscale = rmsnorm_bwd_cuda(x, None, dy, scale, ctx.eps)
+        with op_cost.kernel("rmsnorm_bwd",
+                            lambda: _bwd_cost(x, None, dy, scale)):
+            if x.device.type == "cuda":
+                dx, dscale = rmsnorm_bwd_cuda(x, None, dy, scale, ctx.eps)
+            else:
+                dx, dscale = rmsnorm_bwd_ref(x, scale, dy, ctx.eps)
         return dx, dscale, None
 
 
@@ -65,7 +81,10 @@ class _AddRmsNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, h, scale, eps):
         ctx.set_materialize_grads(False)
-        s, y = _launch(x, h, scale, eps)
+        if x.device.type == "cuda":
+            s, y = _launch(x, h, scale, eps)
+        else:
+            s, y = add_rmsnorm_ref(x, h, scale, eps)
         ctx.save_for_backward(s, scale)
         ctx.eps = eps
         return s, y
@@ -75,18 +94,45 @@ class _AddRmsNorm(torch.autograd.Function):
         if dy is None:      # only the sum took a gradient
             return ds, ds, None, None
         s, scale = ctx.saved_tensors
-        dh, dscale = rmsnorm_bwd_cuda(s, ds, dy, scale, ctx.eps)
+        with op_cost.kernel("add_rmsnorm_bwd",
+                            lambda: _bwd_cost(s, ds, dy, scale)):
+            if s.device.type == "cuda":
+                dh, dscale = rmsnorm_bwd_cuda(s, ds, dy, scale, ctx.eps)
+            else:
+                dh, dscale = add_rmsnorm_bwd_ref(s, ds, dy, scale, ctx.eps)
         return dh, dh, dscale, None
+
+
+def _cost(x: torch.Tensor, h: Optional[torch.Tensor],
+          scale: torch.Tensor) -> Tuple[float, float]:
+    """(flops, bytes) of one forward: x (and h) and scale read, y (and
+    the sum s) written; 4 operations an element (square, sum, the two
+    scalings), 5 with the add."""
+    n = x.numel()
+    io = op_cost.nbytes(x, scale) + x.numel() * x.element_size() * (
+        1 if h is None else 3)
+    return (4 if h is None else 5) * n, io
+
+
+def _bwd_cost(x: torch.Tensor, ds: Optional[torch.Tensor],
+              dy: torch.Tensor, scale: torch.Tensor) -> Tuple[float, float]:
+    """(flops, bytes) of one backward: x, dy (and ds) and scale read, dx
+    and dscale written; 8 operations an element."""
+    return 8 * x.numel(), (op_cost.nbytes(x, dy, ds, scale)
+                           + x.numel() * x.element_size()
+                           + op_cost.nbytes(scale))
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     """x: [..., d]; scale: [d] -> [..., d] in x's dtype."""
-    if x.device.type == "cpu":
-        return rmsnorm_ref(x, scale, eps)
-    if _needs_grad(x, scale):
-        return _RmsNorm.apply(x, scale, eps)
-    return rmsnorm_cuda(x, scale, eps)
+    with op_cost.kernel("rmsnorm", lambda: _cost(x, None, scale)):
+        if x.device.type in ("cpu", "meta"):   # meta: the dry run's shapes
+            return op_cost.plain_call(_RmsNorm, rmsnorm_ref,
+                                      _needs_grad(x, scale), x, scale, eps)
+        if _needs_grad(x, scale):
+            return _RmsNorm.apply(x, scale, eps)
+        return rmsnorm_cuda(x, scale, eps)
 
 
 rmsnorm = obs.instrument_kernel("rmsnorm", _rmsnorm)
@@ -95,11 +141,14 @@ rmsnorm = obs.instrument_kernel("rmsnorm", _rmsnorm)
 def _add_rmsnorm(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
                  eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, h: [..., d]; scale: [d] -> (x + h, rmsnorm(x + h))."""
-    if x.device.type == "cpu":
-        return add_rmsnorm_ref(x, h, scale, eps)
-    if _needs_grad(x, h, scale):
-        return _AddRmsNorm.apply(x, h, scale, eps)
-    return add_rmsnorm_cuda(x, h, scale, eps)
+    with op_cost.kernel("add_rmsnorm", lambda: _cost(x, h, scale)):
+        if x.device.type in ("cpu", "meta"):   # meta: the dry run's shapes
+            return op_cost.plain_call(_AddRmsNorm, add_rmsnorm_ref,
+                                      _needs_grad(x, h, scale), x, h,
+                                      scale, eps)
+        if _needs_grad(x, h, scale):
+            return _AddRmsNorm.apply(x, h, scale, eps)
+        return add_rmsnorm_cuda(x, h, scale, eps)
 
 
 add_rmsnorm = obs.instrument_kernel("add_rmsnorm", _add_rmsnorm)

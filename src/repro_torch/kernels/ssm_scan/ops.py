@@ -22,6 +22,12 @@ the tensor cores in 3xTF32, writes dcum, dxdt, dB and dC in fp32
 run.  Its scratch (C·Bᵀ tiles, the head groups' partial sums) is one
 fp32 buffer of ``ssd_intra_bwd_workspace`` floats.  On the CPU plain
 autograd runs through ``ssd_intra_ref``.
+
+Meta tensors (the dry run) take ``ssd_intra_ref`` for their shapes.
+The entry and the backward declare their costs to an active op-cost
+walk (``roofline.op_cost.kernel``); during a walk a CPU or meta call
+under grad runs ``_SsdIntra`` over the plain versions, the graph of a
+CUDA call, so every device counts alike.
 """
 from __future__ import annotations
 
@@ -32,7 +38,9 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels import build
-from repro_torch.kernels.ssm_scan.ref import ssd_intra_ref
+from repro_torch.kernels.ssm_scan.ref import (ssd_intra_bwd_ref,
+                                              ssd_intra_ref)
+from repro_torch.roofline import op_cost
 
 SOURCE = "src/repro_torch/csrc/ssm_scan.cu"
 BWD_SOURCE = "src/repro_torch/csrc/ssm_scan_bwd.cu"
@@ -50,21 +58,68 @@ class _SsdIntra(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cum, xdt, Bc, Cc):
         ctx.save_for_backward(cum, xdt, Bc, Cc)
-        return ssd_intra_cuda(cum, xdt, Bc, Cc)
+        if cum.device.type == "cuda":
+            return ssd_intra_cuda(cum, xdt, Bc, Cc)
+        return _plain(cum, xdt, Bc, Cc)
 
     @staticmethod
     def backward(ctx, dy, dS):
-        return ssd_intra_bwd_cuda(*ctx.saved_tensors, dy, dS)
+        cum, xdt, Bc, Cc = ctx.saved_tensors
+        with op_cost.kernel("ssd_intra_bwd", lambda: bwd_cost(*xdt.shape,
+                                                              Bc.shape[-1])):
+            if cum.device.type == "cuda":
+                return ssd_intra_bwd_cuda(cum, xdt, Bc, Cc, dy, dS)
+            if cum.device.type == "meta":      # the dry run: shapes only
+                return tuple(torch.empty_like(t) for t in (cum, xdt, Bc, Cc))
+            return tuple(t.contiguous() for t in
+                         ssd_intra_bwd_ref(cum, xdt, Bc, Cc, dy, dS))
+
+
+def cost(B: int, nc: int, Q: int, H: int, P: int,
+         N: int) -> Tuple[float, float]:
+    """(flops, bytes) of one forward, PERF.md's bound: C·Bᵀ over the
+    causal pairs once a chunk, M = C·Bᵀ ∘ decay and M @ xdt a head, the
+    state product a head; the four fp32 inputs read and both outputs
+    written once."""
+    pairs = Q * (Q + 1) // 2
+    flops = B * nc * (pairs * 2 * N + H * pairs * (2 + 2 * P)
+                      + H * Q * (N + 2 * N * P))
+    nbytes = 4 * B * nc * (Q * H + 2 * Q * H * P + 2 * Q * N + H * N * P)
+    return flops, nbytes
+
+
+def bwd_cost(B: int, nc: int, Q: int, H: int, P: int,
+             N: int) -> Tuple[float, float]:
+    """(flops, bytes) of one backward: its six inputs read and four
+    outputs written once (fp32); the products over the lower triangle
+    (dM = dy xdtᵀ and Mᵀ dy a head, C Bᵀ, dCB B and dCBᵀ C once a chunk)
+    and the dS terms (B dS, xdt dSᵀ a head)."""
+    tri = Q * (Q + 1) // 2
+    nbytes = 4 * B * nc * (2 * Q * H + 3 * Q * H * P + 4 * Q * N
+                           + H * N * P)
+    flops = 2 * B * nc * (2 * tri * P * H + 3 * tri * N + 2 * Q * N * P * H)
+    return flops, nbytes
+
+
+def _plain(cum, xdt, Bc, Cc) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ssd_intra_ref`` in the kernel's (contiguous) layouts, so that
+    the ops after it run alike on every device."""
+    y, S = ssd_intra_ref(cum, xdt, Bc, Cc)
+    return y.contiguous(), S.contiguous()
 
 
 def _ssd_intra(cum: torch.Tensor, xdt: torch.Tensor, Bc: torch.Tensor,
                Cc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    if cum.device.type == "cpu":
-        return ssd_intra_ref(cum, xdt, Bc, Cc)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (cum, xdt, Bc, Cc)):
-        return _SsdIntra.apply(cum, xdt, Bc, Cc)
-    return ssd_intra_cuda(cum, xdt, Bc, Cc)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (cum, xdt, Bc, Cc))
+    with op_cost.kernel("ssd_intra", lambda: cost(*xdt.shape,
+                                                  Bc.shape[-1])):
+        if cum.device.type in ("cpu", "meta"):  # meta: the dry run's shapes
+            return op_cost.plain_call(_SsdIntra, _plain, grad, cum, xdt, Bc,
+                                      Cc)
+        if grad:
+            return _SsdIntra.apply(cum, xdt, Bc, Cc)
+        return ssd_intra_cuda(cum, xdt, Bc, Cc)
 
 
 ssd_intra = obs.instrument_kernel("ssd_intra", _ssd_intra)

@@ -11,6 +11,9 @@ Topology, as in the JAX package:
 The ``pod`` axis composes with ``data`` for the batch, so adding pods
 widens data parallelism without touching the in-pod layout.
 
+``production_mesh_shape`` gives the production mesh's axes and sizes
+without devices, for the dry run's placements (``launch/cells.py``).
+
 ``init_world`` starts the process group a mesh needs.  Under
 ``torchrun`` it takes the environment's world (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``); otherwise it starts
@@ -21,6 +24,7 @@ one GPU, so a world larger than one on CUDA needs as many cards.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional, Sequence, Tuple, Union
 
@@ -82,6 +86,33 @@ def make_production_mesh(*, multi_pod: bool = False,
                            f"{world}")
     return DeviceMesh(_device_type(), torch.arange(need).reshape(shape),
                       mesh_dim_names=axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axes and sizes without its devices: what the sharding
+    rules read (``sharding.checked_spec``, ``spec_placements``) and
+    ``mesh_chips`` counts.  The dry run places a 256- or 512-device cell
+    on one, since a ``DeviceMesh`` needs a world as large as its
+    shape."""
+    mesh_dim_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def size(self, mesh_dim: int = 0) -> int:
+        return self.shape[mesh_dim]
+
+
+def production_mesh_shape(*, multi_pod: bool = False,
+                          pods: int = 2) -> MeshShape:
+    """The axes and sizes of ``make_production_mesh``, no world needed:
+    (data=16, model=16) or (pod=pods, data=16, model=16)."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (pods, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
 
 
 def make_test_mesh(data: int = 1, model: int = 1) -> Optional[DeviceMesh]:

@@ -6,6 +6,11 @@
   grow_caches(cfg, caches, max_len)           -> caches padded to max_len
   input_specs(cfg, shape)                     -> {name: TensorSpec}
   synthesize_batch(cfg, shape, generator)     -> a random batch of them
+  param_specs(cfg)                            -> {path: logical axes}
+  cache_specs(cfg, shape, kv_quant)           -> decode caches on meta
+  cache_logical_axes(cfg, shape, kv_quant)    -> their logical axes
+  count_params_analytic(cfg, active_only)     -> N (or N active)
+  model_flops(cfg, shape)                     -> 6 N D (train), 2 N D
 
 Families: dense / moe / vlm -> ``transformer``; hybrid (zamba2) ->
 ``zamba``; xlstm -> ``xlstm_lm``; audio (whisper) -> ``whisper``.  The
@@ -23,6 +28,7 @@ fp16 per-(token, head) scales, which 'decode' reads through the
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -33,6 +39,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer, whisper, xlstm_lm, zamba
 from repro_torch.models.common import dtype_of
+from repro_torch.models import params as P
 from repro_torch.models.params import Model
 
 # the windowed shared attention's width for zamba2's long-context cell
@@ -44,11 +51,12 @@ def build_params(cfg: ModelConfig,
                  device: DeviceLike = None,
                  dtype: Optional[torch.dtype] = None) -> Model:
     """Random weights with the JAX package's scales, from `generator`
-    (seed 0 on `device` when None).  The numbers differ from
+    (seed 0 on `device` when None); on ``meta`` (the dry run) empty
+    leaves, nothing drawn.  The numbers differ from
     ``repro.models.api.build_params``; load those with
     ``bridge.from_numpy`` to compare like with like."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     return bridge.init_params(cfg, generator, device=dev,
                               dtype=dtype or dtype_of(cfg.dtype))
@@ -205,3 +213,97 @@ def grow_caches(cfg: ModelConfig, caches: Dict[str, Any],
                 out[name] = leaf
         return out
     return grow(caches)
+
+
+# ---------------------------------------------------------------------------
+# dry-run stand-ins (``launch/cells.py``): meta tensors, nothing allocated
+# ---------------------------------------------------------------------------
+
+def _spec(cfg: ModelConfig):
+    fams = {"hybrid": zamba.zamba_spec, "xlstm": xlstm_lm.xlstm_lm_spec,
+            "audio": whisper.whisper_spec}
+    bridge.model_class(cfg)             # other families raise
+    return fams.get(cfg.family, transformer.lm_spec)(cfg)
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, P.Axes]:
+    """{dotted parameter path: logical axes}, each weight's ``Leaf.axes``
+    (``repro.models.api.param_specs`` under the bridge's paths)."""
+    return P.logical_axes(_spec(cfg))
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                kv_quant: bool = False) -> Dict[str, Any]:
+    """The decode caches of a decode cell (capacity seq_len) as meta
+    tensors: ``init_caches`` on ``meta`` (zamba2's long_500k caches
+    windowed, as its long-context cell runs them)."""
+    return init_caches(cfg, shape.global_batch, shape.seq_len,
+                       device="meta", long_context=shape.name == "long_500k",
+                       kv_quant=kv_quant)
+
+
+def _cache_rule(name: str, nd: int):
+    if name == "len":
+        return None
+    if name.endswith("_scale"):          # [.., B, S, KV] int8-cache scales
+        return (None,) * (nd - 3) + ("batch", "kv_seq", None)
+    if name in ("k", "v", "xk", "xv"):
+        base = ("batch", "kv_seq", None, None)
+        return (None,) * (nd - 4) + base if nd >= 4 else None
+    if name == "ssm":                    # [.., B, H, N, P]
+        return (None,) * (nd - 4) + ("batch", "state_heads", None, None)
+    if name.startswith("conv"):          # [.., B, W-1, C]
+        return (None,) * (nd - 3) + ("batch", None, "ssm_inner")
+    # xlstm cell states: [B, H, ...]: batch only (a tiny model)
+    return ("batch",) + (None,) * (nd - 1)
+
+
+def cache_logical_axes(cfg: ModelConfig, shape: ShapeConfig, *,
+                       kv_quant: bool = False) -> Dict[str, Any]:
+    """Logical axes of ``cache_specs``' leaves, in its structure, by the
+    JAX package's rules: KV caches shard batch and the sequence
+    (context-parallel decode), SSM states batch and heads, conv states
+    batch and the inner width, xLSTM states batch only."""
+    return cache_axes_of(cache_specs(cfg, shape, kv_quant=kv_quant))
+
+
+def cache_axes_of(caches: Dict[str, Any]) -> Dict[str, Any]:
+    """The rules of ``cache_logical_axes`` applied to a cache tree (a
+    prefill's output caches too)."""
+    return {name: cache_axes_of(leaf) if isinstance(leaf, dict)
+            else _cache_rule(name, leaf.dim())
+            for name, leaf in caches.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameter count from the spec builders (a meta model).
+
+    The JAX package's convention: the input embedding table is left out
+    unless tied (a gather does no FLOPs); the LM head is in.
+    `active_only` scales the expert weights of every leaf under ``moe``
+    (``w_gate``, ``w_up``, ``w_down``, the shared experts' too, as JAX
+    counts them) by top_k / num_experts."""
+    model = bridge.model_class(cfg)(cfg, dtype=dtype_of(cfg.dtype),
+                                    device=torch.device("meta"))
+    total = 0
+    for path, p in model.named_parameters():
+        names = path.split(".")
+        n = p.numel()
+        if "embed" in names and not cfg.tie_embeddings:
+            continue
+        if active_only and cfg.is_moe and "moe" in names and any(
+                x in ("w_gate", "w_up", "w_down") for x in names):
+            n = int(n * cfg.moe.top_k / cfg.moe.num_experts)
+        total += n
+    return total
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS of one step of the cell: 6 N D to train, 2 N D
+    forward only (N active for MoE); D = B*S tokens for train and
+    prefill, B for decode (one token)."""
+    n = count_params_analytic(cfg, active_only=cfg.is_moe)
+    d = shape.tokens if shape.kind != "decode" else shape.global_batch
+    mult = 6 if shape.kind == "train" else 2
+    return float(mult) * n * d

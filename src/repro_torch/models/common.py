@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rmsnorm.ops import add_rmsnorm as _add_rmsnorm_op
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as _rmsnorm_op
+from repro_torch.roofline import op_cost
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -58,15 +59,22 @@ class _EmbedLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dx):
         (tokens,) = ctx.saved_tensors
-        flat = tokens.reshape(-1)
-        order = torch.argsort(flat, stable=True)
-        uniq, counts = torch.unique_consecutive(flat[order],
-                                                return_counts=True)
-        rows = dx.reshape(-1, dx.shape[-1])[order].float()
-        sums = torch.segment_reduce(rows, "sum", lengths=counts, axis=0)
-        grad = torch.zeros(ctx.table_shape, dtype=ctx.table_dtype,
-                           device=dx.device)
-        grad[uniq] = sums.to(ctx.table_dtype)
+        # declared like a kernel: its segments' sizes depend on the data,
+        # so meta (the dry run) makes the gradient's shape only
+        with op_cost.kernel("embed_bwd", lambda: (
+                dx.numel(), op_cost.nbytes(dx, tokens) + math.prod(
+                    ctx.table_shape) * ctx.table_dtype.itemsize)):
+            grad = torch.zeros(ctx.table_shape, dtype=ctx.table_dtype,
+                               device=dx.device)
+            if dx.device.type == "meta":
+                return grad, None
+            flat = tokens.reshape(-1)
+            order = torch.argsort(flat, stable=True)
+            uniq, counts = torch.unique_consecutive(flat[order],
+                                                    return_counts=True)
+            rows = dx.reshape(-1, dx.shape[-1])[order].float()
+            sums = torch.segment_reduce(rows, "sum", lengths=counts, axis=0)
+            grad[uniq] = sums.to(ctx.table_dtype)
         return grad, None
 
 

@@ -63,12 +63,17 @@ def moe_capacity(num_tokens: int, cfg: ModelConfig) -> int:
 
 
 def moe_spec(cfg: ModelConfig):
-    """``repro.models.moe.init_moe``: the router stays fp32."""
-    d, m = cfg.d_model, cfg.moe
-    spec = {"router": P.Leaf((d, m.num_experts), "normal", d, fp32=True),
-            "w_gate": P.dense(m.num_experts, d, m.d_ff, fan_in=d),
-            "w_up": P.dense(m.num_experts, d, m.d_ff, fan_in=d),
-            "w_down": P.dense(m.num_experts, m.d_ff, d, fan_in=m.d_ff)}
+    """``repro.models.moe.init_moe``: the router stays fp32 (and whole on
+    every shard: the a2a dispatch needs it; ``moe_specs``)."""
+    d, m, E = cfg.d_model, cfg.moe, cfg.moe.num_experts
+    spec = {"router": P.dense(d, E, fan_in=d, fp32=True,
+                              axes=(None, None)),
+            "w_gate": P.dense(E, d, m.d_ff, fan_in=d,
+                              axes=("experts", "embed", None)),
+            "w_up": P.dense(E, d, m.d_ff, fan_in=d,
+                            axes=("experts", "embed", None)),
+            "w_down": P.dense(E, m.d_ff, d, fan_in=m.d_ff,
+                              axes=("experts", None, "embed"))}
     if m.num_shared:
         spec["shared"] = P.mlp_spec(d, m.num_shared * m.d_ff)
     return spec

@@ -9,7 +9,10 @@ whose parameter names are the JAX tree's paths joined by dots
 (``stage1.moe.shared.w_gate``), with the stacked [n, ...] leading axis
 that ``jax.vmap``-ed init gives.  Each ``Leaf`` carries its init (the
 JAX initializer and fan-in) and whether it stays fp32 in a bf16 model,
-so the bridge needs no name heuristics.
+so the bridge needs no name heuristics, and its logical axes (the JAX
+package's ``*_specs`` entry for that weight), so the sharding rules
+need no second tree: ``logical_axes`` gathers them by the same dotted
+paths, a ``Stack`` prepending ``None`` for its layer axis.
 """
 from __future__ import annotations
 
@@ -29,12 +32,16 @@ class Leaf:
     one of 'normal' (N(0, 1/fan_in), ``dense_init``), 'embed'
     (N(0, 0.02)), 'fill' (every element `value`: norms 1, biases 0, the
     xLSTM forget-gate biases); `fp32` keeps it fp32 in a bf16 model
-    (the router, ``A_log``, ``D``, ``dt_bias``, the xLSTM gates)."""
+    (the router, ``A_log``, ``D``, ``dt_bias``, the xLSTM gates);
+    `axes` one logical axis name (or None) a dim, as the JAX package's
+    ``*_specs`` give them (``distributed/sharding.py`` maps them onto a
+    mesh)."""
     shape: Tuple[int, ...]
     init: str = "normal"
     fan_in: int = 0
     fp32: bool = False
     value: float = 0.0
+    axes: Optional[Tuple[Optional[str], ...]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,26 +55,68 @@ class Stack:
 Spec = Mapping[str, Union[Leaf, Stack, Mapping[str, Any]]]
 
 
-def dense(*shape: int, fan_in: int) -> Leaf:
-    return Leaf(tuple(shape), "normal", fan_in)
+Axes = Tuple[Optional[str], ...]
 
 
-def full(*shape: int, value: float, fp32: bool = False) -> Leaf:
-    return Leaf(tuple(shape), "fill", fp32=fp32, value=value)
+def dense(*shape: int, fan_in: int, axes: Optional[Axes] = None,
+          fp32: bool = False) -> Leaf:
+    return Leaf(tuple(shape), "normal", fan_in, fp32=fp32, axes=axes)
 
 
-def ones(*shape: int, fp32: bool = False) -> Leaf:
-    return full(*shape, value=1.0, fp32=fp32)
+def full(*shape: int, value: float, axes: Optional[Axes] = None,
+         fp32: bool = False) -> Leaf:
+    return Leaf(tuple(shape), "fill", fp32=fp32, value=value, axes=axes)
 
 
-def zeros(*shape: int, fp32: bool = False) -> Leaf:
-    return full(*shape, value=0.0, fp32=fp32)
+def ones(*shape: int, axes: Optional[Axes] = None,
+         fp32: bool = False) -> Leaf:
+    return full(*shape, value=1.0, axes=axes, fp32=fp32)
+
+
+def zeros(*shape: int, axes: Optional[Axes] = None,
+          fp32: bool = False) -> Leaf:
+    return full(*shape, value=0.0, axes=axes, fp32=fp32)
+
+
+def embed(vp: int, d: int) -> Leaf:
+    """The embedding table [Vp, d], N(0, 0.02)."""
+    return Leaf((vp, d), "embed", axes=("vocab", "embed"))
+
+
+def lm_head(d: int, vp: int) -> Leaf:
+    return dense(d, vp, fan_in=d, axes=("embed", "vocab"))
+
+
+def norm(d: int, axis: Optional[str] = "embed") -> Leaf:
+    """A norm's scale [d], all ones."""
+    return ones(d, axes=(axis,))
 
 
 def mlp_spec(d: int, f: int) -> Dict[str, Leaf]:
-    """``repro.models.mlp.init_mlp``."""
-    return {"w_gate": dense(d, f, fan_in=d), "w_up": dense(d, f, fan_in=d),
-            "w_down": dense(f, d, fan_in=f)}
+    """``repro.models.mlp.init_mlp`` (axes: ``mlp_specs``)."""
+    return {"w_gate": dense(d, f, fan_in=d, axes=("embed", "mlp")),
+            "w_up": dense(d, f, fan_in=d, axes=("embed", "mlp")),
+            "w_down": dense(f, d, fan_in=f, axes=("mlp", "embed"))}
+
+
+def logical_axes(spec: Spec, prefix: str = "") -> Dict[str, Axes]:
+    """{dotted path: logical axes} of every leaf of `spec`, the paths of
+    ``ParamTree``; a ``Stack``'s leaves get a leading None (their layer
+    axis), as the JAX package's ``stacked`` gives them."""
+    out: Dict[str, Axes] = {}
+    for name, sub in spec.items():
+        path = prefix + name
+        if isinstance(sub, Stack):
+            out.update({k: (None,) + v for k, v in
+                        logical_axes(sub.spec, path + ".").items()})
+        elif isinstance(sub, Leaf):
+            if sub.axes is None or len(sub.axes) != len(sub.shape):
+                raise ValueError(f"{path}: axes {sub.axes} for shape "
+                                 f"{sub.shape}")
+            out[path] = tuple(sub.axes)
+        else:
+            out.update(logical_axes(sub, path + "."))
+    return out
 
 
 class ParamTree(nn.Module):

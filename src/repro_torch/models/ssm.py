@@ -28,6 +28,7 @@ from repro_torch.kernels.ssm_scan.ops import ssd_intra
 from repro_torch.kernels.ssm_scan.ref import head_group
 from repro_torch.models import params as P
 from repro_torch.models.common import rmsnorm
+from repro_torch.roofline import op_cost
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -43,18 +44,21 @@ def mamba2_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
     d = cfg.d_model
     di, H, _, N = ssm_dims(cfg)
     w = cfg.ssm.d_conv
+    inner, rep = ("embed", "ssm_inner"), ("embed", None)  # ``mamba2_specs``
     return {
-        "w_z": P.dense(d, di, fan_in=d), "w_x": P.dense(d, di, fan_in=d),
-        "w_B": P.dense(d, N, fan_in=d), "w_C": P.dense(d, N, fan_in=d),
-        "w_dt": P.dense(d, H, fan_in=d),
-        "conv_x": P.dense(di, w, fan_in=w),
-        "conv_B": P.dense(N, w, fan_in=w),
-        "conv_C": P.dense(N, w, fan_in=w),
-        "A_log": P.zeros(H, fp32=True),
-        "D": P.ones(H, fp32=True),
-        "dt_bias": P.zeros(H, fp32=True),
-        "norm": P.ones(di),
-        "w_out": P.dense(di, d, fan_in=di),
+        "w_z": P.dense(d, di, fan_in=d, axes=inner),
+        "w_x": P.dense(d, di, fan_in=d, axes=inner),
+        "w_B": P.dense(d, N, fan_in=d, axes=rep),
+        "w_C": P.dense(d, N, fan_in=d, axes=rep),
+        "w_dt": P.dense(d, H, fan_in=d, axes=rep),
+        "conv_x": P.dense(di, w, fan_in=w, axes=("ssm_inner", None)),
+        "conv_B": P.dense(N, w, fan_in=w, axes=(None, None)),
+        "conv_C": P.dense(N, w, fan_in=w, axes=(None, None)),
+        "A_log": P.zeros(H, fp32=True, axes=(None,)),
+        "D": P.ones(H, fp32=True, axes=(None,)),
+        "dt_bias": P.zeros(H, fp32=True, axes=(None,)),
+        "norm": P.norm(di, "ssm_inner"),
+        "w_out": P.dense(di, d, fan_in=di, axes=("ssm_inner", "embed")),
     }
 
 
@@ -139,7 +143,9 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
                       device=x.device) if init_state is None
           else init_state.float())
 
-    if x.device.type == "cuda":
+    if x.device.type != "cpu" or op_cost.plain_route():
+        # the kernel's route: CUDA, meta (the dry run), and the CPU during
+        # an op-cost walk, so that every device counts alike
         y_intra, S = ssd_intra(cum.contiguous(), xdt.contiguous(),
                                Bc.contiguous(), Cc.contiguous())
         y, final_state = _inter_chunk(y_intra, S, cum, Cc, s0)

@@ -51,13 +51,16 @@ def attention_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
     """``repro.models.attention.init_attention``."""
     d = cfg.d_model
     hq, kv, hd = attention.attn_dims(cfg)
-    spec = {"wq": P.dense(d, hq * hd, fan_in=d),
-            "wk": P.dense(d, kv * hd, fan_in=d),
-            "wv": P.dense(d, kv * hd, fan_in=d),
-            "wo": P.dense(hq * hd, d, fan_in=hq * hd)}
+    qkv = ("embed", "qkv")                 # axes: ``attention_specs``
+    spec = {"wq": P.dense(d, hq * hd, fan_in=d, axes=qkv),
+            "wk": P.dense(d, kv * hd, fan_in=d, axes=qkv),
+            "wv": P.dense(d, kv * hd, fan_in=d, axes=qkv),
+            "wo": P.dense(hq * hd, d, fan_in=hq * hd,
+                          axes=("qkv", "embed"))}
     if cfg.qkv_bias:
-        spec.update(bq=P.zeros(hq * hd), bk=P.zeros(kv * hd),
-                    bv=P.zeros(kv * hd))
+        spec.update(bq=P.zeros(hq * hd, axes=("qkv",)),
+                    bk=P.zeros(kv * hd, axes=("qkv",)),
+                    bv=P.zeros(kv * hd, axes=("qkv",)))
     return spec
 
 
@@ -65,7 +68,7 @@ def layer_spec(cfg: ModelConfig, kind: str,
                dense_ff: Optional[int] = None) -> Dict[str, Any]:
     """``_init_layer``: pre-norms, attention and an MLP or MoE block."""
     d = cfg.d_model
-    spec: Dict[str, Any] = {"norm1": P.ones(d), "norm2": P.ones(d),
+    spec: Dict[str, Any] = {"norm1": P.norm(d), "norm2": P.norm(d),
                             "attn": attention_spec(cfg)}
     if kind == "moe":
         spec["moe"] = moe_spec(cfg)
@@ -78,10 +81,10 @@ def lm_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """``init_lm``: embed [Vp,d], final_norm [d], lm_head [d,Vp] (absent
     when tied) and the stacked stages."""
     vp, d = padded_vocab(cfg.vocab_size), cfg.d_model
-    spec: Dict[str, Any] = {"embed": P.Leaf((vp, d), "embed"),
-                            "final_norm": P.ones(d)}
+    spec: Dict[str, Any] = {"embed": P.embed(vp, d),
+                            "final_norm": P.norm(d)}
     if not cfg.tie_embeddings:
-        spec["lm_head"] = P.dense(d, vp, fan_in=d)
+        spec["lm_head"] = P.lm_head(d, vp)
     for name, n, kind, dff in stage_plan(cfg):
         spec[name] = P.Stack(n, layer_spec(cfg, kind, dff))
     return spec

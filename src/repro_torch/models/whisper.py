@@ -40,20 +40,20 @@ from repro_torch.models.transformer import REMAT, attention_spec, remat_call
 
 def _enc_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.d_model
-    return {"norm1": P.ones(d), "norm2": P.ones(d),
+    return {"norm1": P.norm(d), "norm2": P.norm(d),
             "attn": attention_spec(cfg), "mlp": P.mlp_spec(d, cfg.d_ff)}
 
 
 def whisper_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """``init_whisper``."""
     d = cfg.d_model
-    dec = dict(_enc_layer_spec(cfg), norm_x=P.ones(d),
+    dec = dict(_enc_layer_spec(cfg), norm_x=P.norm(d),
                xattn=attention_spec(cfg))
-    return {"embed": P.Leaf((padded_vocab(cfg.vocab_size), d), "embed"),
+    return {"embed": P.embed(padded_vocab(cfg.vocab_size), d),
             "enc": P.Stack(cfg.encoder_layers, _enc_layer_spec(cfg)),
-            "enc_norm": P.ones(d),
+            "enc_norm": P.norm(d),
             "dec": P.Stack(cfg.num_layers, dec),
-            "final_norm": P.ones(d)}
+            "final_norm": P.norm(d)}
 
 
 class WhisperLM(P.Model):

@@ -43,17 +43,21 @@ def mlstm_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
     forget-gate bias starts at 3 (long memory at init)."""
     d = cfg.d_model
     di, H, _ = mlstm_dims(cfg)
+    inner = ("embed", "ssm_inner")         # axes: ``mlstm_specs``
+    col = ("ssm_inner", None)
     return {
-        "w_x": P.dense(d, di, fan_in=d), "w_z": P.dense(d, di, fan_in=d),
-        "conv": P.dense(di, CONV_W, fan_in=CONV_W),
-        "wq": P.dense(di, di, fan_in=di), "wk": P.dense(di, di, fan_in=di),
-        "wv": P.dense(di, di, fan_in=di),
-        "w_i": P.Leaf((di, H), "normal", di, fp32=True),
-        "w_f": P.Leaf((di, H), "normal", di, fp32=True),
-        "b_i": P.zeros(H, fp32=True),
-        "b_f": P.full(H, value=3.0, fp32=True),
-        "norm": P.ones(di),
-        "w_out": P.dense(di, d, fan_in=di),
+        "w_x": P.dense(d, di, fan_in=d, axes=inner),
+        "w_z": P.dense(d, di, fan_in=d, axes=inner),
+        "conv": P.dense(di, CONV_W, fan_in=CONV_W, axes=col),
+        "wq": P.dense(di, di, fan_in=di, axes=col),
+        "wk": P.dense(di, di, fan_in=di, axes=col),
+        "wv": P.dense(di, di, fan_in=di, axes=col),
+        "w_i": P.dense(di, H, fan_in=di, fp32=True, axes=col),
+        "w_f": P.dense(di, H, fan_in=di, fp32=True, axes=col),
+        "b_i": P.zeros(H, fp32=True, axes=(None,)),
+        "b_f": P.full(H, value=3.0, fp32=True, axes=(None,)),
+        "norm": P.norm(di, "ssm_inner"),
+        "w_out": P.dense(di, d, fan_in=di, axes=("ssm_inner", "embed")),
     }
 
 
@@ -63,13 +67,16 @@ def slstm_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
     d = cfg.d_model
     H = cfg.num_heads
     Dh = d // H
-    spec: Dict[str, P.Leaf] = {"norm": P.ones(d),
-                               "w_out": P.dense(d, d, fan_in=d)}
+    # axes: ``slstm_specs`` (w_out's output dim on the model axis)
+    spec: Dict[str, P.Leaf] = {
+        "norm": P.norm(d), "w_out": P.dense(d, d, fan_in=d,
+                                            axes=("embed", "mlp"))}
     for g in ("i", "f", "z", "o"):
-        spec[f"w_{g}"] = P.dense(d, d, fan_in=d)
-        spec[f"r_{g}"] = P.Leaf((H, Dh, Dh), "normal", Dh, fp32=True)
+        spec[f"w_{g}"] = P.dense(d, d, fan_in=d, axes=("embed", None))
+        spec[f"r_{g}"] = P.dense(H, Dh, Dh, fan_in=Dh, fp32=True,
+                                 axes=(None, None, None))
         spec[f"b_{g}"] = P.full(d, value=1.0 if g == "f" else 0.0,
-                                fp32=True)
+                                fp32=True, axes=(None,))
     return spec
 
 

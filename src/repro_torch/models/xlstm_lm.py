@@ -33,11 +33,11 @@ def xlstm_lm_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """``init_xlstm_lm``."""
     d = cfg.d_model
     spec: Dict[str, Any] = {
-        "embed": P.Leaf((padded_vocab(cfg.vocab_size), d), "embed"),
-        "final_norm": P.ones(d)}
+        "embed": P.embed(padded_vocab(cfg.vocab_size), d),
+        "final_norm": P.norm(d)}
     for i, kind in enumerate(layer_kinds(cfg)):
         spec[f"layer_{i:02d}"] = {
-            "norm": P.ones(d),
+            "norm": P.norm(d),
             "cell": (xlstm.mlstm_spec(cfg) if kind == "m"
                      else xlstm.slstm_spec(cfg))}
     return spec

@@ -47,15 +47,15 @@ def zamba_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """``init_zamba``."""
     n_groups, g, tail = plan(cfg)
     d = cfg.d_model
-    block = {"norm": P.ones(d), "mixer": ssm.mamba2_spec(cfg)}
+    block = {"norm": P.norm(d), "mixer": ssm.mamba2_spec(cfg)}
     spec: Dict[str, Any] = {
-        "embed": P.Leaf((padded_vocab(cfg.vocab_size), d), "embed"),
+        "embed": P.embed(padded_vocab(cfg.vocab_size), d),
         "blocks": P.Stack(n_groups * g, block),
-        "shared": {"norm1": P.ones(d), "norm2": P.ones(d),
+        "shared": {"norm1": P.norm(d), "norm2": P.norm(d),
                    "attn": attention_spec(cfg),
                    "mlp": P.mlp_spec(d, cfg.d_ff)},
-        "final_norm": P.ones(d),
-        "lm_head": P.dense(d, padded_vocab(cfg.vocab_size), fan_in=d),
+        "final_norm": P.norm(d),
+        "lm_head": P.lm_head(d, padded_vocab(cfg.vocab_size)),
     }
     if tail:
         spec["tail"] = P.Stack(tail, block)

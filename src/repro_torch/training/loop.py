@@ -42,6 +42,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import api
 from repro_torch.models.params import Model
+from repro_torch.roofline import op_cost
 from repro_torch.training import optimizer as opt_mod
 
 Tree = Dict[str, torch.Tensor]
@@ -64,7 +65,7 @@ def init_train_state(cfg: ModelConfig, tc: TrainConfig, *,
     JAX tree), which then train in place."""
     if params is None:
         dev = resolve_device(device)
-        if generator is None:
+        if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(tc.seed)
         params = api.build_params(cfg, generator, device=dev)
     for p in params.parameters():
@@ -74,6 +75,15 @@ def init_train_state(cfg: ModelConfig, tc: TrainConfig, *,
             for n, p in params.named_parameters()}
            if tc.grad_compression != "none" else None)
     return TrainState(params=params, opt=opt, err=err)
+
+
+def train_state_specs(cfg: ModelConfig, tc: TrainConfig) -> TrainState:
+    """Logical-axis trees mirroring ``TrainState``: the params' axes by
+    parameter name (``api.param_specs``), the optimizer's, and the
+    compression error's only under compression."""
+    p = api.param_specs(cfg)
+    return TrainState(params=p, opt=opt_mod.opt_state_specs(p),
+                      err=p if tc.grad_compression != "none" else None)
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +155,8 @@ def _make_accumulate(cfg: ModelConfig, tc: TrainConfig):
                                device=p.device)
                 for n, p in params.named_parameters()}
         lacc = torch.zeros(3, device=params.device)
-        for i in range(n_mb):
+        # an op-cost walk may count the first microbatch n_mb times
+        for i in op_cost.repeats(n_mb):
             grads, lv = grads_of(params, {k: v[i * mb:(i + 1) * mb]
                                           for k, v in batch.items()})
             for n, g in grads.items():

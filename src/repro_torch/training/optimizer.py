@@ -45,6 +45,12 @@ def init_opt_state(params: Model) -> OptState:
                                      device=params.device))
 
 
+def opt_state_specs(pspecs) -> OptState:
+    """Logical-axis trees of the optimizer state: master, m and v take
+    the params' axes, step none (``repro.training.optimizer``)."""
+    return OptState(master=pspecs, m=pspecs, v=pspecs, step=None)
+
+
 def lr_schedule(step: torch.Tensor, tc: TrainConfig) -> torch.Tensor:
     """Linear warmup then cosine decay to 10% (fp32)."""
     warm = torch.clamp((step / max(tc.warmup_steps, 1)).float(), max=1.0)

@@ -34,7 +34,9 @@ SCRIPT = textwrap.dedent("""
                  "runtime.kernels_src.rodinia", "obs.demo",
                  "launch.mesh", "distributed.sharding",
                  "distributed.collectives", "distributed.elastic",
-                 "core.combinators", "core.spawn", "models.moe_a2a"):
+                 "core.combinators", "core.spawn", "models.moe_a2a",
+                 "launch.cells", "launch.dryrun", "roofline.hw",
+                 "roofline.analysis", "roofline.op_cost"):
         assert "repro_torch." + want in names, (want, names)
 """)
 

@@ -150,9 +150,10 @@ def _cuda_call(q, cache):
 
 
 def test_cuda_wrapper_raises_and_never_falls_back(monkeypatch):
-    """Unsupported shapes raise by name; CPU tensors are refused; a call
-    that cannot build or launch raises (the checks patched past, as on a
-    card), and no launch is counted."""
+    """Unsupported shapes raise by name; CPU tensors are refused; a meta
+    call takes the plain version for its shapes; a call that cannot build
+    or launch raises (the checks patched past, as on a card), and no
+    launch is counted."""
     rng = np.random.default_rng(5)
     cache, _ = _cache(rng, 1, 8, 2, 32)
     q = torch.zeros((1, 1, 4, 32))
@@ -165,13 +166,14 @@ def test_cuda_wrapper_raises_and_never_falls_back(monkeypatch):
         _cuda_call(torch.zeros((1, 1, 32, 32)), cache)
     with pytest.raises(TypeError, match="int8"):
         _cuda_call(q, dict(cache, k=cache["k"].float()))
-    # a tensor that is not on the CPU goes to the kernel, never the plain
-    # version
+    # a meta tensor (the dry run) takes the plain version for its shapes
+    # and launches nothing; every other device goes to the kernel
     meta = {n: t.to("meta") for n, t in cache.items()}
-    with pytest.raises(ValueError, match="CUDA"):
-        q8_ops.decode_attention_q8(q.to("meta"), meta, 4)
-
     n = q8_ops.launches
+    out = q8_ops.decode_attention_q8(q.to("meta"), meta, 4)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert q8_ops.launches == n
+
     monkeypatch.setattr(q8_ops, "_check_device", lambda *ts: None)
 
     def no_nvcc(name):
