@@ -205,12 +205,18 @@ of JAX and nothing of the ``repro`` package.  In order:
 12. drives the dry-run and roofline layer (``dryrun_phase``, last):
    ``python -m repro_torch.launch.dryrun --all --mesh both`` over every
    (arch x shape x mesh) cell on meta tensors, in separate processes,
-   where no cell may fail; then four cells that fit one card, built at
-   full width and depth through ``launch.cells`` in a world of one rank
-   over NCCL (phi3-mini-3.8b prefill [1, 4096] and decode at batch 16
-   over 4096 slots, h2o-danube-1.8b train [2, 4096] in microbatches of
-   1 with remat full, olmoe-1b-7b decode at batch 16 over 4096 slots):
-   each step timed between CUDA events, walked under
+   where no cell may fail (the dense and vlm cells partitioned on fake
+   worlds of 256 and 512 ranks, walked per device; the wall printed
+   beside the whole-replica dry run's); then four cells that fit one
+   card, built at full width and depth through ``launch.cells`` in a
+   world of one rank over NCCL (phi3-mini-3.8b prefill [1, 4096] and
+   decode at batch 16 over 4096 slots, h2o-danube-1.8b train [2, 4096]
+   in microbatches of 1 with remat full, olmoe-1b-7b decode at batch 16
+   over 4096 slots; the first three partitioned, DTensors on the 1 x 1
+   mesh with the flash and RMSNorm kernels on local shards, each after
+   its whole run, whose outputs its own must equal bit for bit, else
+   within a tolerance with the first differing output named; olmoe
+   whole): each step timed between CUDA events, walked under
    ``roofline.op_cost`` on CUDA and on meta (the FLOPs, bytes and
    declared kernel costs must be equal), the placed argument bytes
    against the materialized arguments', the state bytes against the
@@ -3161,6 +3167,10 @@ FIG8_CONFIGS = [(1, 1), (2, 2), (2, 8), (4, 4), (2, 32), (8, 4), (8, 8),
                 (8, 32), (16, 16), (32, 32)]           # benchmarks/fig8_dse.py
 DRYRUN_TIMEOUT = 900    # seconds for the whole dry run (its processes)
 DRYRUN_RUNS = 3         # timed steps of a check cell
+# the dry run's wall on an H100 (8 processes) when every cell was
+# walked as whole replicas, before the dense and vlm cells were
+# partitioned
+DRYRUN_WHOLE_WALL_S = 57.0
 # the dry run's cells that fit one H100, at full width and depth:
 # name: (arch, kind, seq, batch, microbatch of a train cell)
 DRYRUN_CHECKS = {
@@ -3169,12 +3179,17 @@ DRYRUN_CHECKS = {
     "danube_train": (DANUBE, "train", 4096, 2, 1),
     "olmoe_decode": (OLMOE, "decode", 4096, 16, None),
 }
+# the check cells of a partitioned family: run partitioned (DTensors on
+# the 1 x 1 mesh, the kernels on local shards) beside their whole run
+DRYRUN_PARTITIONED = ("phi3_prefill", "phi3_decode", "danube_train")
+VS_WHOLE_TOL = 2e-2     # bf16: max |diff| / max |whole|, if not bit-equal
 
 
 def _dryrun_all(m) -> dict:
     """(a) ``python -m repro_torch.launch.dryrun --all --mesh both`` in
-    its own processes (every cell on meta, nothing on the card) into a
-    scratch folder under ``build/``; every record read back."""
+    its own processes (every cell on meta, nothing on the card; the
+    dense and vlm cells partitioned on fake worlds of 256 and 512 ranks)
+    into a scratch folder under ``build/``; every record read back."""
     import os
     out_dir = ROOT / "build" / "chip_smoke_dryrun"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -3195,21 +3210,36 @@ def _dryrun_all(m) -> dict:
     errors = [r for r in recs if r["status"] == "error"]
     _check(not errors, f"dryrun errors: {[r.get('error') for r in errors]}")
     ok = [r for r in recs if r["status"] == "ok"]
-    walks = {(r["arch"], r["shape"]): r["walk_s"] for r in ok}
+    part = m["cells_mod"].PARTITIONED
+    wrong = [(r["arch"], r["shape"], r["mesh"]) for r in ok
+             if r["partitioned"] != (m["get_config"](r["arch"]).family
+                                     in part)
+             or not {"flops", "bytes", "wire_bytes", "wire_bytes_by_kind"}
+             <= set(r["per_device"])]
+    _check(not wrong, f"dryrun records of the wrong form: {wrong}")
+    walks = {(r["arch"], r["shape"], r["mesh"]): r["walk_s"] for r in ok}
     table = [{"arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
               "chips": r["chips"], "desc": r["desc"],
+              "partitioned": r["partitioned"],
+              "microbatches": r["microbatches"],
               "per_device_gb": r["per_device_bytes"] / 1e9,
               "fits_hbm": r["fits_hbm"],
               "dominant": r["roofline"]["dominant"],
               "compute_s": r["roofline"]["compute_s"],
               "memory_s": r["roofline"]["memory_s"],
               "collective_s": r["roofline"]["collective_s"],
+              "per_device_flops": r["per_device"]["flops"],
+              "per_device_bytes": r["per_device"]["bytes"],
+              "wire_bytes_by_kind": r["per_device"]["wire_bytes_by_kind"],
+              "collectives_by_kind": r["per_device"]["collectives_by_kind"],
               "useful_fraction": r["roofline"]["useful_fraction"],
               "mfu_bound": r["roofline"]["mfu_bound"],
               "walk_s": r["walk_s"]} for r in ok]
     return {"ok": len(ok), "skipped": len(skipped), "errors": len(errors),
+            "partitioned": sum(r["partitioned"] for r in ok),
             "walk_s_total": sum(walks.values()), "wall_s": wall,
-            "jobs": jobs, "cells": table}
+            "whole_replica_wall_s": DRYRUN_WHOLE_WALL_S, "jobs": jobs,
+            "cells": table}
 
 
 def _tensors_of(m, tree) -> list:
@@ -3219,12 +3249,57 @@ def _tensors_of(m, tree) -> list:
     return [t for t in leaves if isinstance(t, torch.Tensor)]
 
 
-def _check_cell(m, name: str, mesh) -> dict:
+def _flat_outputs(m, out, prefix="") -> dict:
+    """{path: tensor} of a step's outputs (a train step's: the
+    parameters and the loss metrics), placed leaves whole."""
+    torch = m["torch"]
+    if isinstance(out, m["train_loop"].TrainState):
+        out = {"params": dict(out.params.named_parameters())}
+    if isinstance(out, dict):
+        items = out.items()
+    elif isinstance(out, (tuple, list)):
+        items = enumerate(out)
+    else:
+        if not isinstance(out, torch.Tensor):
+            return {}
+        t = out.detach()
+        return {prefix: t.full_tensor() if hasattr(t, "full_tensor") else t}
+    flat = {}
+    for k, v in items:
+        flat.update(_flat_outputs(m, v, f"{prefix}.{k}" if prefix
+                                  else str(k)))
+    return flat
+
+
+def _vs_whole(m, got: dict, want: dict) -> dict:
+    """The partitioned step's outputs against the whole step's: bit
+    equality, else the first differing output (in output order) and the
+    worst error against VS_WHOLE_TOL."""
+    torch = m["torch"]
+    _check(got.keys() == want.keys(), f"outputs differ in their leaves: "
+           f"{sorted(set(got) ^ set(want))}")
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    rec = {"bit_equal": not differ, "leaves": len(want),
+           "differing": len(differ),
+           "first_differing": differ[0] if differ else None,
+           "normalized_err": 0.0}
+    for k in differ:
+        w = want[k].float()
+        err = float((got[k].float() - w).abs().max())
+        rec["normalized_err"] = max(rec["normalized_err"],
+                                    err / max(float(w.abs().max()), 1e-30))
+    return rec
+
+
+def _check_cell(m, name: str, mesh, whole_out=None) -> tuple:
     """(b) one check cell: built on CUDA (random weights, seed 0) and on
     meta; a warm-up step, DRYRUN_RUNS steps between CUDA events (gaps
     included) after the peak is reset, then a walk of the CUDA step and
     of the meta one under ``op_cost``, and a step under
-    ``FlopCounterMode``."""
+    ``FlopCounterMode``.  On a ``MeshShape`` (1 x 1), the whole
+    (unplaced) step, timed only: its outputs come back for the
+    partitioned run's `whole_out`, which its own outputs must equal.
+    Returns (record, the last timed step's outputs)."""
     torch = m["torch"]
     cm = m["cells_mod"]
     arch, kind, seq, batch, micro = DRYRUN_CHECKS[name]
@@ -3233,9 +3308,12 @@ def _check_cell(m, name: str, mesh) -> dict:
     if kind == "train":
         kw["tc"] = m["TrainConfig"](microbatch=micro, remat="full",
                                     learning_rate=TRAIN_LR)
-    meta = cm.build_cell(arch, shape, mesh, device="meta", **kw)
-    meta_cost, meta_out = meta.walk()
-    _free(torch)
+    timed_only = isinstance(mesh, m["mesh_mod"].MeshShape)
+    if not timed_only:
+        meta = cm.build_cell(arch, shape, mesh, device="meta", **kw)
+        meta_cost, meta_out = meta.walk()
+        del meta, meta_out
+        _free(torch)
     cell = cm.build_cell(arch, shape, mesh, device="cuda", **kw)
     arg_bytes = sum(t.numel() * t.element_size()
                     for t in _tensors_of(m, cell.args))
@@ -3247,29 +3325,50 @@ def _check_cell(m, name: str, mesh) -> dict:
     b = torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(DRYRUN_RUNS):
-        cell.run()
+        out = cell.run()
     b.record()
     b.synchronize()
     step_ms = a.elapsed_time(b) / DRYRUN_RUNS
     peak = torch.cuda.max_memory_allocated()
     counts = _counts(m)
     routes = dict(m["fa_ops"].launches_by_route)
+    outputs = _flat_outputs(m, out)
+    del out
+    if timed_only:
+        rec = {"arch": arch, "shape": [batch, seq], "kind": kind,
+               "desc": cell.static_desc, "partitioned": False,
+               "step_ms": step_ms, "peak_gb": peak / 1e9,
+               "launches": counts, "flash_launches_by_route": routes}
+        del cell
+        _free(torch)
+        return rec, outputs
+    vs_whole = None
+    if whole_out is not None:
+        vs_whole = _vs_whole(m, outputs, whole_out)
+        _check(vs_whole["bit_equal"]
+               or vs_whole["normalized_err"] <= VS_WHOLE_TOL,
+               f"{name}: the partitioned step differs from the whole one "
+               f"beyond {VS_WHOLE_TOL}: {vs_whole}")
+    del outputs
     cuda_cost, cuda_out = cell.walk()
     torch.cuda.synchronize()
     from torch.utils.flop_counter import FlopCounterMode
-    with FlopCounterMode(display=False) as fc:
-        cell.fn(*cell.args)
+    with m["shd"].axis_rules(cell.mesh if cell.partitioned else None,
+                             cell.rules):
+        with FlopCounterMode(display=False) as fc:
+            cell.fn(*cell.args)
     torch.cuda.synchronize()
     counter_flops = fc.get_total_flops()
     cost = cell.cost((cuda_cost, cuda_out))
     roof = m["roof_analysis"].analyze(
         cost, n_chips=1, model_flops=m["api"].model_flops(cell.cfg, shape),
-        chip=m["H100"])
+        chip=m["H100"], per_device=cell.partitioned)
     state = cell.state_bytes_per_device(cuda_out)
     placed = cell.arg_bytes_per_device()
     rec = {
         "arch": arch, "shape": [batch, seq], "kind": kind,
         "desc": cell.static_desc, "microbatches": cell.microbatches,
+        "partitioned": cell.partitioned, "vs_whole": vs_whole,
         "step_ms": step_ms, "bound_ms": 1e3 * roof.total_s,
         "time_over_bound": step_ms / (1e3 * roof.total_s),
         "dominant": roof.dominant, "compute_ms": 1e3 * roof.compute_s,
@@ -3281,6 +3380,7 @@ def _check_cell(m, name: str, mesh) -> dict:
         "meta_flops": meta_cost.flops, "meta_bytes": meta_cost.bytes,
         "cuda_walk_flops": cuda_cost.flops, "cuda_walk_bytes": cuda_cost.bytes,
         "declared": cuda_cost.declared,
+        "collectives_by_kind": dict(cuda_cost.coll_op_counts),
         "state_gb": state / 1e9, "arg_gb": arg_bytes / 1e9,
         "placed_arg_gb": placed / 1e9, "peak_gb": peak / 1e9,
         "useful_fraction": roof.useful_fraction, "mfu_bound": roof.mfu_bound,
@@ -3307,9 +3407,18 @@ def _check_cell(m, name: str, mesh) -> dict:
     _check(counter_flops == cuda_cost.product_flops,
            f"{name}: FlopCounterMode {counter_flops} != op_cost's product "
            f"FLOPs {cuda_cost.product_flops}")
-    del cell, cuda_out, meta, meta_out
+    if cell.partitioned:
+        used = ["rmsnorm", "add_rmsnorm", "flash_attention"] + (
+            ["flash_attention_bwd", "rmsnorm_bwd", "add_rmsnorm_bwd"]
+            if kind == "train" else [])
+        if kind == "decode":
+            used.remove("flash_attention")      # decode reads the cache
+        _check(all(counts[k] > 0 for k in used),
+               f"{name}: a kernel of the partitioned path never launched: "
+               f"{ {k: counts[k] for k in used} }")
+    del cell, cuda_out
     _free(torch)
-    return rec
+    return rec, None
 
 
 def dryrun_phase(m) -> dict:
@@ -3317,7 +3426,9 @@ def dryrun_phase(m) -> dict:
     ``roofline/``):
 
     (a) every (arch x shape x mesh) cell of ``dryrun --all --mesh both``
-        (meta tensors, separate processes): no cell may fail;
+        (meta tensors, separate processes; the dense and vlm cells
+        partitioned on fake worlds of 256 and 512 ranks): no cell may
+        fail, and each record says its form;
     (b) the cells of DRYRUN_CHECKS, which fit one H100, at full width
         and depth, in a world of one rank over NCCL (``make_test_mesh(1,
         1)``): the CUDA walk's FLOPs, bytes and declared kernel costs
@@ -3325,29 +3436,49 @@ def dryrun_phase(m) -> dict:
         equal the materialized arguments', the state bytes stay at or
         below the measured peak, the roofline bound on ``H100`` stays at
         or below the measured step, and ``FlopCounterMode``'s product
-        FLOPs equal ``op_cost``'s.  Each check cell is a path: the
-        kernel counts are zeroed before its warm-up and read after its
-        timed steps."""
+        FLOPs equal ``op_cost``'s.  The cells of DRYRUN_PARTITIONED run
+        partitioned (DTensors; the flash and RMSNorm kernels, forward
+        and in the train cell backward, launched on local shards), after
+        their whole run (unplaced, on a 1 x 1 ``MeshShape``), whose
+        outputs theirs must equal bit for bit (else within VS_WHOLE_TOL,
+        the first differing output named); olmoe's stays whole.  Each
+        check cell
+        is a path: the kernel counts are zeroed before its warm-up and
+        read after its timed steps."""
     torch = m["torch"]
     _free(torch)
     out = {"all": _dryrun_all(m)}
     dr = out["all"]
-    print(f"[dryrun] ok {dr['ok']} cells, skipped {dr['skipped']}, errors "
-          f"{dr['errors']}; walks {dr['walk_s_total']:.1f} s in total, "
-          f"{dr['wall_s']:.1f} s wall over {dr['jobs']} processes",
+    print(f"[dryrun] ok {dr['ok']} cells ({dr['partitioned']} partitioned), "
+          f"skipped {dr['skipped']}, errors {dr['errors']}; walks "
+          f"{dr['walk_s_total']:.1f} s in total, {dr['wall_s']:.1f} s wall "
+          f"over {dr['jobs']} processes (all whole replicas: "
+          f"{DRYRUN_WHOLE_WALL_S} s)",
           flush=True)
     mesh_mod = m["mesh_mod"]
     _, started = mesh_mod.init_world("cuda")
     try:
         mesh = mesh_mod.make_test_mesh(1, 1)
-        out["checks"] = {}
+        whole_mesh = mesh_mod.MeshShape(("data", "model"), (1, 1))
+        out["checks"], out["whole"] = {}, {}
         for name in DRYRUN_CHECKS:
-            rec = _check_cell(m, name, mesh)
+            whole = None
+            if name in DRYRUN_PARTITIONED:
+                out["whole"][name], whole = _check_cell(m, name, whole_mesh)
+            rec, _ = _check_cell(m, name, mesh, whole_out=whole)
+            del whole
+            _free(torch)
             out["checks"][name] = rec
+            vs = rec["vs_whole"]
             print(f"[dryrun] {name} {rec['arch']} {rec['desc']} "
-                  f"{rec['shape']}: {rec['step_ms']:.2f} ms a step, bound "
-                  f"{rec['bound_ms']:.2f} ms ({rec['dominant']}), time / "
-                  f"bound {rec['time_over_bound']:.3f}; state "
+                  f"{rec['shape']} partitioned {rec['partitioned']}: "
+                  f"{rec['step_ms']:.2f} ms a step"
+                  + (f" (whole {out['whole'][name]['step_ms']:.2f} ms; "
+                     f"bit-equal {vs['bit_equal']}, first differing "
+                     f"{vs['first_differing']}, normalized error "
+                     f"{vs['normalized_err']:.3g})" if vs else "")
+                  + f", bound {rec['bound_ms']:.2f} ms ({rec['dominant']}), "
+                  f"time / bound {rec['time_over_bound']:.3f}; state "
                   f"{rec['state_gb']:.2f} GB, peak {rec['peak_gb']:.2f} GB",
                   flush=True)
     finally:
@@ -4202,6 +4333,8 @@ def main() -> int:
     paths["mesh_a2a"] = mesh["a2a"]
     for name, rec in dryrun["checks"].items():
         paths[f"dryrun_{name}"] = rec
+    for name, rec in dryrun["whole"].items():
+        paths[f"dryrun_{name}_whole"] = rec
     kernels = []
     for name, (source, replaces, main_shape) in sources.items():
         t = timings[name][main_shape]

@@ -9,6 +9,10 @@ tree back.  The model keeps the JAX tree's paths and stacked [L, ...]
 leaves (a stage of no layers has [0, ...] leaves), every weight as
 ``x @ W`` [d_in, d_out].
 
+With a `mesh` (and `rules`), ``from_numpy`` places the loaded model's
+leaves on it (``ParamTree.place``: DTensors, the partitioned form);
+``to_numpy`` gathers a placed leaf whole (``full_tensor``).
+
 ``init_params`` is the port's own initializer.  Each leaf's init comes
 from its ``params.Leaf`` in the family's spec, which mirrors the JAX
 initializers (``repro/models/{common,attention,mlp,moe,ssm,zamba,
@@ -31,6 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer, whisper, xlstm_lm, zamba
 from repro_torch.models.common import dtype_of
 from repro_torch.models.params import Model
@@ -69,9 +74,11 @@ def _empty_model(cfg: ModelConfig, device: DeviceLike,
 
 def from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *,
                device: DeviceLike = None,
-               dtype: Optional[torch.dtype] = None) -> Model:
+               dtype: Optional[torch.dtype] = None, mesh=None,
+               rules: Optional[Dict[str, Any]] = None) -> Model:
     """A model holding exactly the leaves of `tree` (numpy arrays of any
-    float dtype; bf16 -> fp32 -> bf16 is exact)."""
+    float dtype; bf16 -> fp32 -> bf16 is exact), placed on `mesh` by
+    `rules` (the train rules when None) when a mesh is given."""
     model = _empty_model(cfg, device, dtype)
     want = {name for name, _ in model.named_parameters()}
     got = dict(_leaves(tree))
@@ -86,6 +93,8 @@ def from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *,
             raise ValueError(f"{name}: shape {tuple(src.shape)} != "
                              f"{tuple(p.shape)}")
         p.data.copy_(src.to(p.dtype))
+    if mesh is not None:
+        model.place(mesh, rules or shd.train_rules(mesh))
     return model
 
 
@@ -97,7 +106,10 @@ def to_numpy(model: Model) -> Dict[str, Any]:
         node = tree
         for key in path:
             node = node.setdefault(key, {})
-        node[leaf] = p.detach().float().cpu().numpy()
+        t = p.detach()
+        if hasattr(t, "full_tensor"):        # a placed (DTensor) leaf
+            t = t.full_tensor()
+        node[leaf] = t.float().cpu().numpy()
     return tree
 
 

@@ -18,13 +18,23 @@ the DTensor placements of a spec, one per mesh dim (``Shard(dim)`` or
 ``Replicate()``), which ``distribute_tensor`` takes
 (``distributed/elastic.py`` ``reshard_like``).
 
-The port's models run eagerly on tensors each rank holds whole, which
-carry no layout for a constraint to propagate, so ``constrain`` returns
-its input and the port's model modules do not call it.  Its data
-parallelism is explicit instead: each rank runs its rows of every
-microbatch and the trainer sums the gradients over the batch axes
-(``training/loop.py``); the MoE layer reads the active rules to pick
-its dispatch (``models/moe.py``, ``models/moe_a2a.py``).
+A partitioned step holds its state as DTensors: ``place`` turns a tree
+of tensors into DTensors with the rules' checked placements (a leaf
+whose logical axes are None stays a plain tensor that every rank holds
+whole), and the dense and vlm model code runs on them.  There,
+``constrain`` is GSPMD's ``with_sharding_constraint``: under active
+rules it redistributes a DTensor to its spec's placements (a pending
+partial sum becomes an all-reduce or a reduce-scatter, a sharded dim
+that must be whole an all-gather).  Outside that, on a plain tensor or
+without rules, it returns its input, as the JAX package does without
+a mesh.  ``gather_fsdp`` gathers a weight's batch-axis (FSDP) shards
+right before its product, and ``local_rows`` / ``from_local`` move a
+kernel's operands between DTensors and the local shards it launches
+on.  The data-parallel trainer of whole replicas (``--mesh``) keeps
+plain tensors: each rank runs its rows of every microbatch and the
+trainer sums the gradients over the batch axes (``training/loop.py``);
+the MoE layer reads the active rules to pick its dispatch
+(``models/moe.py``, ``models/moe_a2a.py``).
 """
 from __future__ import annotations
 
@@ -34,7 +44,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 from torch.utils import _pytree as pytree
 
 Logical = Union[str, None]
@@ -98,9 +109,118 @@ def logical_to_spec(logical: Sequence[Logical], rules: Rules) -> Spec:
 
 
 def constrain(x: torch.Tensor, logical: Sequence[Logical]) -> torch.Tensor:
-    """The JAX package's ``with_sharding_constraint`` by logical names.
-    An eager tensor held per rank has no layout to constrain: x."""
-    return x
+    """The JAX package's ``with_sharding_constraint`` by logical names:
+    under active rules with a ``DeviceMesh``, a DTensor is redistributed
+    to the placements of its checked spec (a dimension that does not
+    divide stays whole); anything else is returned as it is."""
+    ctx = _ctx()
+    if ctx is None or not isinstance(x, DTensor):
+        return x
+    mesh, rules = ctx
+    want = spec_placements(checked_spec(logical, x.shape, mesh, rules),
+                           mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def is_placed(x: Any) -> bool:
+    """True for a DTensor: the partitioned form of the model code."""
+    return isinstance(x, DTensor)
+
+
+def place_leaf(t: torch.Tensor, logical, mesh: DeviceMesh,
+               rules: Rules) -> DTensor:
+    """`t` as a DTensor on `mesh` with the placements of its checked
+    logical axes, its rank's chunk cut locally (every rank holds the
+    same whole `t`)."""
+    pl = spec_placements(checked_spec(logical, t.shape, mesh, rules), mesh)
+    return distribute_tensor(t.detach(), mesh, pl, src_data_rank=None)
+
+
+def place(tree, logical_tree, mesh: DeviceMesh, rules: Rules):
+    """`tree`'s tensors placed by ``place_leaf``.  A leaf whose logical
+    axes are None stays a plain tensor (every rank holds it whole, as a
+    replicated leaf); a None leaf stays None."""
+    def one(logical, t):
+        if logical is None or not isinstance(t, torch.Tensor):
+            return t
+        return place_leaf(t, logical, mesh, rules)
+    return pytree.tree_map(one, logical_tree, tree, is_leaf=_is_spec_leaf)
+
+
+def mesh_dims(mesh: DeviceMesh, rules: Rules, name: str) -> Tuple[int, ...]:
+    """The mesh dims the rules map logical axis `name` onto."""
+    names = mesh.mesh_dim_names
+    return tuple(names.index(a) for a in _axes(rules.get(name))
+                 if a in names)
+
+
+def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
+    """A weight with its FSDP shards gathered: the mesh dims of the
+    rules' ``embed`` axis replicated, the tensor-parallel (model) shards
+    kept.  Its forward is an all-gather over them and its backward a
+    reduce-scatter of the gradient.  A plain tensor is returned as it
+    is."""
+    ctx = _ctx()
+    if ctx is None or not isinstance(w, DTensor):
+        return w
+    mesh, rules = ctx
+    pl = list(w.placements)
+    for d in mesh_dims(mesh, rules, "embed"):
+        pl[d] = Replicate()
+    if tuple(pl) == tuple(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, pl)
+
+
+def replicate_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """`x` with tensor dim `dim` whole on every rank and no partial sum
+    pending (an all-gather, an all-reduce, or nothing); a plain tensor
+    as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    dim = dim % x.ndim
+    pl = [Replicate() if (isinstance(p, Shard) and p.dim == dim)
+          or isinstance(p, Partial) else p for p in x.placements]
+    if tuple(pl) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def local_offset(x: DTensor, dim: int) -> int:
+    """The global index of this rank's first element of `x` along
+    `dim` (0 where `dim` is not sharded)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    _, offset = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)
+    return int(offset[dim]) if offset else 0
+
+
+def row_grads(x: DTensor) -> Tuple[Any, ...]:
+    """The gradient placements of a replicated operand (a norm's scale,
+    an embedding table) used on `x`'s local rows: a partial sum over
+    every mesh dim that shards `x`, whole where `x` is whole."""
+    return tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in x.placements)
+
+
+def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """`t` reduced by `op` ("sum", "max") over `group`, as a functional
+    collective (which an op-cost walk charges), waited on."""
+    import torch.distributed._functional_collectives as funcol
+    out = funcol.all_reduce(t, op, group)
+    return out.wait() if hasattr(out, "wait") else out
+
+
+def from_local(t: torch.Tensor, like: DTensor, placements=None) -> DTensor:
+    """A local result as a DTensor on `like`'s mesh, with `like`'s
+    placements unless given (every shard even: the global shape is
+    the local one times the shard counts)."""
+    return DTensor.from_local(t, like.device_mesh,
+                              like.placements if placements is None
+                              else placements, run_check=False)
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -114,11 +234,14 @@ def spec_placements(spec: Spec, mesh: DeviceMesh) -> Tuple[Any, ...]:
     the spec names that mesh axis at tensor dim d, else ``Replicate()``.
     A tensor dim sharded over several mesh axes splits over them in the
     mesh's order, as a JAX spec's axis tuple does (its first axis
-    major); JAX's specs name them in that order."""
+    major); JAX's specs name them in that order.  A mesh dim of one
+    rank is ``Replicate()``: its one shard is the whole."""
     placements = [Replicate()] * mesh.ndim
     for dim, entry in enumerate(spec):
         for axis in _axes(entry):
-            placements[mesh.mesh_dim_names.index(axis)] = Shard(dim)
+            i = mesh.mesh_dim_names.index(axis)
+            if mesh.size(i) > 1:        # one rank holds it whole anyway
+                placements[i] = Shard(dim)
     return tuple(placements)
 
 

@@ -22,6 +22,14 @@ on FMA.  On the CPU plain autograd runs through
 ``attention_ref``.  ``ref.flash_fwd_ref`` / ``ref.flash_bwd_ref`` are
 the kernels' plain versions in the tests and ``chip_smoke.py``.
 
+DTensors (a partitioned step, ``distributed/sharding.py``) launch the
+same kernels on each rank's local shards: q's heads sharded over the
+model axis (or whole), k and v sharded alike (the kv heads divide the
+axis) or whole, in which case each rank slices the kv heads its own q
+heads read (several ranks may read one kv head: its dK / dV are then a
+partial sum over them, reduced by DTensor's backward).  The output has
+q's placements.
+
 Meta tensors (the dry run) take ``attention_ref`` for their shapes.
 The entry and the backward declare their costs to an active op-cost
 walk (``roofline.op_cost.kernel``); during a walk a CPU or meta call
@@ -36,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import obs
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_bwd_ref,
@@ -110,10 +119,52 @@ def _cost(q: torch.Tensor, k: torch.Tensor, causal: bool,
     return 4 * D * pairs * H * B, 2 * qb + 2 * kb + (lse_b if lse else 0)
 
 
+def _kv_slice(q, k) -> Optional[Tuple[int, int]]:
+    """The kv heads [lo, hi) that this rank's q heads read when q's
+    heads are sharded and k's are whole (all KV of them too, as with one
+    kv head: dK / dV are still partial sums over the q ranks); None when
+    k's local heads are already the ones (sharded like q's, or both
+    whole)."""
+    H, KV = q.shape[2], k.shape[2]
+    hl, kl = q.to_local().shape[2], k.to_local().shape[2]
+    if kl * H == KV * hl:
+        return None
+    G = H // KV
+    h0 = shd.local_offset(q, 2)
+    if G % hl == 0:                       # one kv head serves them all
+        lo, hi = h0 // G, h0 // G + 1
+    elif hl % G == 0 and h0 % G == 0:     # whole groups
+        lo, hi = h0 // G, (h0 + hl) // G
+    else:
+        raise NotImplementedError(
+            f"{hl} q heads a rank from {h0} do not map onto whole kv heads "
+            f"of groups of {G}")
+    return lo, hi
+
+
+def _placed(q, k, v, causal, window):
+    """The kernel on DTensors: this rank's q heads against the kv heads
+    they read; the output with q's placements."""
+    sl = _kv_slice(q, k)
+    if sl is None:
+        kl, vl = k.to_local(), v.to_local()
+    else:
+        grads = tuple(shd.Partial() if isinstance(pq, shd.Shard)
+                      and pq.dim == 2 and not isinstance(pk, shd.Shard)
+                      else pk for pq, pk in zip(q.placements, k.placements))
+        kl = k.to_local(grad_placements=grads)[:, :, sl[0]:sl[1]]
+        vl = v.to_local(grad_placements=grads)[:, :, sl[0]:sl[1]]
+    out = _flash_attention(q.to_local(), kl, vl, causal=causal,
+                           window=window)
+    return shd.from_local(out, q)
+
+
 def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool = True,
                      window: Optional[int] = None) -> torch.Tensor:
     """q: [B,S,H,D]; k,v: [B,Sk,KV,D] -> [B,S,H,D]."""
+    if shd.is_placed(q):
+        return _placed(q, k, v, causal, window)
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
     with op_cost.kernel("flash_attention",

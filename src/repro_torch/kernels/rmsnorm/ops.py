@@ -16,6 +16,13 @@ and the dscale sum).  On the CPU plain autograd runs through the plain
 versions; ``ref.rmsnorm_bwd_ref`` / ``ref.add_rmsnorm_bwd_ref`` are the
 backward kernel's plain versions in the tests and ``chip_smoke.py``.
 
+DTensors (a partitioned step, ``distributed/sharding.py``) launch the
+same kernels on each rank's local rows: the normalized dim is gathered
+whole first (internvl's ``act_shard`` shards the residual's d_model over
+``model``) and any pending partial sum reduced, the scale is gathered
+whole, and its gradient is a partial sum over the mesh dims that shard
+the rows (``sharding.row_grads``), reduced by DTensor's backward.
+
 Meta tensors (the dry run) take the plain versions for their shapes.
 Each entry, and each backward, declares its cost to an active op-cost
 walk (``roofline.op_cost.kernel``); during a walk a CPU or meta call
@@ -30,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import obs
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import build
 from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_bwd_ref,
                                              add_rmsnorm_ref,
@@ -123,9 +131,26 @@ def _bwd_cost(x: torch.Tensor, ds: Optional[torch.Tensor],
                            + op_cost.nbytes(scale))
 
 
+def _placed(x, h, scale, eps):
+    """Either form on DTensors: the kernel on this rank's local rows,
+    the results with x's placements (rows sharded, d whole)."""
+    x = shd.replicate_dim(x, -1)
+    if h is not None:
+        h = h.redistribute(x.device_mesh, x.placements)
+    sc = scale.redistribute(scale.device_mesh,
+                            [shd.Replicate()] * scale.device_mesh.ndim)
+    sl = sc.to_local(grad_placements=shd.row_grads(x))
+    if h is None:
+        return shd.from_local(_rmsnorm(x.to_local(), sl, eps), x)
+    s, y = _add_rmsnorm(x.to_local(), h.to_local(), sl, eps)
+    return shd.from_local(s, x), shd.from_local(y, x)
+
+
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     """x: [..., d]; scale: [d] -> [..., d] in x's dtype."""
+    if shd.is_placed(x):
+        return _placed(x, None, scale, eps)
     with op_cost.kernel("rmsnorm", lambda: _cost(x, None, scale)):
         if x.device.type in ("cpu", "meta"):   # meta: the dry run's shapes
             return op_cost.plain_call(_RmsNorm, rmsnorm_ref,
@@ -141,6 +166,8 @@ rmsnorm = obs.instrument_kernel("rmsnorm", _rmsnorm)
 def _add_rmsnorm(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
                  eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, h: [..., d]; scale: [d] -> (x + h, rmsnorm(x + h))."""
+    if shd.is_placed(x):
+        return _placed(x, h, scale, eps)
     with op_cost.kernel("add_rmsnorm", lambda: _cost(x, h, scale)):
         if x.device.type in ("cpu", "meta"):   # meta: the dry run's shapes
             return op_cost.plain_call(_AddRmsNorm, add_rmsnorm_ref,

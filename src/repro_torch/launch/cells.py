@@ -29,9 +29,20 @@ that are not written into a donated argument.
 A builder takes a ``ShapeConfig`` wherever the JAX one takes its name (a
 name still works), so a check cell can run at a shape that fits one
 card, and `cfg` in place of the arch's registered config (a reduced
-one, in the tests).  A step runs eagerly on tensors each rank holds
-whole: the rules place the state for the count of bytes a device, but
-the step is not partitioned (``distributed/sharding.py``).
+one, in the tests).
+
+Two forms (``Cell.partitioned``).  The dense and vlm families on a
+``DeviceMesh`` (a real world's, or ``mesh.fake_world``'s for the 256-
+and 512-device meshes) are partitioned as GSPMD partitions the JAX
+step: their arguments are placed (DTensors: the parameters, the
+optimizer state and the caches by the rules, the batch by ("batch",
+...) as ``training/loop.place_batch`` lays it out), the step runs the
+partitioned model code, and ``walk`` counts one device's share of it
+with the collectives it issues, so ``collectives`` adds none.  The
+other families, and any cell on a ``MeshShape``, run eagerly on tensors
+each rank holds whole: the rules place the state for the count of
+bytes a device only, ``walk`` counts the whole step and ``collectives``
+adds the all-reduce of the gradients.
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ import math
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Shard
 from torch.utils import _pytree as pytree
 
@@ -59,6 +71,14 @@ ShapeLike = Union[str, ShapeConfig]
 # chunks of 64 each, so every length takes the same ops
 SEQ_FIT = ("xlstm",)
 FIT_LENGTHS = (128, 192, 256)
+# families whose step is partitioned on a DeviceMesh (DTensors)
+PARTITIONED = ("dense", "vlm")
+
+
+def partitioned(cfg: ModelConfig, mesh) -> bool:
+    """True when `cfg`'s cell on `mesh` runs the partitioned step: a
+    family of PARTITIONED on a ``DeviceMesh``."""
+    return cfg.family in PARTITIONED and isinstance(mesh, DeviceMesh)
 
 
 def _struct(x: Any) -> Any:
@@ -126,6 +146,7 @@ class Cell:
     donate_argnums: Tuple[int, ...]
     static_desc: str = ""
     microbatches: int = 1            # a train step's microbatch loop
+    partitioned: bool = False        # placed arguments, per-device walk
 
     def run(self):
         """``fn(*args)``, under the cell's mesh when it is a
@@ -136,9 +157,11 @@ class Cell:
             return self.fn(*self.args)
 
     def walk(self) -> Tuple[op_cost.StepCost, Any]:
-        """(cost, outputs) of ``fn(*args)`` under an op-cost walk, with
-        no mesh: the whole (global) step, its first microbatch scaled by
-        the microbatch count.  The same on every mesh.
+        """(cost, outputs) of ``fn(*args)`` under an op-cost walk, its
+        first microbatch scaled by the microbatch count.  A partitioned
+        cell is walked on its mesh: one device's share of the step, the
+        collectives it issues included.  Any other is walked with no
+        mesh: the whole (global) step, the same on every mesh.
 
         A family in ``SEQ_FIT`` runs a train or prefill step at three
         short lengths (``FIT_LENGTHS``) and the cost is the quadratic
@@ -152,6 +175,9 @@ class Cell:
         (``tests/test_torch_cells.py`` holds the fit to a fourth walk).
         The outputs are the last walk's (their shapes do not depend on
         the length)."""
+        if self.partitioned:
+            with shd.axis_rules(self.mesh, self.rules):
+                return op_cost.walk(self.fn, *self.args, sample_loops=True)
         S = self.shape.seq_len
         if (self.cfg.family not in SEQ_FIT or self.shape.kind == "decode"
                 or S <= FIT_LENGTHS[-1]):
@@ -169,8 +195,9 @@ class Cell:
     def collectives(self, cost: op_cost.StepCost) -> None:
         """Add the collectives of the port's step on this cell's mesh to
         `cost`: in a train cell one all-reduce a gradient leaf (fp32) and
-        one of the three loss metrics, over the batch axes."""
-        if self.shape.kind != "train":
+        one of the three loss metrics, over the batch axes; none in a
+        partitioned cell, whose walk saw the collectives it issues."""
+        if self.shape.kind != "train" or self.partitioned:
             return
         axes = self.rules.get("batch")
         n = 1 if axes is None else mesh_mod.axis_size(self.mesh, axes)
@@ -291,18 +318,29 @@ def build_train_cell(arch: str, shape: ShapeLike, mesh,
 
     state = train_loop.init_train_state(cfg, tc, device=dev)
     batch = _batch(cfg, shape, dev)
+    part = partitioned(cfg, mesh)
+    if part:
+        state = train_loop.place_state(state, mesh, rules)
+        batch = train_loop.place_batch(batch, mesh, rules, tc.microbatch)
     state_shardings = shd.tree_shardings_checked(
         train_loop.train_state_specs(cfg, tc), _struct(state), mesh, rules)
     B, mb = shape.global_batch, tc.microbatch
+    if part:
+        mb = train_loop.placed_microbatch(
+            B, mb, train_loop.batch_ranks(batch["tokens"]))
     n_mb = B // mb if mb and mb < B and B % mb == 0 else 1
+    # the microbatch walked: a placed one widens to the batch ranks
+    desc = f"train mb={mb if tc.microbatch else None} remat={tc.remat}"
+    if tc.microbatch and mb != tc.microbatch:
+        desc += f" (widened from {tc.microbatch} to the batch ranks)"
     return Cell(
         arch=arch, cfg=cfg, shape=shape, mesh=mesh, rules=rules,
         fn=train_loop.make_train_step(cfg, tc), args=(state, batch),
         in_shardings=(state_shardings,
                       _batch_shardings(batch, mesh, rules)),
         out_shardings=(state_shardings, None), donate_argnums=(0,),
-        static_desc=f"train mb={tc.microbatch} remat={tc.remat}",
-        microbatches=n_mb)
+        static_desc=desc,
+        microbatches=n_mb, partitioned=part)
 
 
 def build_prefill_cell(arch: str, shape: ShapeLike, mesh,
@@ -321,6 +359,10 @@ def build_prefill_cell(arch: str, shape: ShapeLike, mesh,
 
     params = api.build_params(cfg, device=dev)
     batch = _batch(cfg, shape, dev)
+    part = partitioned(cfg, mesh)
+    if part:
+        params.place(mesh, rules)
+        batch = train_loop.place_batch(batch, mesh, rules)
     pshard = shd.tree_shardings_checked(api.param_specs(cfg),
                                         _struct(params), mesh, rules)
     return Cell(
@@ -328,7 +370,7 @@ def build_prefill_cell(arch: str, shape: ShapeLike, mesh,
         fn=prefill_step, args=(params, batch),
         in_shardings=(pshard, _batch_shardings(batch, mesh, rules)),
         out_shardings=None,             # the caches' come from outputs
-        donate_argnums=(), static_desc="prefill")
+        donate_argnums=(), static_desc="prefill", partitioned=part)
 
 
 # int8 KV caches per arch for decode cells: none by default, as in the
@@ -354,7 +396,8 @@ def build_decode_cell(arch: str, shape: ShapeLike, mesh,
         logits, _aux, new_caches = api.forward(
             params, {"tokens": tokens}, cfg, mode="decode", caches=caches,
             remat="none", long_context=long_ctx)
-        next_tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
+        last = shd.replicate_dim(logits[:, -1], -1)    # whole vocab rows
+        next_tok = torch.argmax(last[:, :cfg.vocab_size], dim=-1)
         return next_tok.to(torch.int32)[:, None], new_caches
 
     params = api.build_params(cfg, device=dev)
@@ -362,11 +405,16 @@ def build_decode_cell(arch: str, shape: ShapeLike, mesh,
                              device=dev, long_context=long_ctx,
                              kv_quant=kv_quant)
     tokens = _batch(cfg, shape, dev)["tokens"]
+    cache_axes = api.cache_logical_axes(cfg, shape, kv_quant=kv_quant)
+    part = partitioned(cfg, mesh)
+    if part:
+        params.place(mesh, rules)
+        caches = shd.place(caches, cache_axes, mesh, rules)
+        tokens = train_loop.place_batch({"t": tokens}, mesh, rules)["t"]
     pshard = shd.tree_shardings_checked(api.param_specs(cfg),
                                         _struct(params), mesh, rules)
-    cache_shard = shd.tree_shardings_checked(
-        api.cache_logical_axes(cfg, shape, kv_quant=kv_quant), caches,
-        mesh, rules)
+    cache_shard = shd.tree_shardings_checked(cache_axes, caches, mesh,
+                                             rules)
     tok_shard = _batch_shardings({"t": tokens}, mesh, rules)["t"]
     return Cell(
         arch=arch, cfg=cfg, shape=shape, mesh=mesh, rules=rules,
@@ -375,7 +423,7 @@ def build_decode_cell(arch: str, shape: ShapeLike, mesh,
         out_shardings=(None, cache_shard),
         donate_argnums=(1,),
         static_desc="decode" + (" long-context" if long_ctx else "")
-        + (" kv-int8" if kv_quant else ""))
+        + (" kv-int8" if kv_quant else ""), partitioned=part)
 
 
 def build_cell(arch: str, shape: ShapeLike, mesh, **kw) -> Cell:

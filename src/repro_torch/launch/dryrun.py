@@ -7,27 +7,32 @@ meshes: the twin of ``repro.launch.dryrun``.
         --out /tmp/dr
 
 For each cell it builds the step on ``meta`` tensors (nothing is
-allocated, so it runs on a machine without a GPU), places the state on
-the production mesh's axes (``mesh.production_mesh_shape``: 16 x 16, or
-2 x 16 x 16 with ``--mesh multi``), walks one step under
-``roofline.op_cost`` and writes one JSON record: the state's bytes a
-device against an H100's 80 GB (``fits_hbm``) and the roofline terms on
-``H100``.  The JAX dry run lowers and compiles each cell on 512
-placeholder devices and reads the compiler's cost and memory analyses;
-there is no compiler here, so ``--keep-hlo`` has no counterpart and
-``walk_s`` stands where ``lower_s`` / ``compile_s`` stood.  The work of
-a step does not depend on the mesh, so each (arch, shape) is walked
-once and both meshes reuse the walk; ``--jobs`` walks cells in that
-many processes.
+allocated, so it runs on a machine without a GPU) and writes one JSON
+record: the state's bytes a device against an H100's 80 GB
+(``fits_hbm``) and the roofline terms on ``H100``.  The JAX dry run
+lowers and compiles each cell on 512 placeholder devices and reads the
+compiler's cost and memory analyses of the partitioned module; there is
+no compiler here, so ``--keep-hlo`` has no counterpart and ``walk_s``
+stands where ``lower_s`` / ``compile_s`` stood.  ``--jobs`` walks cells
+in that many processes.
 
-Two limits, stated in each record's ``notes``: temporaries are not
-counted (no compiler reports them), so ``per_device_bytes`` is a lower
-bound; and the collective term counts what the port's own step issues
-(one all-reduce of each gradient leaf and of the loss metrics over the
-batch axes in a train cell, none in a serve cell, since the port holds
-whole replicas), not the FSDP gathers, tensor-parallel reductions and
-context-parallel decode softmax that GSPMD puts into the JAX dry run:
-the port does not partition a step.
+Two forms, each record's ``partitioned``:
+
+* the dense and vlm families are partitioned: the job builds a fake
+  world of the production mesh's size (``mesh.fake_world``: 16 x 16,
+  or 2 x 16 x 16 with ``--mesh multi``) in its own process, places the
+  cell on it and walks one device's share of the step under
+  ``roofline.op_cost``, with the FSDP gathers, the tensor-parallel
+  reductions and the context-parallel decode softmax the step issues
+  (``per_device``: FLOPs, bytes and wire bytes by collective kind);
+* the other families run whole replicas: the state is placed on the
+  mesh's axes (``mesh.production_mesh_shape``) for its bytes only, the
+  whole step is walked once for both meshes, its terms are divided by
+  the chips, and the collective term is the port's own all-reduce of
+  each gradient leaf and of the loss metrics over the batch axes.
+
+Temporaries are not counted (no compiler reports them), so
+``per_device_bytes`` is a lower bound (each record's ``notes``).
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ from typing import Dict, List, Optional, Tuple
 from repro_torch.configs import (ALL_SHAPES, ARCH_IDS, applicable_shapes,
                                  get_config)
 from repro_torch.launch import cells as cells_mod
-from repro_torch.launch.mesh import mesh_chips, production_mesh_shape
+from repro_torch.launch.mesh import (fake_world, mesh_chips,
+                                     production_mesh_shape)
 from repro_torch.models import api
 from repro_torch.roofline import analysis
 from repro_torch.roofline.hw import H100
@@ -52,12 +58,16 @@ MESHES = ("single", "multi")
 NOTES = (
     "per_device_bytes counts the arguments and the outputs not donated; "
     "temporaries are not counted (no compiler reports them), so it is a "
-    "lower bound",
-    "the collective term counts the port's own step: one all-reduce of "
-    "each gradient leaf and of the loss metrics over the batch axes in a "
-    "train cell, none in a serve cell (whole replicas); GSPMD's FSDP "
-    "gathers, tensor-parallel reductions and context-parallel decode "
-    "softmax have no counterpart: the port does not partition a step",
+    "lower bound",)
+NOTES_PARTITIONED = (
+    "partitioned: one device's share of the step on a fake world of the "
+    "mesh's size (DTensor: FSDP over the batch axes, tensor parallelism "
+    "over model, context-parallel decode), with the collectives it "
+    "issues; DTensor and GSPMD may pick other collectives",)
+NOTES_WHOLE = (
+    "whole replicas: the collective term counts the port's own step, one "
+    "all-reduce of each gradient leaf and of the loss metrics over the "
+    "batch axes in a train cell, none in a serve cell",
     "compute and memory terms divide the whole step's count by the chips "
     "(an ideal partition)")
 
@@ -76,48 +86,71 @@ def run_target(arch: str, shape_name: str, mesh_kinds=MESHES,
         return [{"arch": arch, "shape": shape_name, "mesh": m,
                  "status": "skipped (inapplicable)"} for m in mesh_kinds]
     shape = shape[0]
-    recs, walked, walk_s = [], None, 0.0
+    recs, walked = [], None
     for mesh_kind in mesh_kinds:
-        mesh = production_mesh_shape(multi_pod=mesh_kind == "multi")
-        n_chips = mesh_chips(mesh)
-        cell = cells_mod.build_cell(arch, shape, mesh)
-        if walked is None:
-            t0 = time.time()
-            walked = cell.walk()
-            walk_s = time.time() - t0
-        cost = cell.cost(walked)
-        per_dev = cell.state_bytes_per_device(walked[1])
-        roof = analysis.analyze(cost, n_chips=n_chips,
-                                model_flops=api.model_flops(cfg, shape),
-                                chip=H100)
-        rec = {
-            "arch": arch, "shape": shape_name, "mesh": mesh_kind,
-            "chips": n_chips, "status": "ok", "desc": cell.static_desc,
-            "walk_s": round(walk_s, 2), "microbatches": cell.microbatches,
-            "cost": {"flops": cost.flops, "bytes": cost.bytes,
-                     "wire_bytes": cost.wire_bytes,
-                     "product_flops": cost.product_flops,
-                     "declared": cost.declared},
-            "per_device_bytes": int(per_dev),
-            "arg_bytes_per_device": int(cell.arg_bytes_per_device()),
-            "fits_hbm": bool(per_dev <= H100.hbm_bytes),
-            "roofline": {
-                "compute_s": roof.compute_s, "memory_s": roof.memory_s,
-                "collective_s": roof.collective_s,
-                "dominant": roof.dominant, "total_s": roof.total_s,
-                "model_flops": roof.model_flops,
-                "hlo_flops_global": roof.hlo_flops_global,
-                "useful_fraction": roof.useful_fraction,
-                "mfu_bound": roof.mfu_bound,
-                "wire_bytes": roof.wire_bytes,
-                "op_bytes": roof.op_bytes, "op_counts": roof.op_counts,
-            },
-            "notes": list(NOTES),
-        }
+        ms = production_mesh_shape(multi_pod=mesh_kind == "multi")
+        if cfg.family in cells_mod.PARTITIONED:
+            with fake_world(ms.shape, ms.mesh_dim_names) as mesh:
+                rec, _ = _record(arch, cfg, shape, mesh, None)
+        else:          # the whole step's walk serves both meshes
+            rec, walked = _record(arch, cfg, shape, ms, walked)
+        rec["mesh"] = mesh_kind
         recs.append(rec)
         if out_dir:
             _write(out_dir, _tag(arch, shape_name, mesh_kind), rec)
     return recs
+
+
+def _record(arch, cfg, shape, mesh, walked) -> Tuple[dict, tuple]:
+    """(one cell's record on `mesh`, its walk: (cost, outputs, seconds)),
+    the walk made now unless `walked`, the whole step's walk on another
+    mesh, is given."""
+    n_chips = mesh_chips(mesh)
+    cell = cells_mod.build_cell(arch, shape, mesh)
+    if walked is None:
+        t0 = time.time()
+        walked = cell.walk()
+        walked += (time.time() - t0,)
+    walk_s = walked[2]
+    cost = cell.cost(walked[:2])
+    per_dev = cell.state_bytes_per_device(walked[1])
+    roof = analysis.analyze(cost, n_chips=n_chips,
+                            model_flops=api.model_flops(cfg, shape),
+                            chip=H100, per_device=cell.partitioned)
+    rec = {
+        "arch": arch, "shape": shape.name,
+        "chips": n_chips, "status": "ok", "desc": cell.static_desc,
+        "partitioned": cell.partitioned,
+        "walk_s": round(walk_s, 2), "microbatches": cell.microbatches,
+        "cost": {"flops": cost.flops, "bytes": cost.bytes,
+                 "wire_bytes": cost.wire_bytes,
+                 "product_flops": cost.product_flops,
+                 "declared": cost.declared},
+        "per_device": {
+            "flops": roof.flops_per_device,
+            "bytes": roof.bytes_per_device,
+            "wire_bytes": cost.wire_bytes,
+            "wire_bytes_by_kind": dict(cost.coll_op_bytes),
+            "collectives_by_kind": dict(cost.coll_op_counts)},
+        "per_device_bytes": int(per_dev),
+        "arg_bytes_per_device": int(cell.arg_bytes_per_device()),
+        "fits_hbm": bool(per_dev <= H100.hbm_bytes),
+        "roofline": {
+            "compute_s": roof.compute_s, "memory_s": roof.memory_s,
+            "collective_s": roof.collective_s,
+            "dominant": roof.dominant, "total_s": roof.total_s,
+            "model_flops": roof.model_flops,
+            "hlo_flops_global": roof.hlo_flops_global,
+            "useful_fraction": roof.useful_fraction,
+            "mfu_bound": roof.mfu_bound,
+            "wire_bytes": roof.wire_bytes,
+            "op_bytes": roof.op_bytes, "op_counts": roof.op_counts,
+            "per_device": roof.per_device,
+        },
+        "notes": list(NOTES) + list(
+            NOTES_PARTITIONED if cell.partitioned else NOTES_WHOLE),
+    }
+    return rec, walked
 
 
 def _write(out_dir: str, tag: str, rec: dict) -> None:

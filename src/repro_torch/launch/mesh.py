@@ -12,7 +12,13 @@ The ``pod`` axis composes with ``data`` for the batch, so adding pods
 widens data parallelism without touching the in-pod layout.
 
 ``production_mesh_shape`` gives the production mesh's axes and sizes
-without devices, for the dry run's placements (``launch/cells.py``).
+without devices, for the dry run's placements (``launch/cells.py``) of
+what needs no world: shard shapes, state bytes.  ``fake_world`` gives a
+dry-run process a world of any size on torch's fake process group (its
+collectives move nothing) and a ``DeviceMesh`` over it, on which a
+partitioned step runs on ``meta`` shards and issues the collectives a
+real world would.  A process holds a fake world or a real one, never
+both, and one at a time.
 
 ``init_world`` starts the process group a mesh needs.  Under
 ``torchrun`` it takes the environment's world (``RANK``,
@@ -24,9 +30,11 @@ one GPU, so a world larger than one on CUDA needs as many cards.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import os
-from typing import Optional, Sequence, Tuple, Union
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -68,6 +76,34 @@ def init_world(device: DeviceLike = None) -> Tuple[torch.device, bool]:
 
 def _device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+@contextlib.contextmanager
+def fake_world(shape: Sequence[int], names: Sequence[str],
+               device_type: str = "cuda") -> Iterator[DeviceMesh]:
+    """A world of ``prod(shape)`` ranks on torch's fake process group
+    (this process is rank 0; a collective returns without moving data)
+    and its ``DeviceMesh`` of `shape` with axes `names`, for a dry-run
+    process: a partitioned cell built on ``meta`` runs on it exactly as
+    on a real world of that size, shard shapes and collectives alike.
+    `device_type` is the world's devices: ``cuda`` (NCCL's collectives;
+    DTensor moves a shard from one dim to another by an all-to-all) or
+    ``cpu`` (gloo's, where DTensor all-gathers instead).  Raises if a
+    process group (fake or real) is running; the world ends with the
+    block."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError(f"a {dist.get_backend()} process group is "
+                           "running: a process holds one world")
+    n = math.prod(shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    try:
+        yield DeviceMesh(device_type,
+                         torch.arange(n).reshape(tuple(shape)),
+                         mesh_dim_names=tuple(names))
+    finally:
+        dist.destroy_process_group()
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch import bridge
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer, whisper, xlstm_lm, zamba
 from repro_torch.models.common import dtype_of
 from repro_torch.models import params as P
@@ -109,13 +110,26 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device: DeviceLike = None,
                 dtype: Optional[torch.dtype] = None,
                 long_context: bool = False,
-                kv_quant: bool = False) -> Dict[str, Any]:
+                kv_quant: bool = False, mesh=None,
+                rules: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Decode caches; every leaf but ``len`` has its batch (slot) axis
     at 1, behind the stacked-layer axis.  `long_context`: zamba2's
     shared-attention caches are rings of ``min(max_len,
     ZAMBA_LONG_WINDOW)`` slots.  `kv_quant`: int8 caches for the dense,
     moe and vlm families (decode only); hybrid, xlstm and audio ignore
-    it, as in the JAX package."""
+    it, as in the JAX package.  With a `mesh`, the caches are placed on
+    it by ``cache_axes_of`` under `rules` (the serve rules when None):
+    the partitioned form."""
+    caches = _init_caches(cfg, batch, max_len, device, dtype, long_context,
+                          kv_quant)
+    if mesh is None:
+        return caches
+    rules = rules or shd.serve_rules(mesh, shard_batch=batch > 1)
+    return shd.place(caches, cache_axes_of(caches), mesh, rules)
+
+
+def _init_caches(cfg, batch, max_len, device, dtype, long_context,
+                 kv_quant):
     bridge.model_class(cfg)             # other families raise
     dt = dtype or dtype_of(cfg.dtype)
     dev = resolve_device(device)
@@ -196,7 +210,9 @@ def grow_caches(cfg: ModelConfig, caches: Dict[str, Any],
                 max_len: int) -> Dict[str, Any]:
     """Pad prefill-returned KV caches (capacity == prompt length) out to
     `max_len` on the sequence axis (the axis right of the batch axis);
-    recurrent-state leaves pass through unchanged."""
+    recurrent-state leaves pass through unchanged.  Placed caches are
+    placed again by the cache rules at their new length (under the
+    active ``sharding.axis_rules``)."""
     def grow(tree):
         out = {}
         for name, leaf in tree.items():
@@ -207,7 +223,8 @@ def grow_caches(cfg: ModelConfig, caches: Dict[str, Any],
                 pad = max_len - leaf.shape[seq_ax]
                 if pad > 0:
                     widths = [0, 0] * (leaf.dim() - seq_ax - 1) + [0, pad]
-                    leaf = F.pad(leaf, widths)
+                    leaf = shd.constrain(F.pad(leaf, widths),
+                                         _cache_rule(name, leaf.dim()))
                 out[name] = leaf
             else:
                 out[name] = leaf

@@ -22,6 +22,22 @@ The prefill branch of ``attn_forward`` goes through the flash-attention
 kernel wrapper: the CUDA kernel for CUDA tensors, the plain version for
 CPU tensors.
 
+Placed (DTensor) activations and weights run the partitioned form of
+``attn_forward`` (``distributed/sharding.py``): q, k and v are
+column-parallel and ``wo`` row-parallel, each weight's FSDP shards
+gathered right before its product.  A projection whose column shards
+cut heads (danube's 8 × 80 kv columns on a 16-way axis) is gathered
+whole before its split into heads, as GSPMD gathers it.  The flash
+kernel gets q sharded by heads and k / v by the rule of JAX's
+``_constrain_blocks``: sharded when the kv heads divide the model axis,
+else whole, each rank reading the kv heads its q heads need (the
+kernel wrapper slices them).  Decode reads caches placed by the cache
+rules (``kv_seq`` over ``model``: context-parallel): the new k / v are
+written by the rank that holds their position, and the softmax over a
+sequence-sharded cache takes its row max and sum, and its output, as
+all-reduces over the ranks that hold the positions.  'chunk', per-slot
+``rows`` and int8 caches are not partitioned.
+
 An int8 cache (``init_kv_cache(quantized=True)``: int8 k, v and fp16
 per-(token, head) k_scale, v_scale) is decode-only, as in the JAX
 package: the decode branch quantizes the new k (after RoPE) and v with
@@ -37,6 +53,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.decode_q8.ops import decode_attention_q8
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import common
@@ -121,22 +138,38 @@ def _lens(cache_len, B: int, device: torch.device) -> torch.Tensor:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None, group=None,
+                     start: int = 0, smax: Optional[int] = None
+                     ) -> torch.Tensor:
     """q: [B,1,Hq,D]; caches: [B,Smax,KV,D]; cache_len: scalar or
     per-slot [B] length including the token being decoded.  A windowed
     cache with Smax == window is a ring: every slot is valid once
-    full."""
+    full.
+
+    Context-parallel (a partitioned decode): the caches are this rank's
+    positions [start, start + their length) of a cache of `smax`, and
+    the softmax's row max and sum, and the output, are all-reduced over
+    `group`, the ranks that hold the other positions."""
     B, _, Hq, D = q.shape
-    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    Sl, KV = k_cache.shape[1], k_cache.shape[2]
     G = Hq // KV
     scale = 1.0 / (D ** 0.5)
     lens = _lens(cache_len, B, q.device)
     qg = q.reshape(B, KV, G, D).float()
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale
-    valid = valid_positions(lens, Smax, window)
+    valid = valid_positions(lens, smax or Sl, window)
+    if valid.shape[1] != Sl:
+        valid = valid[:, start:start + Sl]
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    if group is None:
+        p = torch.softmax(s, dim=-1)
+    else:                    # unnormalised: divided by the whole sum
+        p = torch.exp(s - shd.all_reduce(s.amax(dim=-1), "max",
+                                         group)[..., None])
+        den = shd.all_reduce(p.sum(dim=-1), "sum", group)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    if group is not None:
+        out = shd.all_reduce(out, "sum", group) / den[..., None]
     return out.reshape(B, 1, Hq, D).to(q.dtype)
 
 
@@ -247,6 +280,65 @@ def check_cache_bounds(lens: torch.Tensor, new: int, smax: int,
 
 
 # ---------------------------------------------------------------------------
+# the partitioned form (DTensors)
+# ---------------------------------------------------------------------------
+
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """[B,S,n*hd] -> [B,S,n,hd]; a placed t whose column shards do not
+    fall on whole heads is gathered whole first."""
+    B, S = t.shape[:2]
+    if shd.is_placed(t) and n % (t.shape[-1] // t.to_local().shape[-1]):
+        t = shd.replicate_dim(t, -1)
+    return t.reshape(B, S, n, hd)
+
+
+def _local_rows(t: torch.Tensor, like) -> torch.Tensor:
+    """The rows of a plain [B, ...] tensor that `like`'s shard holds."""
+    b0 = shd.local_offset(like, 0)
+    return t[b0:b0 + like.to_local().shape[0]]
+
+
+def _write_placed(kc, vc, k_new, v_new, pos) -> None:
+    """Write [B,1,KV,D] k / v at global positions `pos` [B,1] into the
+    placed caches [B,Smax,KV,D] (sequence sharded or whole), in place:
+    each rank writes the positions its shard holds."""
+    kl, vl = kc.to_local(), vc.to_local()
+    kn = shd.replicate_dim(k_new, 2).to_local()
+    vn = shd.replicate_dim(v_new, 2).to_local()
+    s0, sl = shd.local_offset(kc, 1), kl.shape[1]
+    pos = _local_rows(pos, kc) - s0
+    if sl == kc.shape[1]:
+        _write(kl, vl, kn, vn, pos, None)
+        return
+    keep = ((pos >= 0) & (pos < sl))[..., None, None]
+    pos = torch.clamp(pos, 0, sl - 1)
+    b = torch.arange(kl.shape[0], device=kl.device)[:, None]
+    for cache, new in ((kl, kn), (vl, vn)):
+        cache[b, pos] = torch.where(keep, new.to(cache.dtype), cache[b, pos])
+
+
+def _decode_placed(q, kc, vc, lens, window):
+    """Decode attention of placed q [B,1,Hq,D] over placed caches:
+    ``decode_attention`` on local shards, context-parallel (over the
+    mesh dim that shards the sequence) when the sequence is sharded."""
+    q = shd.replicate_dim(q, 2)
+    kl = kc.to_local()
+    group = None
+    if kl.shape[1] != kc.shape[1]:
+        seq_dims = [i for i, p in enumerate(kc.placements)
+                    if isinstance(p, shd.Shard) and p.dim == 1]
+        if len(seq_dims) != 1:
+            raise NotImplementedError(f"a cache sequence sharded over "
+                                      f"mesh dims {seq_dims}")
+        group = kc.device_mesh.get_group(seq_dims[0])
+    out = decode_attention(q.to_local(), kl, vc.to_local(),
+                           _local_rows(lens, kc), window=window,
+                           group=group, start=shd.local_offset(kc, 1),
+                           smax=kc.shape[1])
+    return shd.from_local(out, q)
+
+
+# ---------------------------------------------------------------------------
 # full attention block forward
 # ---------------------------------------------------------------------------
 
@@ -273,27 +365,42 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     B, S, _ = x.shape
     hq, kvh, hd = attn_dims(cfg)
     wdw = window if window is not None else cfg.sliding_window
+    placed = shd.is_placed(x)
+    if placed and (mode == "chunk" or keep is not None
+                   or kv_override is not None
+                   or (cache is not None and "k_scale" in cache)):
+        raise NotImplementedError(
+            "the partitioned attention runs train, prefill and decode "
+            "over float caches, without per-slot rows or kv_override")
 
-    q = x @ p["wq"]
+    q = x @ shd.gather_fsdp(p["wq"])
     if kv_override is None:
-        k = x @ p["wk"]
-        v = x @ p["wv"]
+        k = x @ shd.gather_fsdp(p["wk"])
+        v = x @ shd.gather_fsdp(p["wv"])
         if "bq" in p:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-        k = k.reshape(B, S, kvh, hd)
-        v = v.reshape(B, S, kvh, hd)
+        k = _split_heads(k, kvh, hd)
+        v = _split_heads(v, kvh, hd)
         if use_rope:
             k = common.apply_rope(k, positions, cfg.rope_theta)
     else:
         if "bq" in p:
             q = q + p["bq"]
         k, v = kv_override
-    q = q.reshape(B, S, hq, hd)
+    q = _split_heads(q, hq, hd)
     if use_rope:
         q = common.apply_rope(q, positions, cfg.rope_theta)
 
     new_cache = cache
-    if mode in ("chunk", "decode") and kv_override is None:
+    if placed and mode == "decode":
+        lens = _lens(cache["len"], B, positions.device)
+        ring = wdw is not None and cache["k"].shape[1] == wdw
+        _write_placed(cache["k"], cache["v"], k, v,
+                      _write_positions(lens, 1, cache["k"].shape[1], ring))
+        out = _decode_placed(q, cache["k"], cache["v"], lens + 1, wdw)
+        new_cache = {"k": cache["k"], "v": cache["v"],
+                     "len": cache["len"] + S}
+    elif mode in ("chunk", "decode") and kv_override is None:
         assert cache is not None
         quantized = "k_scale" in cache
         if quantized and mode == "chunk":
@@ -339,7 +446,8 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         raise ValueError(f"unknown attention mode {mode!r}"
                          + (" with kv_override" if kv_override else ""))
 
-    y = out.reshape(B, S, hq * hd) @ p["wo"]
+    o = shd.constrain(out.reshape(B, S, hq * hd), ("batch", None, "qkv"))
+    y = o @ shd.gather_fsdp(p["wo"])
     return y, new_cache
 
 

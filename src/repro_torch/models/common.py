@@ -2,7 +2,11 @@
 
 ``rmsnorm`` and ``add_rmsnorm`` dispatch to the kernel wrappers, which
 launch the CUDA kernel for CUDA tensors and run the plain version for
-CPU tensors.
+CPU tensors (on DTensors, on each rank's local rows).  ``embed_lookup``
+on a placed table is the vocab-parallel lookup: each rank looks up the
+tokens of its vocab shard, zeroes the others' rows, and the result is
+a partial sum over the model axis that the caller's ``constrain``
+reduces.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.rmsnorm.ops import add_rmsnorm as _add_rmsnorm_op
 from repro_torch.kernels.rmsnorm.ops import rmsnorm as _rmsnorm_op
 from repro_torch.roofline import op_cost
@@ -78,9 +83,37 @@ class _EmbedLookup(torch.autograd.Function):
         return grad, None
 
 
+def _embed_placed(table, tokens):
+    """The lookup on a placed table [Vp, d] (vocab over the model axis,
+    d over the batch axes) for placed tokens: d gathered (FSDP), each
+    rank's vocab rows looked up and the other tokens' rows zeroed; the
+    result is a partial sum over the vocab-sharding mesh dims."""
+    t = shd.gather_fsdp(table)
+    rows_pl, out_pl = [], []
+    for pt, pk in zip(t.placements, tokens.placements):
+        if isinstance(pt, shd.Shard):     # the vocab shard
+            rows_pl.append(pt)
+            out_pl.append(shd.Partial())
+        else:
+            rows_pl.append(shd.Partial() if isinstance(pk, shd.Shard)
+                           else shd.Replicate())
+            out_pl.append(pk)
+    w = t.to_local(grad_placements=rows_pl)
+    idx = tokens.to_local() - shd.local_offset(t, 0)
+    vl = w.shape[0]
+    out = embed_lookup(w, torch.clamp(idx, 0, vl - 1))
+    if vl != t.shape[0]:
+        keep = (idx >= 0) & (idx < vl)
+        out = torch.where(keep[..., None], out,
+                          torch.zeros((), dtype=out.dtype, device=out.device))
+    return shd.from_local(out, tokens, out_pl)
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``; under grad, with the deterministic backward of
-    ``_EmbedLookup``."""
+    ``_EmbedLookup``; on a placed table, the vocab-parallel lookup."""
+    if shd.is_placed(table):
+        return _embed_placed(table, tokens)
     if torch.is_grad_enabled() and table.requires_grad:
         return _EmbedLookup.apply(table, tokens)
     return table[tokens]
@@ -99,6 +132,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     halves, angles in fp32."""
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                # [D/2]
+    if shd.is_placed(positions):                          # replicated
+        freqs = shd.from_local(freqs, positions,
+                               [shd.Replicate()] * positions.device_mesh.ndim)
     angles = positions[..., :, None].float() * freqs      # [..., S, D/2]
     cos = torch.cos(angles)[..., None, :]                 # [..., S, 1, D/2]
     sin = torch.sin(angles)[..., None, :]

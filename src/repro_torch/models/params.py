@@ -13,6 +13,8 @@ so the bridge needs no name heuristics, and its logical axes (the JAX
 package's ``*_specs`` entry for that weight), so the sharding rules
 need no second tree: ``logical_axes`` gathers them by the same dotted
 paths, a ``Stack`` prepending ``None`` for its layer axis.
+``ParamTree.place`` turns every leaf into a DTensor with its axes'
+placements on a mesh (the partitioned form of a model).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +174,20 @@ class ParamTree(nn.Module):
         return [{**{name: t[i] for name, t in per.items()},
                  **{name: sub[i] for name, sub in subs.items()}}
                 for i in range(self.n)]
+
+    def place(self, mesh, rules) -> "ParamTree":
+        """Every leaf, in place, as a DTensor on `mesh` with the checked
+        placements of its logical axes (``sharding.place_leaf``; a
+        stacked leaf's layer axis stays whole).  Returns self."""
+        for name, leaf in self.specs.items():
+            p = getattr(self, name)
+            axes = ((None,) if self.n is not None else ()) + leaf.axes
+            self.register_parameter(name, nn.Parameter(
+                shd.place_leaf(p.data, axes, mesh, rules),
+                requires_grad=p.requires_grad))
+        for mod in self._modules.values():
+            mod.place(mesh, rules)
+        return self
 
     def leaves(self, prefix: str = ""
                ) -> Iterator[Tuple[str, nn.Parameter, Leaf, Optional[int]]]:

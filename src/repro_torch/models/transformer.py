@@ -17,6 +17,15 @@ deterministic backward (``common.embed_lookup``), and ``remat`` follows
 backward (``torch.utils.checkpoint``, non-reentrant), 'dots' does too
 but keeps the outputs of the plain matrix products (the policy of
 ``dots_with_no_batch_dims_saveable``), 'none' keeps every activation.
+
+Placed parameters (DTensors, ``ParamTree.place``) run the partitioned
+step under ``sharding.axis_rules``, with the JAX package's constraints:
+the embedding's vocab-parallel partial sum and each block's output are
+reduced onto the residual's layout (("batch", "seq", "act_embed") at
+each norm), the logits are vocab-sharded (("batch", None, "vocab")), a
+prefill's caches are placed by the cache rules (``kv_seq`` over
+``model``).  The inputs are placed by ("batch", ...) when they come
+plain.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention
 from repro_torch.models import params as P
 from repro_torch.models.common import (add_rmsnorm, embed_lookup,
@@ -112,14 +122,28 @@ def _save_matmuls(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+RESIDUAL = ("batch", "seq", "act_embed")
+
+
+def add_norm(x, y, scale, eps):
+    """``add_rmsnorm`` on the residual stream: the pending branch output
+    y (a partial sum in a partitioned step) is constrained onto the
+    residual's layout first, and so is the sum, as the JAX block
+    constrains x + y."""
+    if y is not None:
+        y = shd.constrain(y, RESIDUAL)
+    x, h = add_rmsnorm(x, y, scale, eps)
+    return shd.constrain(x, RESIDUAL), h
+
+
 def _block(x, y, lp, positions, cfg: ModelConfig, kind: str, mode: str,
            cache=None, keep=None):
     """One layer: the pending residual y is added by norm1's kernel.
     Returns (x, y, aux or None, new_cache)."""
-    x, h = add_rmsnorm(x, y, lp["norm1"], cfg.norm_eps)
+    x, h = add_norm(x, y, lp["norm1"], cfg.norm_eps)
     h, nc = attention.attn_forward(lp["attn"], h, positions, cfg=cfg,
                                    mode=mode, cache=cache, keep=keep)
-    x, h2 = add_rmsnorm(x, h, lp["norm2"], cfg.norm_eps)
+    x, h2 = add_norm(x, h, lp["norm2"], cfg.norm_eps)
     if kind == "moe":
         y, aux = moe_forward(lp["moe"], h2, cfg)
     else:
@@ -159,11 +183,16 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
     None); every slot still attends over its own new keys.  The returned
     dict holds the same tensors and the new len.
     mode 'train': autograd through every layer, `remat` one of REMAT.
+    Placed parameters: the partitioned step (module docstring).
     """
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    placed = shd.is_placed(params.embed)
+    if placed:
+        batch = _placed_inputs(batch, rows)
     tokens = batch["tokens"].to(params.device).long()
-    x = embed_lookup(params.embed, tokens)
+    x = shd.constrain(embed_lookup(params.embed, tokens),
+                      ("batch", None, "act_embed"))
     if cfg.family == "vlm" and mode not in ("decode", "chunk"):
         # the stub vision frontend's patch embeddings go first
         patches = batch["patch_embeds"].to(device=x.device, dtype=x.dtype)
@@ -189,6 +218,8 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
         positions = lens[:, None] + torch.arange(S, device=dev)[None, :]
     else:
         positions = torch.arange(S, device=dev).expand(B, S)
+    if placed:
+        positions = _rows_like(positions, x)
 
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     new_caches: Dict[str, Any] = {}
@@ -216,8 +247,10 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
                 aux = aux + aux_i
         if mode == "prefill":
             one = (B, S) + attention.attn_dims(cfg)[1:]
-            new_caches[name] = {"k": stack_layers(new_k, one, x),
-                                "v": stack_layers(new_v, one, x)}
+            new_caches[name] = {
+                n: shd.constrain(stack_layers(t, one, x),
+                                 (None, "batch", "kv_seq", None, None))
+                for n, t in (("k", new_k), ("v", new_v))}
         elif lens is not None:
             new_caches[name] = caches[name]
 
@@ -227,10 +260,38 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
         step = 1 if mode == "decode" else S
         new_caches["len"] = (lens + step).to(torch.int32)
 
-    _, x = add_rmsnorm(x, y, params.final_norm, cfg.norm_eps)
+    _, x = add_norm(x, y, params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = x @ head
+    logits = shd.constrain(x @ shd.gather_fsdp(head),
+                           ("batch", None, "vocab"))
     return logits, aux, (new_caches or None)
+
+
+def _placed_inputs(batch, rows):
+    """The batch of a partitioned step: each plain leaf placed by
+    ("batch", ...) under the active rules (placed leaves as they are)."""
+    ctx = shd.current_context()
+    if ctx is None:
+        raise ValueError("placed parameters run under sharding.axis_rules "
+                         "with the mesh they are placed on")
+    if rows is not None:
+        raise NotImplementedError("per-slot writes (rows) are not "
+                                  "partitioned")
+    mesh, rules = ctx
+    plain = {k: v for k, v in batch.items() if not shd.is_placed(v)}
+    axes = {k: ("batch",) + (None,) * (v.dim() - 1)
+            for k, v in plain.items()}
+    return {**batch, **shd.place(plain, axes, mesh, rules)}
+
+
+def _rows_like(t: torch.Tensor, x) -> torch.Tensor:
+    """A plain [B, ...] tensor (the positions) as a DTensor placed like
+    placed x's rows: x's batch shards, whole elsewhere."""
+    pl = [p if isinstance(p, shd.Shard) and p.dim == 0 else shd.Replicate()
+          for p in x.placements]
+    b0 = shd.local_offset(x, 0)
+    return shd.from_local(t[b0:b0 + x.to_local().shape[0]].contiguous(), x,
+                          pl)
 
 
 def init_lm_caches(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -6,13 +6,16 @@ Three terms per (arch x shape x mesh) cell, all in seconds:
   memory     = bytes a device / HBM bandwidth
   collective = sum over collective ops of wire bytes / link bandwidth
 
-The cost comes from ``op_cost``: an eager walk of one whole step (the
-global batch), not a partitioned program, so ``hlo_flops_global`` is the
-walk's count and the compute and memory terms divide it by ``n_chips``.
-That is an ideal partition: every chip gets an equal share of every op
-and nothing is computed twice.  The JAX package reads the compiler's
-per-partition counts instead; its redundancy (replicated small ops) has
-no counterpart here.  The wire bytes are already a device's
+The cost comes from ``op_cost``, in one of two kinds (``per_device``):
+a walk of the partitioned step on one device's shards (the dense and
+vlm families on a DTensor mesh), which is already a device's, as the
+JAX package's per-partition counts are, its redundancy (work every
+rank of an axis repeats) included, and ``hlo_flops_global`` is it times
+``n_chips``; or a walk of the whole, unpartitioned step (the global
+batch; the other families), which the compute and memory terms divide
+by ``n_chips``, an ideal partition where every chip gets an equal
+share of every op and nothing is computed twice.  The wire bytes are
+already a device's in both
 (``op_cost`` charges each collective with its per-device operand).  The
 link rate is the chip's node-spanning one whenever ``n_chips`` exceeds
 a node (``hw.Chip.link_bw``).
@@ -70,6 +73,7 @@ class Roofline:
     hlo_flops_global: float              # the walk's count (global)
     op_bytes: Dict[str, float]
     op_counts: Dict[str, int]
+    per_device: bool = False             # cost was one device's
 
     @property
     def dominant(self) -> str:
@@ -102,11 +106,13 @@ class Roofline:
 
 
 def analyze(cost: "StepCost", *, n_chips: int, model_flops: float,
-            chip: Chip = H100) -> Roofline:
-    """Roofline terms of a step whose whole (global) cost is `cost`,
-    spread evenly over `n_chips`; `cost`'s collectives are per device."""
+            chip: Chip = H100, per_device: bool = False) -> Roofline:
+    """Roofline terms of a step on `n_chips`: `cost` is one device's
+    (`per_device`, a partitioned walk) or the whole step's, spread
+    evenly over the chips; its collectives are per device either way."""
     n = max(n_chips, 1)
-    flops, bytes_ = cost.flops / n, cost.bytes / n
+    div = 1 if per_device else n
+    flops, bytes_ = cost.flops / div, cost.bytes / div
     r = Roofline(
         compute_s=flops / chip.peak_bf16_flops,
         memory_s=bytes_ / chip.hbm_bw,
@@ -115,9 +121,10 @@ def analyze(cost: "StepCost", *, n_chips: int, model_flops: float,
         bytes_per_device=bytes_,
         wire_bytes=cost.wire_bytes,
         model_flops=model_flops,
-        hlo_flops_global=cost.flops,
+        hlo_flops_global=cost.flops * (n if per_device else 1),
         op_bytes=dict(cost.coll_op_bytes),
         op_counts={k: int(v) for k, v in cost.coll_op_counts.items()},
+        per_device=per_device,
     )
     r.n_chips = n_chips
     r.chip = chip

@@ -14,7 +14,8 @@ field names.  The mapping:
   _PLUMBING (parameter, bitcast,         views (``OpOverload.is_view``),
     reshape, broadcast, iota, rng, ...)    empty/arange/detach/random fills
   gather / scatter / slice / concat      index/gather/scatter/cat/sort/copy
-  all-reduce, all-gather, ...            c10d and _c10d_functional ops
+  all-reduce, all-gather, ...            c10d, _c10d_functional and
+                                           _dtensor.shard_dim_alltoall
   while-loop trip counts                 none: eager runs every iteration
 
 Counting, as ``hlo_cost``'s docstring states it:
@@ -34,6 +35,16 @@ Counting, as ``hlo_cost``'s docstring states it:
 * a c10d collective costs ring-model wire bytes over its process
   group's size (``analysis.ring_wire_bytes``), and twice its result's
   bytes of HBM traffic.
+
+A partitioned step (DTensors, ``distributed/sharding.py``) is counted
+per device, as ``hlo_cost`` reads a partitioned module: an op whose
+arguments are DTensors is charged nothing at its global shapes; the
+walk declines it (``NotImplemented``), DTensor's own dispatch runs it
+with the walk still active, and the local ops and ``_c10d_functional``
+collectives it issues on this rank's shards are what the walk charges.
+The shape inference DTensor runs on fake tensors (its sharding
+propagation) is not charged.  A fake world's rank 0 stands for every
+device (``launch/mesh.fake_world``).
 
 Eager code runs every loop iteration, so no trip-count correction is
 needed.  A train cell counts one microbatch and multiplies it by the
@@ -65,6 +76,11 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.roofline.analysis import ring_wire_bytes
+
+try:        # torch's distributed package (absent from some builds)
+    from torch.distributed.tensor import DTensor
+except ImportError:                      # pragma: no cover
+    DTensor = ()
 
 # products: the position of the operand whose last dim is contracted
 # (mat1), which is 1 where a bias comes first; ``product_flops`` counts
@@ -116,7 +132,10 @@ COLLECTIVES = {
     "all_gather_into_tensor": ("all-gather", 0, -1),
     "reduce_scatter_tensor": ("reduce-scatter", 0, -1),
     "all_to_all_single": ("all-to-all", 0, -1),
+    # DTensor's move of a shard between dims (NCCL meshes)
+    "shard_dim_alltoall": ("all-to-all", 0, -1),
 }
+COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "_dtensor")
 
 
 @dataclasses.dataclass
@@ -208,6 +227,16 @@ def _group_size(args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> int:
     return 1
 
 
+def _under_fake_mode() -> bool:
+    """True inside DTensor's sharding propagation, which infers shapes
+    on fake tensors under a ``FakeTensorMode``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import \
+        _get_current_dispatch_mode_stack
+    return any(isinstance(m, FakeTensorMode)
+               for m in _get_current_dispatch_mode_stack())
+
+
 class OpCost(TorchDispatchMode):
     """Count every aten op of the code run under it:
     ``with OpCost() as oc: fn(); oc.cost``.  `sample_loops`: loops run
@@ -232,15 +261,17 @@ class OpCost(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if DTensor and any(issubclass(t, DTensor) for t in types):
+            return NotImplemented        # DTensor runs it on local shards
         out = func(*args, **kwargs)
-        if not self.suppress:
+        if not self.suppress and not _under_fake_mode():
             self._count(func, func.overloadpacket.__name__, args, kwargs,
                         out)
         return out
 
     def _count(self, func, name: str, args, kwargs, out) -> None:
         c, m = self.cost, self.scale
-        if func.namespace in ("c10d", "_c10d_functional"):
+        if func.namespace in COLLECTIVE_NAMESPACES:
             if name in COLLECTIVES:
                 kind, s_at, r_at = COLLECTIVES[name]
                 s = sum(tensor_bytes(t) for t in _tensors(args[s_at]))

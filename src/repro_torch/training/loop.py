@@ -25,17 +25,34 @@ accumulates its gradients as above; then every leaf is summed over the
 batch axes and divided by their size, before the grad norm, the skip,
 int8 compression and AdamW, so every replica applies the same update.
 The loss and metrics are reduced the same way.  Only the batch axes
-are trained over: a mesh with a model axis of more than one rank is
-refused.
+are trained over by whole replicas: a mesh with a model axis of more
+than one rank is refused for them.
+
+The partitioned step (FSDP over the batch axes, tensor parallelism over
+``model``, as GSPMD partitions the JAX step by the rules) is taken when
+the state's parameters are placed (DTensors: ``ParamTree.place``,
+``place_state``), under ``sharding.axis_rules`` with their mesh.  The
+batch is placed by ("batch", ...) with each rank holding its share of
+every microbatch (``place_batch``, ``data.pipeline.rank_rows``), so
+microbatch i is the JAX program's rows [i·mb, (i+1)·mb).  The model
+code issues every collective (the FSDP gathers and their gradients'
+reduce-scatters, the tensor-parallel reductions); the loss over
+vocab-sharded logits takes its row max and sum over ``model``
+(``cross_entropy``).  The gradients come out placed like their
+parameters and summed, so nothing is all-reduced after them: the fp32
+accumulation, the global norm (over every shard, each counted once:
+the same value on every rank) and AdamW run on each rank's shards.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.data.pipeline import rank_rows
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import compression
 from repro_torch.distributed import sharding as shd
@@ -77,6 +94,75 @@ def init_train_state(cfg: ModelConfig, tc: TrainConfig, *,
     return TrainState(params=params, opt=opt, err=err)
 
 
+def is_placed(state: TrainState) -> bool:
+    """True when the state's parameters are placed (the partitioned
+    step)."""
+    return shd.is_placed(next(state.params.parameters()))
+
+
+def place_state(state: TrainState, mesh, rules) -> TrainState:
+    """`state` placed on `mesh` by `rules`, in place: the parameters
+    (``ParamTree.place``) and the optimizer's master, m and v like
+    their parameter; the step stays a plain scalar.  Compression's
+    error tree is not partitioned."""
+    if state.err is not None:
+        raise NotImplementedError("gradient compression is not "
+                                  "partitioned")
+    state.params.place(mesh, rules)
+    axes = api.param_specs(state.params.cfg)
+    opt = state.opt._replace(**{
+        f: shd.place(getattr(state.opt, f), axes, mesh, rules)
+        for f in ("master", "m", "v")})
+    return TrainState(params=state.params, opt=opt, err=None)
+
+
+def placed_microbatch(batch: int, microbatch: Optional[int],
+                      n: int) -> int:
+    """The microbatch of a partitioned step over `n` batch ranks: the
+    step's own (the whole batch when it is unset or does not divide
+    it), widened to the least multiple of `n` that divides the batch
+    when `n` does not divide it (qwen2.5-32b's 16 rows on the 32 ranks
+    of two pods: 32).  The loss and gradients are the same mean over
+    the batch, taken over fewer, larger microbatches."""
+    mb = microbatch
+    if not mb or mb >= batch or batch % mb:
+        return batch
+    wide = mb * n // math.gcd(mb, n)
+    return wide if batch % wide == 0 else batch
+
+
+def place_batch(batch: Dict[str, torch.Tensor], mesh, rules,
+                microbatch: Optional[int] = None) -> Dict[str, Any]:
+    """A global batch (every rank holds it whole) placed by ("batch",
+    ...): each rank's shard is its share of every microbatch
+    (``rank_rows``, of ``placed_microbatch``), so a microbatch of the
+    placed batch is the same rows as the JAX program's.  Leaves already
+    placed stay as they are."""
+    out = {}
+    for k, v in batch.items():
+        if shd.is_placed(v):
+            out[k] = v
+            continue
+        pl = shd.spec_placements(shd.checked_spec(
+            ("batch",) + (None,) * (v.dim() - 1), v.shape, mesh, rules),
+            mesh)
+        axes = [mesh.mesh_dim_names[i] for i, p in enumerate(pl)
+                if isinstance(p, shd.Shard)]
+        n = mesh_mod.axis_size(mesh, axes) if axes else 1
+        rank = mesh_mod.axis_index(mesh, axes) if axes else 0
+        mb = placed_microbatch(v.shape[0], microbatch, n)
+        rows = torch.as_tensor(rank_rows(v.shape[0], mb, rank, n),
+                               device=v.device)
+        out[k] = shd.DTensor.from_local(v.index_select(0, rows), mesh, pl,
+                                        run_check=False)
+    return out
+
+
+def batch_ranks(t: torch.Tensor) -> int:
+    """The ranks a placed [B, ...] leaf's rows are split over."""
+    return t.shape[0] // t.to_local().shape[0]
+
+
 def train_state_specs(cfg: ModelConfig, tc: TrainConfig) -> TrainState:
     """Logical-axis trees mirroring ``TrainState``: the params' axes by
     parameter name (``api.param_specs``), the optimizer's, and the
@@ -90,10 +176,79 @@ def train_state_specs(cfg: ModelConfig, tc: TrainConfig) -> TrainState:
 # loss
 # ---------------------------------------------------------------------------
 
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim of vocab-sharded logits:
+    the row max and the sum of exponentials all-reduced over `group`
+    (None: the vocab is whole), with ATen's arithmetic forward and
+    backward, so a group of one gives its bits."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        m = x.amax(dim=-1, keepdim=True)
+        if group is not None:
+            m = shd.all_reduce(m, "max", group)
+        s = (x - m).exp().sum(dim=-1)
+        if group is not None:
+            s = shd.all_reduce(s, "sum", group)
+        out = s.log() + m[..., 0]
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g[..., None] * (x - out[..., None]).exp(), None
+
+
+def _cross_entropy_placed(logits, labels, vocab_size: int) -> torch.Tensor:
+    """``cross_entropy`` of placed logits [B,S,Vp] (vocab over
+    ``model``, rows over the batch axes): each rank's vocab columns,
+    the row's log-sum-exp and gold logit reduced over the vocab shards,
+    the mean over the global batch's valid labels."""
+    vocab_dims = [i for i, p in enumerate(logits.placements)
+                  if isinstance(p, shd.Shard) and p.dim == logits.ndim - 1]
+    group = (logits.device_mesh.get_group(vocab_dims[0]) if vocab_dims
+             else None)
+    if len(vocab_dims) > 1:
+        raise NotImplementedError("logits' vocab over several mesh dims")
+    if not shd.is_placed(labels):
+        raise ValueError("placed logits need placed labels")
+    lf = logits.to_local().float()
+    lab = labels.to_local().to(lf.device).long()
+    v0, vl = shd.local_offset(logits, logits.ndim - 1), lf.shape[-1]
+    if v0 + vl > vocab_size:
+        col = torch.arange(v0, v0 + vl, device=lf.device)
+        lf = torch.where(col < vocab_size, lf, torch.full_like(lf, -1e30))
+    lse = _LogSumExp.apply(lf, group)
+    idx = lab - v0
+    gold = torch.gather(lf, -1, torch.clamp(idx, 0, vl - 1)[..., None])[..., 0]
+    rows = [p if isinstance(p, shd.Shard) and p.dim == 0 else shd.Replicate()
+            for p in logits.placements]
+    if group is not None:
+        gold = torch.where((idx >= 0) & (idx < vl), gold,
+                           torch.zeros((), device=gold.device))
+        part = list(rows)
+        part[vocab_dims[0]] = shd.Partial()
+        gold = shd.from_local(gold, logits, part).redistribute(
+            logits.device_mesh, rows).to_local()
+    nll = lse - gold
+    valid = (lab >= 0).float()
+    batch_sum = [shd.Partial() if isinstance(p, shd.Shard) else p
+                 for p in rows]
+
+    def total(t):
+        return shd.from_local(t, logits, batch_sum).full_tensor()
+    return total(torch.sum(nll * valid)) / torch.clamp(
+        total(torch.sum(valid)), min=1.0)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   vocab_size: int) -> torch.Tensor:
     """Mean token NLL in fp32.  Padded-vocab columns are masked out;
-    labels < 0 are ignored (padding positions)."""
+    labels < 0 are ignored (padding positions).  Placed logits: the
+    vocab-parallel form (``_cross_entropy_placed``)."""
+    if shd.is_placed(logits):
+        return _cross_entropy_placed(logits, labels, vocab_size)
     lf = logits.float()
     vp = lf.shape[-1]
     if vp > vocab_size:
@@ -117,6 +272,16 @@ def _split_batch(batch: Dict[str, Any], n: int) -> Dict[str, Any]:
             for k, v in batch.items()}
 
 
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A placed param's grad in its param's placements: DTensor's
+    backward may leave one pending (a bias added to rows sharded over
+    the batch ranks gets a partial sum over them), and the accumulation
+    reads local shards."""
+    if shd.is_placed(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def _make_accumulate(cfg: ModelConfig, tc: TrainConfig):
     """The grad-accumulation closure shared by the single-pod and fleet
     steps: accumulate(params, batch) -> (fp32 grads by name, metrics)."""
@@ -132,7 +297,8 @@ def _make_accumulate(cfg: ModelConfig, tc: TrainConfig):
         ce = cross_entropy(logits, labels, cfg.vocab_size)
         loss = ce + aux
         loss.backward()
-        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+        grads = {n: _placed_like(p.grad, p) if p.grad is not None
+                 else torch.zeros_like(p)
                  for n, p in params.named_parameters()}
         for p in params.parameters():
             p.grad = None
@@ -140,9 +306,18 @@ def _make_accumulate(cfg: ModelConfig, tc: TrainConfig):
 
     def accumulate(params: Model, batch: Dict[str, Any], n_dp: int = 1):
         """`batch` is the rank's rows of a global batch n_dp times as
-        large, microbatch by microbatch."""
-        B = batch["tokens"].shape[0] * n_dp
+        large, microbatch by microbatch; placed parameters: the placed
+        global batch (``place_batch``), each microbatch the ranks'
+        shares of it."""
+        placed = shd.is_placed(params.embed)
         mb = tc.microbatch
+        if placed:
+            mesh, rules = shd.current_context()
+            batch = place_batch(batch, mesh, rules, mb)
+            n_dp = 1
+            mb = placed_microbatch(batch["tokens"].shape[0], mb,
+                                   batch_ranks(batch["tokens"]))
+        B = batch["tokens"].shape[0] * n_dp
         if not mb or mb >= B or B % mb:
             grads, lv = grads_of(params, batch)
             return ({n: g.float() for n, g in grads.items()},
@@ -151,14 +326,22 @@ def _make_accumulate(cfg: ModelConfig, tc: TrainConfig):
             raise ValueError(f"microbatch {mb} does not split over "
                              f"{n_dp} data-parallel ranks")
         n_mb, mb = B // mb, mb // n_dp
-        gacc = {n: torch.zeros(p.shape, dtype=torch.float32,
-                               device=p.device)
+        if placed:           # a microbatch: each rank's share of it
+            local = {k: v.to_local() for k, v in batch.items()}
+            mb = next(iter(local.values())).shape[0] // n_mb
+
+            def micro(i):
+                return {k: shd.from_local(v[i * mb:(i + 1) * mb], batch[k])
+                        for k, v in local.items()}
+        else:
+            def micro(i):
+                return {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        gacc = {n: torch.zeros_like(p, dtype=torch.float32)
                 for n, p in params.named_parameters()}
         lacc = torch.zeros(3, device=params.device)
         # an op-cost walk may count the first microbatch n_mb times
         for i in op_cost.repeats(n_mb):
-            grads, lv = grads_of(params, {k: v[i * mb:(i + 1) * mb]
-                                          for k, v in batch.items()})
+            grads, lv = grads_of(params, micro(i))
             for n, g in grads.items():
                 # a slice at a time: no fp32 copy of a whole stacked leaf
                 for acc, gs in opt_mod.slices(gacc[n], g):
@@ -202,8 +385,8 @@ def _apply_update(state: TrainState, grads: Tree, metrics: Dict,
 
 
 def _data_group():
-    """(the batch axes' group, their size) of the active mesh, or
-    (None, 1) without one."""
+    """(the batch axes' group, their size) of the active mesh for a
+    step of whole replicas, or (None, 1) without one."""
     ctx = shd.current_context()
     if ctx is None:
         return None, 1
@@ -239,10 +422,18 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     accumulated over batch // microbatch backward passes (activation
     memory scales with the microbatch, not the batch).  Under a mesh
     (``sharding.axis_rules``) `batch` is the rank's rows and the
-    gradients are averaged over the batch axes (module docstring)."""
+    gradients are averaged over the batch axes (module docstring).  A
+    placed state runs the partitioned step on the placed (or whole)
+    global batch."""
     accumulate = _make_accumulate(cfg, tc)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        if is_placed(state):         # partitioned: DTensor's reductions
+            if shd.current_context() is None:
+                raise ValueError("a placed state trains under "
+                                 "sharding.axis_rules with its mesh")
+            return _apply_update(state, *accumulate(state.params, batch),
+                                 tc)
         group, n = _data_group()
         grads, metrics = accumulate(state.params, batch, n)
         if group is not None:

@@ -10,6 +10,12 @@ PLACE (JAX returns new arrays); ``master``, ``m`` and ``v`` are updated
 in place too, one slice of at most ``CHUNK`` elements at a time, so the
 temporaries stay small at full width, and so is ``step``: every holder
 of the state sees the whole of it after each update.
+
+A placed state (the partitioned step: the master, m and v placed like
+their parameter) is updated on each rank's local shards, with no
+collective; ``global_norm`` sums every shard's squares once (a partial
+sum over the mesh dims that shard a leaf, reduced), so every rank reads
+the same norm and a grad-spike skip decides alike everywhere.
 """
 from __future__ import annotations
 
@@ -61,14 +67,31 @@ def lr_schedule(step: torch.Tensor, tc: TrainConfig) -> torch.Tensor:
     return tc.learning_rate * warm * (0.1 + 0.9 * cos)
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A placed scalar reduced onto every rank; a plain one as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(g.float())) for g in tree.values()]
+    leaves = [_whole(torch.sum(torch.square(g.float())))
+              for g in tree.values()]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def slices(*ts: torch.Tensor):
-    """Matching flat slices of contiguous tensors of one size."""
-    flat = [t.view(-1) for t in ts]
+    """Matching flat slices of contiguous tensors of one size (a placed
+    tensor's local shard).  Placed tensors must share one layout: a
+    shard of another one (a pending partial sum among them) would be
+    read as this one's."""
+    layouts = {tuple(t.placements) for t in ts if hasattr(t, "placements")}
+    if len(layouts) > 1:
+        raise ValueError(f"slices of tensors of different placements: "
+                         f"{sorted(map(str, layouts))}")
+    flat = [_local(t).view(-1) for t in ts]
     for i in range(0, flat[0].numel(), CHUNK):
         yield tuple(f[i:i + CHUNK] for f in flat)
 

@@ -312,7 +312,13 @@ def test_dryrun_cli_writes_an_ok_record(tmp_path):
               "op_counts"):
         assert k in rec["roofline"], k
     assert rec["roofline"]["dominant"] == "memory"
-    assert rec["fits_hbm"] and rec["roofline"]["collective_s"] == 0.0
+    # a dense cell is partitioned: its decode step issues the
+    # tensor-parallel reductions and the context-parallel softmax's
+    assert rec["partitioned"] and rec["roofline"]["per_device"]
+    for k in ("flops", "bytes", "wire_bytes", "wire_bytes_by_kind"):
+        assert k in rec["per_device"], k
+    assert rec["fits_hbm"] and rec["roofline"]["collective_s"] > 0.0
+    assert rec["per_device"]["wire_bytes_by_kind"]["all-reduce"] > 0.0
 
 
 def test_dryrun_skips_inapplicable_shapes(tmp_path):
