@@ -205,18 +205,20 @@ of JAX and nothing of the ``repro`` package.  In order:
 12. drives the dry-run and roofline layer (``dryrun_phase``, last):
    ``python -m repro_torch.launch.dryrun --all --mesh both`` over every
    (arch x shape x mesh) cell on meta tensors, in separate processes,
-   where no cell may fail (the dense and vlm cells partitioned on fake
-   worlds of 256 and 512 ranks, walked per device; the wall printed
-   beside the whole-replica dry run's); then four cells that fit one
-   card, built at full width and depth through ``launch.cells`` in a
-   world of one rank over NCCL (phi3-mini-3.8b prefill [1, 4096] and
-   decode at batch 16 over 4096 slots, h2o-danube-1.8b train [2, 4096]
-   in microbatches of 1 with remat full, olmoe-1b-7b decode at batch 16
-   over 4096 slots; the first three partitioned, DTensors on the 1 x 1
-   mesh with the flash and RMSNorm kernels on local shards, each after
-   its whole run, whose outputs its own must equal bit for bit, else
-   within a tolerance with the first differing output named; olmoe
-   whole): each step timed between CUDA events, walked under
+   where no cell may fail (the dense, vlm and MoE cells partitioned on
+   fake worlds of 256 and 512 ranks, walked per device, the MoE cells'
+   a2a dispatch included; the wall printed beside the whole-replica dry
+   run's); then six cells that fit one card, built at full width
+   through ``launch.cells`` in a world of one rank over NCCL
+   (phi3-mini-3.8b prefill [1, 4096] and decode at batch 16 over 4096
+   slots, h2o-danube-1.8b train [2, 4096] in microbatches of 1 with
+   remat full, olmoe-1b-7b decode at batch 16 over 4096 slots and train
+   [2, 4096] at 7 of 16 layers, deepseek-moe-16b prefill [1, 4096]);
+   all partitioned, DTensors on the 1 x 1 mesh with the flash, RMSNorm
+   and MoE dispatch kernels on local shards, each after its whole run,
+   whose outputs its own must equal bit for bit, else within a
+   tolerance with the first differing output named): each step timed
+   between CUDA events, walked under
    ``roofline.op_cost`` on CUDA and on meta (the FLOPs, bytes and
    declared kernel costs must be equal), the placed argument bytes
    against the materialized arguments', the state bytes against the
@@ -3168,28 +3170,29 @@ FIG8_CONFIGS = [(1, 1), (2, 2), (2, 8), (4, 4), (2, 32), (8, 4), (8, 8),
 DRYRUN_TIMEOUT = 900    # seconds for the whole dry run (its processes)
 DRYRUN_RUNS = 3         # timed steps of a check cell
 # the dry run's wall on an H100 (8 processes) when every cell was
-# walked as whole replicas, before the dense and vlm cells were
+# walked as whole replicas, before the dense, vlm and MoE cells were
 # partitioned
 DRYRUN_WHOLE_WALL_S = 57.0
-# the dry run's cells that fit one H100, at full width and depth:
-# name: (arch, kind, seq, batch, microbatch of a train cell)
+# the dry run's cells that fit one H100, at full width (and depth, but
+# where cut as the family's training is): name: (arch, kind, seq,
+# batch, microbatch of a train cell, layers or None for all)
 DRYRUN_CHECKS = {
-    "phi3_prefill": (PHI3, "prefill", 4096, 1, None),
-    "phi3_decode": (PHI3, "decode", 4096, 16, None),
-    "danube_train": (DANUBE, "train", 4096, 2, 1),
-    "olmoe_decode": (OLMOE, "decode", 4096, 16, None),
+    "phi3_prefill": (PHI3, "prefill", 4096, 1, None, None),
+    "phi3_decode": (PHI3, "decode", 4096, 16, None, None),
+    "danube_train": (DANUBE, "train", 4096, 2, 1, None),
+    "olmoe_decode": (OLMOE, "decode", 4096, 16, None, None),
+    "olmoe_train": (OLMOE, "train", 4096, 2, 1, MOE_TRAIN[1]),
+    "deepseek_prefill": (DEEPSEEK, "prefill", 4096, 1, None, None),
 }
-# the check cells of a partitioned family: run partitioned (DTensors on
-# the 1 x 1 mesh, the kernels on local shards) beside their whole run
-DRYRUN_PARTITIONED = ("phi3_prefill", "phi3_decode", "danube_train")
 VS_WHOLE_TOL = 2e-2     # bf16: max |diff| / max |whole|, if not bit-equal
 
 
 def _dryrun_all(m) -> dict:
     """(a) ``python -m repro_torch.launch.dryrun --all --mesh both`` in
     its own processes (every cell on meta, nothing on the card; the
-    dense and vlm cells partitioned on fake worlds of 256 and 512 ranks)
-    into a scratch folder under ``build/``; every record read back."""
+    dense, vlm and MoE cells partitioned on fake worlds of 256 and 512
+    ranks) into a scratch folder under ``build/``; every record read
+    back."""
     import os
     out_dir = ROOT / "build" / "chip_smoke_dryrun"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -3278,6 +3281,7 @@ def _vs_whole(m, got: dict, want: dict) -> dict:
     torch = m["torch"]
     _check(got.keys() == want.keys(), f"outputs differ in their leaves: "
            f"{sorted(set(got) ^ set(want))}")
+    got = {k: v.cpu() for k, v in got.items()}
     differ = [k for k in want if not torch.equal(got[k], want[k])]
     rec = {"bit_equal": not differ, "leaves": len(want),
            "differing": len(differ),
@@ -3302,9 +3306,11 @@ def _check_cell(m, name: str, mesh, whole_out=None) -> tuple:
     Returns (record, the last timed step's outputs)."""
     torch = m["torch"]
     cm = m["cells_mod"]
-    arch, kind, seq, batch, micro = DRYRUN_CHECKS[name]
+    arch, kind, seq, batch, micro, layers = DRYRUN_CHECKS[name]
     shape = m["ShapeConfig"](f"check_{kind}", seq, batch, kind)
     kw = {}
+    if layers is not None:
+        kw["cfg"] = m["get_config"](arch).replace(num_layers=layers)
     if kind == "train":
         kw["tc"] = m["TrainConfig"](microbatch=micro, remat="full",
                                     learning_rate=TRAIN_LR)
@@ -3334,7 +3340,8 @@ def _check_cell(m, name: str, mesh, whole_out=None) -> tuple:
     routes = dict(m["fa_ops"].launches_by_route)
     outputs = _flat_outputs(m, out)
     del out
-    if timed_only:
+    if timed_only:      # kept on the host while the partitioned run runs
+        outputs = {k: v.cpu() for k, v in outputs.items()}
         rec = {"arch": arch, "shape": [batch, seq], "kind": kind,
                "desc": cell.static_desc, "partitioned": False,
                "step_ms": step_ms, "peak_gb": peak / 1e9,
@@ -3342,13 +3349,10 @@ def _check_cell(m, name: str, mesh, whole_out=None) -> tuple:
         del cell
         _free(torch)
         return rec, outputs
-    vs_whole = None
-    if whole_out is not None:
-        vs_whole = _vs_whole(m, outputs, whole_out)
-        _check(vs_whole["bit_equal"]
-               or vs_whole["normalized_err"] <= VS_WHOLE_TOL,
-               f"{name}: the partitioned step differs from the whole one "
-               f"beyond {VS_WHOLE_TOL}: {vs_whole}")
+    vs_whole = _vs_whole(m, outputs, whole_out)
+    _check(vs_whole["bit_equal"] or vs_whole["normalized_err"] <= VS_WHOLE_TOL,
+           f"{name}: the partitioned step differs from the whole one "
+           f"beyond {VS_WHOLE_TOL}: {vs_whole}")
     del outputs
     cuda_cost, cuda_out = cell.walk()
     torch.cuda.synchronize()
@@ -3413,6 +3417,9 @@ def _check_cell(m, name: str, mesh, whole_out=None) -> tuple:
             if kind == "train" else [])
         if kind == "decode":
             used.remove("flash_attention")      # decode reads the cache
+        if cell.cfg.family == "moe":
+            used += ["moe_dispatch"] + (["moe_dispatch_bwd"]
+                                        if kind == "train" else [])
         _check(all(counts[k] > 0 for k in used),
                f"{name}: a kernel of the partitioned path never launched: "
                f"{ {k: counts[k] for k in used} }")
@@ -3426,25 +3433,29 @@ def dryrun_phase(m) -> dict:
     ``roofline/``):
 
     (a) every (arch x shape x mesh) cell of ``dryrun --all --mesh both``
-        (meta tensors, separate processes; the dense and vlm cells
+        (meta tensors, separate processes; the dense, vlm and MoE cells
         partitioned on fake worlds of 256 and 512 ranks): no cell may
         fail, and each record says its form;
     (b) the cells of DRYRUN_CHECKS, which fit one H100, at full width
-        and depth, in a world of one rank over NCCL (``make_test_mesh(1,
-        1)``): the CUDA walk's FLOPs, bytes and declared kernel costs
-        equal the meta walk's exactly, the placements' argument bytes
-        equal the materialized arguments', the state bytes stay at or
-        below the measured peak, the roofline bound on ``H100`` stays at
-        or below the measured step, and ``FlopCounterMode``'s product
-        FLOPs equal ``op_cost``'s.  The cells of DRYRUN_PARTITIONED run
-        partitioned (DTensors; the flash and RMSNorm kernels, forward
-        and in the train cell backward, launched on local shards), after
-        their whole run (unplaced, on a 1 x 1 ``MeshShape``), whose
-        outputs theirs must equal bit for bit (else within VS_WHOLE_TOL,
-        the first differing output named); olmoe's stays whole.  Each
-        check cell
-        is a path: the kernel counts are zeroed before its warm-up and
-        read after its timed steps."""
+        (and depth, but olmoe's train cell at the 7 of 16 layers its
+        family training runs), in a world of one rank over NCCL
+        (``make_test_mesh(1, 1)``): the CUDA walk's FLOPs, bytes and
+        declared kernel costs equal the meta walk's exactly, the
+        placements' argument bytes equal the materialized arguments',
+        the state bytes stay at or below the measured peak, the roofline
+        bound on ``H100`` stays at or below the measured step, and
+        ``FlopCounterMode``'s product FLOPs equal ``op_cost``'s.  Each
+        cell runs partitioned (DTensors; the flash and RMSNorm kernels,
+        forward and in the train cells backward, launched on local
+        shards) after its whole run (unplaced, on a 1 x 1
+        ``MeshShape``), whose outputs its own must equal bit for bit
+        (else within VS_WHOLE_TOL, the first differing output named);
+        the MoE cells (olmoe decode,
+        olmoe train at 7 of 16 layers, deepseek prefill) launch the
+        dispatch kernel on the partitioned path (the global sort at 1 x
+        1, where the a2a path does not apply), and in train its
+        backward.  Each check cell is a path: the kernel counts are
+        zeroed before its warm-up and read after its timed steps."""
     torch = m["torch"]
     _free(torch)
     out = {"all": _dryrun_all(m)}
@@ -3462,9 +3473,7 @@ def dryrun_phase(m) -> dict:
         whole_mesh = mesh_mod.MeshShape(("data", "model"), (1, 1))
         out["checks"], out["whole"] = {}, {}
         for name in DRYRUN_CHECKS:
-            whole = None
-            if name in DRYRUN_PARTITIONED:
-                out["whole"][name], whole = _check_cell(m, name, whole_mesh)
+            out["whole"][name], whole = _check_cell(m, name, whole_mesh)
             rec, _ = _check_cell(m, name, mesh, whole_out=whole)
             del whole
             _free(torch)
@@ -3472,12 +3481,12 @@ def dryrun_phase(m) -> dict:
             vs = rec["vs_whole"]
             print(f"[dryrun] {name} {rec['arch']} {rec['desc']} "
                   f"{rec['shape']} partitioned {rec['partitioned']}: "
-                  f"{rec['step_ms']:.2f} ms a step"
-                  + (f" (whole {out['whole'][name]['step_ms']:.2f} ms; "
-                     f"bit-equal {vs['bit_equal']}, first differing "
-                     f"{vs['first_differing']}, normalized error "
-                     f"{vs['normalized_err']:.3g})" if vs else "")
-                  + f", bound {rec['bound_ms']:.2f} ms ({rec['dominant']}), "
+                  f"{rec['step_ms']:.2f} ms a step (whole "
+                  f"{out['whole'][name]['step_ms']:.2f} ms; bit-equal "
+                  f"{vs['bit_equal']}, first differing "
+                  f"{vs['first_differing']}, normalized error "
+                  f"{vs['normalized_err']:.3g}), bound "
+                  f"{rec['bound_ms']:.2f} ms ({rec['dominant']}), "
                   f"time / bound {rec['time_over_bound']:.3f}; state "
                   f"{rec['state_gb']:.2f} GB, peak {rec['peak_gb']:.2f} GB",
                   flush=True)

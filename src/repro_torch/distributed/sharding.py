@@ -21,20 +21,23 @@ the DTensor placements of a spec, one per mesh dim (``Shard(dim)`` or
 A partitioned step holds its state as DTensors: ``place`` turns a tree
 of tensors into DTensors with the rules' checked placements (a leaf
 whose logical axes are None stays a plain tensor that every rank holds
-whole), and the dense and vlm model code runs on them.  There,
+whole), and the dense, vlm and MoE model code runs on them.  There,
 ``constrain`` is GSPMD's ``with_sharding_constraint``: under active
 rules it redistributes a DTensor to its spec's placements (a pending
 partial sum becomes an all-reduce or a reduce-scatter, a sharded dim
 that must be whole an all-gather).  Outside that, on a plain tensor or
 without rules, it returns its input, as the JAX package does without
 a mesh.  ``gather_fsdp`` gathers a weight's batch-axis (FSDP) shards
-right before its product, and ``local_rows`` / ``from_local`` move a
-kernel's operands between DTensors and the local shards it launches
-on.  The data-parallel trainer of whole replicas (``--mesh``) keeps
-plain tensors: each rank runs its rows of every microbatch and the
-trainer sums the gradients over the batch axes (``training/loop.py``);
-the MoE layer reads the active rules to pick its dispatch
-(``models/moe.py``, ``models/moe_a2a.py``).
+right before its product (an MoE layer gathers its expert shards
+there and runs them on local tensors), and ``from_local`` /
+``row_grads`` move a kernel's operands between DTensors and the local
+shards it launches on, a replicated operand's gradient a partial sum
+over the ranks that hold other rows.  The data-parallel trainer of
+whole replicas (``--mesh``) keeps plain tensors: each rank runs its
+rows of every microbatch and the trainer sums the gradients over the
+batch axes (``training/loop.py``).  In both forms the MoE layer reads
+the active rules to pick its dispatch (``models/moe.py``,
+``models/moe_a2a.py``).
 """
 from __future__ import annotations
 
@@ -184,6 +187,17 @@ def replicate_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     pl = [Replicate() if (isinstance(p, Shard) and p.dim == dim)
           or isinstance(p, Partial) else p for p in x.placements]
     if tuple(pl) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """`x` whole on every rank, no partial sum pending; a plain tensor
+    as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = (Replicate(),) * x.device_mesh.ndim
+    if tuple(x.placements) == pl:
         return x
     return x.redistribute(x.device_mesh, pl)
 

@@ -17,10 +17,11 @@ any mesh: a ``DeviceMesh``, or the stand-in of
 no world here can build.
 
 ``Cell.cost()`` walks ``fn`` once under ``roofline.op_cost`` (a train
-cell counts its first microbatch, scaled by the microbatch count) and
-adds the collectives the port's step issues: in a train cell one
-all-reduce of every gradient leaf (fp32, whole: the port holds whole
-replicas) and of the loss metrics over the batch axes, as
+cell counts its first microbatch, scaled by the microbatch count).  A
+partitioned cell's walk sees every collective its step issues; to a
+cell of whole replicas it adds the collectives of the port's
+data-parallel step: in a train cell one all-reduce of every gradient
+leaf (fp32, whole) and of the loss metrics over the batch axes, as
 ``training/loop.py`` sums them; none in a serve cell.
 ``Cell.state_bytes_per_device()`` is each argument leaf's bytes divided
 by the sizes of the mesh axes its placement shards, plus the outputs
@@ -31,18 +32,22 @@ name still works), so a check cell can run at a shape that fits one
 card, and `cfg` in place of the arch's registered config (a reduced
 one, in the tests).
 
-Two forms (``Cell.partitioned``).  The dense and vlm families on a
-``DeviceMesh`` (a real world's, or ``mesh.fake_world``'s for the 256-
-and 512-device meshes) are partitioned as GSPMD partitions the JAX
-step: their arguments are placed (DTensors: the parameters, the
-optimizer state and the caches by the rules, the batch by ("batch",
-...) as ``training/loop.place_batch`` lays it out), the step runs the
-partitioned model code, and ``walk`` counts one device's share of it
-with the collectives it issues, so ``collectives`` adds none.  The
-other families, and any cell on a ``MeshShape``, run eagerly on tensors
-each rank holds whole: the rules place the state for the count of
-bytes a device only, ``walk`` counts the whole step and ``collectives``
-adds the all-reduce of the gradients.
+Two forms (``Cell.partitioned``).  The families of PARTITIONED (dense,
+vlm, MoE) on a ``DeviceMesh`` (a real world's, or
+``mesh.fake_world``'s for the 256- and 512-device meshes) are
+partitioned as GSPMD partitions the JAX step: their arguments are
+placed (DTensors: the parameters, the optimizer state and the caches
+by the rules, the batch by ("batch", ...) as
+``training/loop.place_batch`` lays it out), the step runs the
+partitioned model code (an MoE train cell under ``seq_shard``, its
+layers through the a2a dispatch where it applies, else the global
+sort), and ``walk`` counts one device's share of it with the
+collectives it issues (FSDP gathers, tensor-parallel reductions, the
+a2a's all-to-alls), so ``collectives`` adds none.  The other families
+(hybrid, xlstm, audio), and any cell on a ``MeshShape``, run eagerly on
+tensors each rank holds whole: the rules place the state for the count
+of bytes a device only, ``walk`` counts the whole step and
+``collectives`` adds the all-reduce of the gradients.
 """
 from __future__ import annotations
 
@@ -72,7 +77,7 @@ ShapeLike = Union[str, ShapeConfig]
 SEQ_FIT = ("xlstm",)
 FIT_LENGTHS = (128, 192, 256)
 # families whose step is partitioned on a DeviceMesh (DTensors)
-PARTITIONED = ("dense", "vlm")
+PARTITIONED = ("dense", "vlm", "moe")
 
 
 def partitioned(cfg: ModelConfig, mesh) -> bool:
@@ -290,6 +295,26 @@ ARCH_TRAIN_OVERRIDES: Dict[str, Dict[str, Any]] = {
 }
 
 
+_RULE_KNOBS = ("act_shard", "seq_shard", "moe_dispatch")
+
+
+def arch_train_rules(arch: str, mesh) -> Dict[str, Any]:
+    """The train rules of `arch`'s train cells on `mesh`, with its
+    knobs: ``act_shard`` (the residual's d_model over ``model``),
+    ``seq_shard`` (its sequence over ``model``: the MoE cells),
+    ``moe_dispatch``."""
+    over = ARCH_TRAIN_OVERRIDES.get(arch, {})
+    rules = shd.train_rules(mesh)
+    if over.get("act_shard"):
+        rules["act_embed"] = "model"
+    if over.get("seq_shard"):
+        rules["seq"] = "model"
+        rules["act_embed"] = None
+    if over.get("moe_dispatch"):
+        rules["moe_dispatch"] = over["moe_dispatch"]
+    return rules
+
+
 def build_train_cell(arch: str, shape: ShapeLike, mesh,
                      tc: Optional[TrainConfig] = None,
                      rules: Optional[Dict[str, Any]] = None, *,
@@ -298,23 +323,14 @@ def build_train_cell(arch: str, shape: ShapeLike, mesh,
     cfg = cfg or get_config(arch)
     shape = _shape(shape)
     dev = resolve_device(device)
-    over = dict(ARCH_TRAIN_OVERRIDES.get(arch, {}))
-    act_shard = over.pop("act_shard", False)
-    seq_shard = over.pop("seq_shard", False)
+    over = {k: v for k, v in ARCH_TRAIN_OVERRIDES.get(arch, {}).items()
+            if k not in _RULE_KNOBS}
     ssm_chunk = over.pop("ssm_chunk", None)
-    moe_dispatch = over.pop("moe_dispatch", None)
     if ssm_chunk and cfg.ssm.d_state:
         cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=ssm_chunk))
     tc = tc or default_train_config(cfg, shape, **over)
     if rules is None:
-        rules = shd.train_rules(mesh)
-        if act_shard:
-            rules["act_embed"] = "model"
-        if seq_shard:
-            rules["seq"] = "model"
-            rules["act_embed"] = None
-        if moe_dispatch:
-            rules["moe_dispatch"] = moe_dispatch
+        rules = arch_train_rules(arch, mesh)
 
     state = train_loop.init_train_state(cfg, tc, device=dev)
     batch = _batch(cfg, shape, dev)

@@ -23,8 +23,10 @@ kernel wrapper: the CUDA kernel for CUDA tensors, the plain version for
 CPU tensors.
 
 Placed (DTensor) activations and weights run the partitioned form of
-``attn_forward`` (``distributed/sharding.py``): q, k and v are
-column-parallel and ``wo`` row-parallel, each weight's FSDP shards
+``attn_forward`` (``distributed/sharding.py``): x comes in with its
+sequence whole (``seq_shard``'s residual, sequence-sharded over
+``model``, is gathered first, as the heads ride that axis); q, k and v
+are column-parallel and ``wo`` row-parallel, each weight's FSDP shards
 gathered right before its product.  A projection whose column shards
 cut heads (danube's 8 × 80 kv columns on a 16-way axis) is gathered
 whole before its split into heads, as GSPMD gathers it.  The flash
@@ -373,6 +375,8 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
             "the partitioned attention runs train, prefill and decode "
             "over float caches, without per-slot rows or kv_override")
 
+    if placed:                  # the sequence whole: heads over model
+        x = shd.replicate_dim(x, 1)
     q = x @ shd.gather_fsdp(p["wq"])
     if kv_override is None:
         k = x @ shd.gather_fsdp(p["wk"])

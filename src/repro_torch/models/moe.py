@@ -31,14 +31,24 @@ layer's backward gives the same bits run to run, and a layer recomputed
 under remat routes as its first forward did (topk and the dispatch are
 deterministic).
 
-Under a mesh (``sharding.axis_rules``) x is the rank's rows of the
-batch, as the data-parallel trainer gives them, and the dispatch is
-chosen as in the JAX package: the expert-parallel all-to-all path
-(``moe_a2a``) where it applies (a model axis of more than one rank
-that divides S), else this sort path over the GLOBAL tokens: the rows
-are all-gathered over the batch axes (with autograd), routed, dispatched
-and combined as on one device, and the rank keeps its rows, so
-capacity, drops and the aux loss are the JAX program's.
+Under a mesh (``sharding.axis_rules``) the dispatch is chosen as in
+the JAX package: the expert-parallel all-to-all path (``moe_a2a``)
+where it applies (a model axis of more than one rank that divides S),
+else this sort path over the GLOBAL tokens, so capacity, drops and the
+aux loss are the JAX program's.  Two forms:
+
+- Plain x is the rank's rows of the batch, as the data-parallel
+  trainer of whole replicas gives them: the rows are all-gathered over
+  the batch axes (with autograd), routed, dispatched and combined as on
+  one device, and the rank keeps its rows.
+- Placed x (a DTensor: the partitioned step) is GSPMD's global sort
+  (``_sort_placed``): every rank routes and dispatches every token on
+  local tensors (the dispatch kernel on CUDA), the expert GEMMs run on
+  the rank's shard of the buffer, experts over ``model`` and the
+  capacity over ``data`` (JAX's ("experts", "expert_cap", None)), with
+  the rank's experts FSDP-gathered (``local_experts``), and the
+  outputs are gathered whole for the combine; the rank keeps its rows.
+  The shared experts run on x through the placed ``mlp_forward``.
 """
 from __future__ import annotations
 
@@ -110,11 +120,50 @@ def combine(out: torch.Tensor, dest_tk: torch.Tensor, gates: torch.Tensor
     return (picked * gates[..., None]).sum(dim=1)
 
 
+def local_experts(p: Mapping[str, torch.Tensor], tokens_pl, lo: int,
+                  n: int) -> Tuple[torch.Tensor, ...]:
+    """The rank's experts [lo, lo + n) of placed w_gate, w_up and w_down
+    as local tensors: each weight's FSDP shards gathered
+    (``sharding.gather_fsdp``, whose backward reduce-scatters), sliced
+    where the weight holds more experts than the rank runs.  The local
+    gradient is a partial sum over each mesh dim where the weight is
+    whole and `tokens_pl` (the placements of the tokens that reach the
+    rank's experts) shards the tokens."""
+    out = []
+    for name in ("w_gate", "w_up", "w_down"):
+        w = shd.gather_fsdp(p[name])
+        grads = tuple(pw if isinstance(pw, shd.Shard)
+                      else shd.Partial() if isinstance(pt, shd.Shard)
+                      else shd.Replicate()
+                      for pw, pt in zip(w.placements, tokens_pl))
+        wl = w.to_local(grad_placements=grads)
+        e0 = shd.local_offset(w, 0)
+        if (e0, wl.shape[0]) != (lo, n):
+            wl = wl[lo - e0:lo - e0 + n]
+        out.append(wl)
+    return tuple(out)
+
+
+def with_shared(p: Mapping[str, torch.Tensor], x, y):
+    """A placed MoE layer's output: y (the routed experts' fp32 sum,
+    placed like x) plus the shared experts on x (the placed
+    ``mlp_forward``, reduced onto x's layout), in x's dtype."""
+    if "shared" in p:
+        sh = mlp_forward(p["shared"], x)
+        y = y + sh.redistribute(x.device_mesh, x.placements).float()
+    return y.to(x.dtype)
+
+
 def moe_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (y [B, S, d], aux_loss scalar fp32).  Under a
-    mesh, x and y are the rank's rows and aux is the global loss."""
+    mesh, plain x and y are the rank's rows and placed x and y are
+    DTensors of the global shape; aux is the global loss."""
     from repro_torch.models import moe_a2a
+    if shd.is_placed(x):
+        if moe_a2a.a2a_applicable(x):
+            return moe_a2a.moe_forward_placed(p, x, cfg)
+        return _sort_placed(p, x, cfg)
     ctx = shd.current_context()
     if ctx is not None:
         mesh, rules = ctx
@@ -128,6 +177,36 @@ def moe_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
             i = mesh_mod.axis_index(mesh, rules["batch"])
             return y[i * B:(i + 1) * B], aux
     return _sort_forward(p, x, cfg)
+
+
+def _sort_placed(p: Mapping[str, torch.Tensor], x, cfg: ModelConfig):
+    """The global sort of a partitioned step (module docstring).  Every
+    rank computes the same whole routing, buffer, combine and aux, so
+    their gradients are whole on every rank (DTensor's ``Replicate``);
+    only the expert GEMMs run on shards."""
+    mesh = x.device_mesh
+    whole = (shd.Replicate(),) * mesh.ndim
+    xw = shd.replicated(x).to_local()                      # every token
+    B, S, d = xw.shape
+    m = cfg.moe
+    T, k, E = B * S, m.top_k, m.num_experts
+    C = moe_capacity(T, cfg)
+    xf = xw.reshape(T, d)
+    probs, gates, eidx = route(shd.replicated(p["router"]).to_local(), xf, k)
+    buf, dest_tk, counts = moe_dispatch(eidx, xf, E, C)    # [E, C, d]
+    f_e = counts.float() / (T * k)
+    aux = E * torch.sum(f_e * probs.mean(dim=0)) * m.router_aux_coef
+
+    # the rank's experts over model, its slots over data
+    bufd = shd.constrain(shd.from_local(buf, x, whole),
+                         ("experts", "expert_cap", None))
+    bl = bufd.to_local()
+    out = experts(bl, *local_experts(p, bufd.placements,
+                                     shd.local_offset(bufd, 0), bl.shape[0]))
+    out = shd.from_local(out, bufd).full_tensor()          # [E, C, d]
+    y = combine(out, dest_tk, gates).reshape(B, S, d)
+    y = shd.from_local(y, x, whole).redistribute(mesh, x.placements)
+    return with_shared(p, x, y), aux
 
 
 def _sort_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,

@@ -22,7 +22,10 @@ Placed parameters (DTensors, ``ParamTree.place``) run the partitioned
 step under ``sharding.axis_rules``, with the JAX package's constraints:
 the embedding's vocab-parallel partial sum and each block's output are
 reduced onto the residual's layout (("batch", "seq", "act_embed") at
-each norm), the logits are vocab-sharded (("batch", None, "vocab")), a
+each norm; under the MoE train cells' ``seq_shard`` the sequence rides
+``model``, and attention, the MLP and the logits gather it whole
+first, while the MoE layer's a2a path takes it as its blocks), the
+logits are vocab-sharded (("batch", None, "vocab")), a
 prefill's caches are placed by the cache rules (``kv_seq`` over
 ``model``).  The inputs are placed by ("batch", ...) when they come
 plain.
@@ -262,6 +265,7 @@ def lm_forward(params: DecoderLM, batch: Dict[str, torch.Tensor],
 
     _, x = add_norm(x, y, params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    x = shd.replicate_dim(x, 1)          # seq_shard: the sequence whole
     logits = shd.constrain(x @ shd.gather_fsdp(head),
                            ("batch", None, "vocab"))
     return logits, aux, (new_caches or None)
