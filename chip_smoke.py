@@ -155,8 +155,8 @@ of JAX and nothing of the ``repro`` package.  In order:
    rows and widths (d 768, 384 and 8192); reduced fp32 xlstm-125m (an
    mLSTM and an sLSTM block), whisper-tiny and internvl2-76b one step
    on the card against the CPU, as in 8.; then, as ``train_moe``,
-   xlstm-125m (12 of 12 layers; its profiled step gives the sLSTM
-   blocks' share of the host's time), whisper-tiny (4 + 4 layers, 1500
+   xlstm-125m (12 of 12 layers on 2048 tokens, FAMILY_SEQ_OF; its
+   profiled step gives the sLSTM blocks' share of the host's time), whisper-tiny (4 + 4 layers, 1500
    stub frames) and the internvl2-76b backbone cut to 1 of 80 layers,
    each step's loss, grad norm, ms, tokens/s and peak GB printed; and
    the new flash forms timed against SDPA (``enable_gqa`` for
@@ -368,17 +368,17 @@ def _zero_counts(m) -> None:
     for mod in ("rms_ops", "fa_ops", "dispatch_ops", "ssd_ops"):
         m[mod].bwd_launches = 0
     for by in (m["rms_ops"].launches_by_form, m["fa_ops"].launches_by_route,
-               m["rms_ops"].bwd_launches_by_form):
+               m["rms_ops"].bwd_launches_by_form, m["rms_ops"].row_launches):
         for key in by:
             by[key] = 0
 
 
 def _counts(m) -> dict:
-    """Launches of each kernel of KERNELS and BWD_KERNELS, and of
-    decode_attention_q8 (the RMSNorm wrapper counts its plain and fused
-    forms apart)."""
+    """Launches of each kernel of KERNELS and BWD_KERNELS, of
+    decode_attention_q8 and of the split-row norm's NORM_SPLIT_KERNELS
+    (the RMSNorm wrapper counts its forms apart)."""
     bwd = m["rms_ops"].bwd_launches_by_form
-    return {**m["rms_ops"].launches_by_form,
+    return {**m["rms_ops"].launches_by_form, **m["rms_ops"].row_launches,
             "flash_attention": m["fa_ops"].launches,
             "moe_dispatch": m["dispatch_ops"].launches,
             "ssd_intra": m["ssd_ops"].launches,
@@ -2341,6 +2341,11 @@ HYBRID_TRAIN = (ZAMBA, 33)       # 5 groups of 6 + the shared block, tail 3
 NEW_TRAIN = {"train_xlstm": (XLSTM, 12), "train_whisper": (WHISPER, 4),
              "train_internvl": (INTERNVL, 1)}
 FAMILY_SEQ = 4096
+# xlstm-125m trains on 2048 tokens: its sLSTM steps one token at a time
+# from the host (~1M launches a step at 4096, 220-320 s of the run's
+# 1200 s for 3 steps and the profiled one), and no depth cut shortens
+# that (its one sLSTM block is layer 8 of 12)
+FAMILY_SEQ_OF = {XLSTM: 2048}
 SLSTM_RANGE = "xlstm.slstm_forward"   # the profiled step's sLSTM range
 # the dispatch's backward at olmoe's (top-8) and deepseek's (top-6)
 # widths: decode, chunk and a train step's token counts
@@ -2597,14 +2602,15 @@ def family_reduced_phase(m) -> dict:
 def family_train_path(m, arch: str, layers: int) -> dict:
     """Full-width `arch` with its depth cut to `layers`, bf16, from seed
     0: ``training.loop.make_train_step`` on ``data.pipeline.Loader``
-    batches (seq FAMILY_SEQ, batch TRAIN_BATCH in microbatches of
-    TRAIN_MICRO, remat full, lr TRAIN_LR, warm-up 1 step as the train
-    CLI sets it), TRAIN_STEPS steps; every launch count zeroed just
+    batches (seq FAMILY_SEQ, or the arch's FAMILY_SEQ_OF, batch
+    TRAIN_BATCH in microbatches of TRAIN_MICRO, remat full, lr
+    TRAIN_LR, warm-up 1 step as the train CLI sets it), TRAIN_STEPS steps; every launch count zeroed just
     before the steps and read just after.  Each step's loss and grad
     norm must be finite and > 0, its peak under 80 GB.  One more step
     runs under the profiler (``_profiled_step``), each sLSTM block in a
     range of its own (SLSTM_RANGE)."""
     torch, tl = m["torch"], m["train_loop"]
+    seq = FAMILY_SEQ_OF.get(arch, FAMILY_SEQ)
     full = m["get_config"](arch).num_layers
     cfg = m["get_config"](arch).replace(num_layers=layers)
     depth = (f"{layers} of {full} layers" if layers == full
@@ -2614,11 +2620,12 @@ def family_train_path(m, arch: str, layers: int) -> dict:
                           remat="full")
     _free(torch)
     t0 = time.perf_counter()
-    state, step, loader = _train_setup(m, cfg, tc, "cuda", seq=FAMILY_SEQ,
+    state, step, loader = _train_setup(m, cfg, tc, "cuda", seq=seq,
                                        batch=TRAIN_BATCH)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in state.params.parameters())
-    print(f"[train] {arch} full width, {depth}: {n_params / 1e9:.3f}B "
+    print(f"[train] {arch} full width, {depth}, seq {seq}: "
+          f"{n_params / 1e9:.3f}B "
           f"params bf16, state in {time.perf_counter() - t0:.1f}s, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     steps = []
@@ -2634,7 +2641,7 @@ def family_train_path(m, arch: str, layers: int) -> dict:
         dt = time.perf_counter() - t
         rec = {"step": i + 1, "loss": loss, "grad_norm": gnorm,
                "step_ms": 1e3 * dt,
-               "tokens_per_s": FAMILY_SEQ * TRAIN_BATCH / dt,
+               "tokens_per_s": seq * TRAIN_BATCH / dt,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         steps.append(rec)
         print(f"[train] {arch} ({depth}) step {i + 1}: loss {loss:.4f} "
@@ -2678,7 +2685,7 @@ def family_train_path(m, arch: str, layers: int) -> dict:
     print(f"[train] {arch} ({depth}) profiled step: "
           f"{json.dumps(prof)}", flush=True)
     out = {"arch": arch, "depth": depth, "layers": layers,
-           "params": n_params, "seq": FAMILY_SEQ, "batch": TRAIN_BATCH,
+           "params": n_params, "seq": seq, "batch": TRAIN_BATCH,
            "microbatch": TRAIN_MICRO, "steps": steps, "launches": counts,
            "flash_launches_by_route": routes, "profile": prof}
     if cfg.is_moe:
@@ -2949,6 +2956,171 @@ def train_phase(m) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the norm of rows split over ranks (zamba2's gated norm, partitioned)
+# ---------------------------------------------------------------------------
+
+# zamba2-7b's gated output in its train and prefill check cells, [rows,
+# d_inner] bf16, and the model ranks that split d_inner on its meshes
+NORM_SPLIT_SHAPE = (4096, 7168)
+NORM_SPLIT_RANKS = 16
+NORM_SPLIT_KERNELS = ("rmsnorm_row_stat", "rmsnorm_row_fwd",
+                      "rmsnorm_row_bwd")
+
+
+def _norm_split(m, fns, x, sc, dy, blocks: int) -> tuple:
+    """The split-row norm over `blocks` column blocks of x [rows, d], the
+    blocks' statistics summed between the passes (each rank's view of
+    the all-reduce): (ss, dot, y, dx, dscale, the blocks' (stat, fwd,
+    bwd) outputs).  `fns`: (stat, fwd, bwd), the kernels or their plain
+    versions."""
+    stat, fwd, bwd = fns
+    d = x.shape[-1]
+    xs, ss_, dys = ([c.contiguous() for c in t.chunk(blocks, dim=-1)]
+                    for t in (x, sc, dy))
+    stats = [stat(t) for t in xs]
+    ss = sum(stats)
+    ys = [fwd(t, ss, s, d, 1e-5) for t, s in zip(xs, ss_)]
+    dots = [stat(t, o, s) for t, o, s in zip(xs, dys, ss_)]
+    dot = sum(dots)
+    parts = [bwd(t, o, s, ss, dot, d, 1e-5) for t, o, s in zip(xs, dys, ss_)]
+    torch = m["torch"]
+    return (ss, dot, torch.cat(ys, dim=-1),
+            torch.cat([p[0] for p in parts], dim=-1),
+            torch.cat([p[1] for p in parts]),
+            {"stat": stats + dots, "fwd": ys, "bwd": parts})
+
+
+def norm_split_phase(m) -> dict:
+    """The kernels of the norm of rows split over ranks (``csrc/rmsnorm.cu``
+    ``rmsnorm_row_*``, ``rms_ops.rmsnorm_split``) at zamba2's gated
+    output NORM_SPLIT_SHAPE in bf16, twice: split into NORM_SPLIT_RANKS
+    column blocks of 448 as its model ranks hold it ("rank_block"), and
+    in one block, the whole row a rank holds in the check cells at 1 x 1
+    ("whole_row": the kernel builds the main path launches).  In each,
+    the blocks' statistics are summed between the passes; each kernel
+    is held against its plain version on the same inputs (the
+    statistics 1e-5 normalized; FWD_TOL; the backward BWD_TOL); the
+    assembled forward and backward against the whole-row kernels and
+    the whole-row plain norm; two runs the same bits.  In one block the
+    outputs must be the whole-row kernels' bits.  Timed (device ms,
+    CUDA graphs) on one rank's block [4096, 448] and on the whole row,
+    beside the whole-row kernels at the same rows and the plain
+    versions; bounds by bytes (each input read once, each output
+    written once) or fp32 operations."""
+    torch, rms = m["torch"], m["rms_ops"]
+    from repro_torch.kernels.rmsnorm import ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows, d = NORM_SPLIT_SHAPE
+    dt = torch.bfloat16
+    x, dy = (torch.randn(rows, d, generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    sc = (torch.rand(d, generator=g, device="cuda") + 0.5).to(dt)
+    kern = (rms.row_stat_cuda, rms.row_fwd_cuda, rms.row_bwd_cuda)
+    ftol, btol = FWD_TOL["bfloat16"][1], BWD_TOL["bfloat16"]
+    whole_y = rms.rmsnorm_cuda(x, sc)
+    whole_dx, whole_ds = rms.rmsnorm_bwd_cuda(x, None, dy, sc)
+    plain_y = m["rmsnorm_ref"](x, sc)
+    plain_dx, plain_ds = m["rmsnorm_bwd_ref"](x, sc, dy)
+    err, vs_whole = {}, {}
+    for label, n in (("rank_block", NORM_SPLIT_RANKS), ("whole_row", 1)):
+        what = f"bf16 [{rows},{d}] in {n} block(s)"
+        got = _norm_split(m, kern, x, sc, dy, n)
+        again = _norm_split(m, kern, x, sc, dy, n)
+        torch.cuda.synchronize()
+        _check(all(torch.equal(a, b) for a, b in zip(got[:5], again[:5])),
+               f"split norm {what}: two runs differ")
+        blocks = got[5]
+        xs, ss_, dys = ([c.contiguous() for c in t.chunk(n, -1)]
+                        for t in (x, sc, dy))
+        e = {}
+        # each kernel on its own inputs against its plain version
+        want_stats = ([ref.row_stat_ref(t) for t in xs]
+                      + [ref.row_stat_ref(t, o, s)
+                         for t, o, s in zip(xs, dys, ss_)])
+        e["rmsnorm_row_stat"] = max(
+            _rel_err(torch, a, b, 1e-5, f"rmsnorm_row_stat {what}")[0]
+            for a, b in zip(blocks["stat"], want_stats))
+        ss, dot = got[0], got[1]
+        e["rmsnorm_row_fwd"] = max(
+            _max_err(torch, a, ref.row_fwd_ref(t, ss, s, d), ftol,
+                     f"rmsnorm_row_fwd {what}")
+            for a, t, s in zip(blocks["fwd"], xs, ss_))
+        bwd_err = 0.0
+        for (a, b), t, o, s in zip(blocks["bwd"], xs, dys, ss_):
+            wa, wb = ref.row_bwd_ref(t, o, s, ss, dot, d)
+            bwd_err = max(
+                bwd_err,
+                _rel_err(torch, a, wa, btol, f"row_bwd {what} dx")[0],
+                _rel_err(torch, b, wb, btol, f"row_bwd {what} dscale")[0])
+        e["rmsnorm_row_bwd"] = bwd_err
+        err[label] = e
+        # the assembled norm against the whole-row kernels and plain norm
+        y, dx, dscale = got[2:5]
+        vs_whole[label] = {
+            "y": _max_err(torch, y, whole_y, ftol, f"split norm {what} y"),
+            "y_plain": _max_err(torch, y, plain_y, ftol,
+                                f"split norm {what} y vs plain"),
+            "dx": _rel_err(torch, dx, whole_dx, btol,
+                           f"split {what} dx")[1],
+            "dscale": _rel_err(torch, dscale, whole_ds, btol,
+                               f"split {what} dscale")[1],
+            "dx_plain": _rel_err(torch, dx, plain_dx, btol,
+                                 f"split {what} dx vs plain")[1],
+            "dscale_plain": _rel_err(torch, dscale, plain_ds, btol,
+                                     f"split {what} dscale vs plain")[1]}
+        if n == 1:
+            one_block_bits = {"y": torch.equal(y, whole_y),
+                              "dx": torch.equal(dx, whole_dx),
+                              "dscale": torch.equal(dscale, whole_ds)}
+            _check(all(one_block_bits.values()),
+                   f"split norm {what}: not the whole-row kernels' bits "
+                   f"{one_block_bits}")
+        del got, again, blocks
+    # device ms: one rank's block and the whole row (the 1 x 1 path)
+    timings = {}
+    for label, n in (("rank_block", NORM_SPLIT_RANKS), ("whole_row", 1)):
+        xb, sb, db = (t.chunk(n, dim=-1)[0].contiguous()
+                      for t in (x, sc, dy))
+        db_ = xb.shape[-1]
+        ssb = ref.row_stat_ref(xb)
+        dotb = ref.row_stat_ref(xb, db, sb)
+        nb = xb.numel() * xb.element_size()
+        sb_b = sb.numel() * sb.element_size()
+        calls = {
+            "rmsnorm_row_stat": (
+                lambda: rms.row_stat_cuda(xb),
+                lambda: ref.row_stat_ref(xb),
+                nb + 4 * rows, 2 * xb.numel()),
+            "rmsnorm_row_fwd": (
+                lambda: rms.row_fwd_cuda(xb, ssb, sb, d, 1e-5),
+                lambda: ref.row_fwd_ref(xb, ssb, sb, d),
+                2 * nb + sb_b + 4 * rows, 2 * xb.numel()),
+            "rmsnorm_row_bwd": (
+                lambda: rms.row_bwd_cuda(xb, db, sb, ssb, dotb, d, 1e-5),
+                lambda: ref.row_bwd_ref(xb, db, sb, ssb, dotb, d),
+                3 * nb + 2 * sb_b + 8 * rows, 8 * xb.numel()),
+            "rmsnorm_row_stat (backward's)": (
+                lambda: rms.row_stat_cuda(xb, db, sb),
+                lambda: ref.row_stat_ref(xb, db, sb),
+                2 * nb + sb_b + 4 * rows, 3 * xb.numel())}
+        rec = {}
+        for name, (kfn, pfn, nbytes, flops) in calls.items():
+            rec[name] = {"shape": [rows, db_], **_times(torch, kfn, pfn,
+                                                         None),
+                         **_bound(nbytes, flops, FP32_FLOPS)}
+        rec["whole_row_kernels"] = {
+            "shape": [rows, db_],
+            "rmsnorm_ms": _device_ms(torch,
+                                     lambda: rms.rmsnorm_cuda(xb, sb)),
+            "rmsnorm_bwd_ms": _device_ms(
+                torch, lambda: rms.rmsnorm_bwd_cuda(xb, None, db, sb))}
+        timings[label] = rec
+    return {"shape": [rows, d], "ranks": NORM_SPLIT_RANKS,
+            "max_abs_err": err, "vs_whole": vs_whole,
+            "one_block_bit_equal": one_block_bits, "timings": timings}
+
+
+# ---------------------------------------------------------------------------
 # the distributed layer on a world of one rank over NCCL
 # ---------------------------------------------------------------------------
 
@@ -3183,6 +3355,9 @@ DRYRUN_CHECKS = {
     "olmoe_decode": (OLMOE, "decode", 4096, 16, None, None),
     "olmoe_train": (OLMOE, "train", 4096, 2, 1, MOE_TRAIN[1]),
     "deepseek_prefill": (DEEPSEEK, "prefill", 4096, 1, None, None),
+    "zamba2_prefill": (ZAMBA, "prefill", 4096, 1, None, None),
+    "zamba2_decode": (ZAMBA, "decode", 4096, 16, None, None),
+    "zamba2_train": (ZAMBA, "train", 4096, 2, 1, HYBRID_TRAIN[1]),
 }
 VS_WHOLE_TOL = 2e-2     # bf16: max |diff| / max |whole|, if not bit-equal
 
@@ -3190,9 +3365,9 @@ VS_WHOLE_TOL = 2e-2     # bf16: max |diff| / max |whole|, if not bit-equal
 def _dryrun_all(m) -> dict:
     """(a) ``python -m repro_torch.launch.dryrun --all --mesh both`` in
     its own processes (every cell on meta, nothing on the card; the
-    dense, vlm and MoE cells partitioned on fake worlds of 256 and 512
-    ranks) into a scratch folder under ``build/``; every record read
-    back."""
+    dense, vlm, MoE and hybrid cells partitioned on fake worlds of 256
+    and 512 ranks) into a scratch folder under ``build/``; every record
+    read back."""
     import os
     out_dir = ROOT / "build" / "chip_smoke_dryrun"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -3420,6 +3595,11 @@ def _check_cell(m, name: str, mesh, whole_out=None) -> tuple:
         if cell.cfg.family == "moe":
             used += ["moe_dispatch"] + (["moe_dispatch_bwd"]
                                         if kind == "train" else [])
+        if cell.cfg.family == "hybrid":   # the SSD, the gated norm
+            used += ["rmsnorm_row_stat", "rmsnorm_row_fwd"] + (
+                ["ssd_intra"] if kind != "decode" else []) + (
+                ["ssd_intra_bwd", "rmsnorm_row_bwd"]
+                if kind == "train" else [])
         _check(all(counts[k] > 0 for k in used),
                f"{name}: a kernel of the partitioned path never launched: "
                f"{ {k: counts[k] for k in used} }")
@@ -3433,12 +3613,13 @@ def dryrun_phase(m) -> dict:
     ``roofline/``):
 
     (a) every (arch x shape x mesh) cell of ``dryrun --all --mesh both``
-        (meta tensors, separate processes; the dense, vlm and MoE cells
-        partitioned on fake worlds of 256 and 512 ranks): no cell may
-        fail, and each record says its form;
+        (meta tensors, separate processes; the dense, vlm, MoE and
+        hybrid cells partitioned on fake worlds of 256 and 512 ranks):
+        no cell may fail, and each record says its form;
     (b) the cells of DRYRUN_CHECKS, which fit one H100, at full width
-        (and depth, but olmoe's train cell at the 7 of 16 layers its
-        family training runs), in a world of one rank over NCCL
+        (and depth, but olmoe's and zamba2's train cells at the 7 of 16
+        layers and 33 of 81 blocks their family training runs), in a
+        world of one rank over NCCL
         (``make_test_mesh(1, 1)``): the CUDA walk's FLOPs, bytes and
         declared kernel costs equal the meta walk's exactly, the
         placements' argument bytes equal the materialized arguments',
@@ -3454,8 +3635,12 @@ def dryrun_phase(m) -> dict:
         olmoe train at 7 of 16 layers, deepseek prefill) launch the
         dispatch kernel on the partitioned path (the global sort at 1 x
         1, where the a2a path does not apply), and in train its
-        backward.  Each check cell is a path: the kernel counts are
-        zeroed before its warm-up and read after its timed steps."""
+        backward; the zamba2 cells (prefill and decode at 81 blocks,
+        train at HYBRID_TRAIN's 33) the SSD kernel (not in decode) and
+        the split-row norm's kernels for the gated norm, and in train
+        their backwards.  Each check cell is a path: the kernel counts
+        are zeroed before its warm-up and read after its timed
+        steps."""
     torch = m["torch"]
     _free(torch)
     out = {"all": _dryrun_all(m)}
@@ -4292,6 +4477,8 @@ def main() -> int:
     print(json.dumps({"simt": simt}), flush=True)
     errs = kernel_phase(m)
     print(f"[kernels] max abs error vs plain: {errs}", flush=True)
+    norm_split = norm_split_phase(m)
+    print(f"[kernels] split-row norm: {json.dumps(norm_split)}", flush=True)
     reduced = reduced_model_phase(m)
     print(f"[kernels] reduced fp32 prefill, card vs cpu: {reduced}",
           flush=True)
@@ -4457,6 +4644,36 @@ def main() -> int:
                 ptxas=ptxas["ssm_scan_bwd"])
         _check(by_path[main_path] > 0,
                f"{name}: no launch on the {main_path} path")
+    # the split-row norm (zamba2's gated norm, partitioned): its main
+    # path is the zamba2 check cells' partitioned runs, where one rank
+    # holds the whole row; checked and timed at their [4096, 7168] rows,
+    # and on one of 16 ranks' blocks under "rank_block"
+    for name in NORM_SPLIT_KERNELS:
+        t = norm_split["timings"]["whole_row"][name]
+        by_path = {p: paths[p]["launches"].get(name, 0) for p in paths}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/rmsnorm.cu",
+            "replaces": ("src/repro/models/common.py:65"
+                         if name == "rmsnorm_row_bwd"
+                         else "src/repro/kernels/rmsnorm/kernel.py:31"),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": norm_split["max_abs_err"]["whole_row"][name],
+            "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "call_ms": t["call_ms"],
+            "rank_block": {
+                **norm_split["timings"]["rank_block"][name],
+                "max_abs_err": norm_split["max_abs_err"]["rank_block"][
+                    name]},
+            "whole_row_kernels": norm_split["timings"]["whole_row"][
+                "whole_row_kernels"],
+            "one_block_bit_equal": norm_split["one_block_bit_equal"]})
+        if name == "rmsnorm_row_stat":
+            kernels[-1]["backward_form"] = norm_split["timings"][
+                "whole_row"]["rmsnorm_row_stat (backward's)"]
+        _check(by_path["dryrun_zamba2_train"] > 0,
+               f"{name}: no launch on the partitioned zamba2 train path")
     # the SIMT machine: its main path is the Fig 9 grid; timed at
     # vecadd/8w8t (one launch), its plain loop on the same launch (host
     # clock: the loop reads the card every cycle)

@@ -36,9 +36,17 @@
 // then writes them as one fp32 partial row; a second kernel adds the
 // partial rows column by column in a fixed order.  No float atomics:
 // the result is the same bits on every run.
+//
+// Rows split over ranks (rmsnorm_row_*; no Pallas counterpart: GSPMD's
+// partition of the JAX norm over a sharded d_inner, the gated norm of
+// src/repro/models/ssm.py:233): the statistics of a rank's columns in
+// one launch, normalisation (or dx) from the all-reduced statistics in
+// another.  Bound by memory as the whole-row kernels are.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -162,13 +170,21 @@ void launch_vec(const void* x, const void* h, const void* scale, void* s,
   }
 }
 
+// The threads of a row's block for a row of nvec 16-byte words, and the
+// words each holds (`per`); every kernel here lays a row out alike.
+inline int row_threads(int nvec, int* per) {
+  int threads = kMinThreads;
+  while (threads < kMaxThreads && nvec > kVec * threads) threads *= 2;
+  *per = (nvec + threads - 1) / threads;
+  return threads;
+}
+
 template <typename T>
 int launch(const void* x, const void* h, const void* scale, void* s,
            void* y, int rows, int d, float eps, cudaStream_t stream) {
   const int nvec = d / Pack<T>::N;
-  int threads = kMinThreads;
-  while (threads < kMaxThreads && nvec > kVec * threads) threads *= 2;
-  const int per = (nvec + threads - 1) / threads;
+  int per;
+  const int threads = row_threads(nvec, &per);
   if (per > kMaxVec) return cudaErrorInvalidValue;
   if (per <= 1) {
     launch_vec<T, 1>(x, h, scale, s, y, rows, nvec, d, eps, threads, stream);
@@ -329,9 +345,8 @@ int launch_bwd(const void* x, const void* dy, const void* ds,
                const void* scale, void* dx, float* part, void* dscale,
                int rows, int d, int nb, float eps, cudaStream_t stream) {
   const int nvec = d / Pack<T>::N;
-  int threads = kMinThreads;
-  while (threads < kMaxThreads && nvec > kVec * threads) threads *= 2;
-  const int per = (nvec + threads - 1) / threads;
+  int per;
+  const int threads = row_threads(nvec, &per);
   if (per > kMaxVec) return cudaErrorInvalidValue;
   if (per <= 1) {
     launch_bwd_vec<T, 1>(x, dy, ds, scale, dx, part, rows, nvec, d, nb, eps,
@@ -348,6 +363,236 @@ int launch_bwd(const void* x, const void* dy, const void* ds,
   }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
+  rmsnorm_dscale_kernel<T><<<(d + 31) / 32, 256, 0, stream>>>(
+      part, static_cast<T*>(dscale), nb, d);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// rows split over ranks (the gated norm of a partitioned Mamba2 mixer)
+// ---------------------------------------------------------------------------
+//
+// A rank holds d of a row's d_total columns and normalises them without
+// gathering the row, as GSPMD partitions the JAX norm: the forward is two
+// launches around the caller's all-reduce of one fp32 statistic a row.
+// rmsnorm_row_stat_kernel writes sum(x^2) over the rank's columns, and
+// rmsnorm_row_apply_kernel writes y = x * rsqrt(sum / d_total + eps) *
+// scale from the reduced sums.  The backward likewise: the stat kernel
+// writes sum(dy * scale * x), and rmsnorm_row_bwd_kernel takes both
+// reduced sums, writes dx on the rank's columns and the dscale partial
+// rows, which rmsnorm_dscale_kernel adds.  Every sum and element is
+// formed as the whole-row kernels form it (the same threads, words,
+// order of additions and expressions), so with d == d_total (one rank)
+// they give the whole-row kernels' bits.
+
+// One fp32 per row: sum(x^2) (BWD false) or sum(dy * scale * x).
+template <typename T, int VEC, bool BWD>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_row_stat_kernel(const uint4* __restrict__ x,
+                        const uint4* __restrict__ dy,
+                        const uint4* __restrict__ scale,
+                        float* __restrict__ out, int nvec) {
+  constexpr int N = Pack<T>::N;
+  const size_t base = (size_t)blockIdx.x * nvec;
+  uint4 xv[VEC], dv[VEC], gv[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int i = threadIdx.x + j * blockDim.x;
+    if (i < nvec) {
+      xv[j] = __ldg(x + base + i);
+      if (BWD) {
+        dv[j] = __ldg(dy + base + i);
+        gv[j] = __ldg(scale + i);
+      }
+    }
+  }
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int i = threadIdx.x + j * blockDim.x;
+    if (i < nvec) {
+      const T* e = reinterpret_cast<const T*>(&xv[j]);
+      const T* o = reinterpret_cast<const T*>(&dv[j]);
+      const T* g = reinterpret_cast<const T*>(&gv[j]);
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float v = to_f(e[k]);
+        if (BWD) {
+          acc += to_f(o[k]) * to_f(g[k]) * v;
+        } else {
+          acc += v * v;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  __shared__ float part[kMaxThreads / 32];
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float tot = 0.f;
+    for (int w = 0; w < (int)blockDim.x / 32; ++w) tot += part[w];
+    out[blockIdx.x] = tot;
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_row_apply_kernel(const uint4* __restrict__ x,
+                         const float* __restrict__ ss,
+                         const uint4* __restrict__ scale,
+                         uint4* __restrict__ y, int nvec, int d_total,
+                         float eps) {
+  constexpr int N = Pack<T>::N;
+  const size_t base = (size_t)blockIdx.x * nvec;
+  const float inv = rsqrtf(ss[blockIdx.x] / (float)d_total + eps);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int i = threadIdx.x + j * blockDim.x;
+    if (i < nvec) {
+      const uint4 xv = __ldg(x + base + i), gv = __ldg(scale + i);
+      uint4 out;
+      const T* e = reinterpret_cast<const T*>(&xv);
+      const T* g = reinterpret_cast<const T*>(&gv);
+      T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        o[k] = from_f<T>(to_f(e[k]) * inv * to_f(g[k]));
+      y[base + i] = out;
+    }
+  }
+}
+
+// dx of rows blockIdx.x, blockIdx.x + gridDim.x, ... from the reduced
+// sums; this block's dscale partial sums go to part[blockIdx.x * d ...],
+// as rmsnorm_bwd_kernel writes them.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_row_bwd_kernel(const uint4* __restrict__ x,
+                       const uint4* __restrict__ dy,
+                       const uint4* __restrict__ scale,
+                       const float* __restrict__ ss,
+                       const float* __restrict__ dot, uint4* __restrict__ dx,
+                       float* __restrict__ part, int rows, int nvec, int d,
+                       int d_total, float eps) {
+  constexpr int N = Pack<T>::N;
+  uint4 gv[VEC];
+  float acc[VEC][N];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int i = threadIdx.x + j * blockDim.x;
+    if (i < nvec) gv[j] = __ldg(scale + i);
+#pragma unroll
+    for (int k = 0; k < N; ++k) acc[j][k] = 0.f;
+  }
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const size_t base = (size_t)row * nvec;
+    const float r = rsqrtf(ss[row] / (float)d_total + eps);
+    const float c = r * r * dot[row] / (float)d_total;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int i = threadIdx.x + j * blockDim.x;
+      if (i < nvec) {
+        const uint4 xv = __ldg(x + base + i), dv = __ldg(dy + base + i);
+        uint4 out;
+        const T* e = reinterpret_cast<const T*>(&xv);
+        const T* o = reinterpret_cast<const T*>(&dv);
+        const T* g = reinterpret_cast<const T*>(&gv[j]);
+        T* res = reinterpret_cast<T*>(&out);
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float v = to_f(e[k]), dyv = to_f(o[k]);
+          acc[j][k] += dyv * (v * r);
+          res[k] = from_f<T>(r * (dyv * to_f(g[k]) - v * c));
+        }
+        dx[base + i] = out;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int i = threadIdx.x + j * blockDim.x;
+    if (i < nvec) {
+      float* p = part + (size_t)blockIdx.x * d + (size_t)i * N;
+#pragma unroll
+      for (int k = 0; k < N; k += 4)
+        *reinterpret_cast<float4*>(p + k) =
+            make_float4(acc[j][k], acc[j][k + 1], acc[j][k + 2],
+                        acc[j][k + 3]);
+    }
+  }
+}
+
+// f(std::integral_constant<int, VEC>) for the words a thread holds.
+template <typename F>
+int by_vec(int per, F&& f) {
+  if (per > kMaxVec) return cudaErrorInvalidValue;
+  if (per <= 1) {
+    f(std::integral_constant<int, 1>());
+  } else if (per <= 2) {
+    f(std::integral_constant<int, 2>());
+  } else if (per <= 4) {
+    f(std::integral_constant<int, 4>());
+  } else {
+    f(std::integral_constant<int, 8>());
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_row_stat(const void* x, const void* dy, const void* scale,
+                    float* out, int rows, int d, cudaStream_t stream) {
+  const int nvec = d / Pack<T>::N;
+  int per;
+  const int threads = row_threads(nvec, &per);
+  const uint4* xp = static_cast<const uint4*>(x);
+  const uint4* dp = static_cast<const uint4*>(dy);
+  const uint4* gp = static_cast<const uint4*>(scale);
+  return by_vec(per, [&](auto vec) {
+    constexpr int VEC = decltype(vec)::value;
+    if (dy != nullptr) {
+      rmsnorm_row_stat_kernel<T, VEC, true>
+          <<<rows, threads, 0, stream>>>(xp, dp, gp, out, nvec);
+    } else {
+      rmsnorm_row_stat_kernel<T, VEC, false>
+          <<<rows, threads, 0, stream>>>(xp, dp, gp, out, nvec);
+    }
+  });
+}
+
+template <typename T>
+int launch_row_apply(const void* x, const float* ss, const void* scale,
+                     void* y, int rows, int d, int d_total, float eps,
+                     cudaStream_t stream) {
+  const int nvec = d / Pack<T>::N;
+  int per;
+  const int threads = row_threads(nvec, &per);
+  return by_vec(per, [&](auto vec) {
+    constexpr int VEC = decltype(vec)::value;
+    rmsnorm_row_apply_kernel<T, VEC><<<rows, threads, 0, stream>>>(
+        static_cast<const uint4*>(x), ss, static_cast<const uint4*>(scale),
+        static_cast<uint4*>(y), nvec, d_total, eps);
+  });
+}
+
+template <typename T>
+int launch_row_bwd(const void* x, const void* dy, const void* scale,
+                   const float* ss, const float* dot, void* dx, float* part,
+                   void* dscale, int rows, int d, int d_total, int nb,
+                   float eps, cudaStream_t stream) {
+  const int nvec = d / Pack<T>::N;
+  int per;
+  const int threads = row_threads(nvec, &per);
+  const int err = by_vec(per, [&](auto vec) {
+    constexpr int VEC = decltype(vec)::value;
+    rmsnorm_row_bwd_kernel<T, VEC><<<nb, threads, 0, stream>>>(
+        static_cast<const uint4*>(x), static_cast<const uint4*>(dy),
+        static_cast<const uint4*>(scale), ss, dot, static_cast<uint4*>(dx),
+        part, rows, nvec, d, d_total, eps);
+  });
+  if (err != cudaSuccess) return err;
   rmsnorm_dscale_kernel<T><<<(d + 31) / 32, 256, 0, stream>>>(
       part, static_cast<T*>(dscale), nb, d);
   return cudaGetLastError();
@@ -390,5 +635,60 @@ extern "C" int rmsnorm_bwd(const void* x, const void* dy, const void* ds,
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(x, dy, ds, scale, dx, p, dscale, rows,
                                      d, nb, eps, st);
+  return cudaErrorInvalidValue;
+}
+
+// The norm of rows whose d_total columns are split over ranks; this rank
+// holds d of them (the layout rules of rmsnorm_fwd, with d in place of
+// the row width).  rmsnorm_row_stat writes out[row] (fp32): sum(x^2)
+// when dy is null, else sum(dy * scale * x).  rmsnorm_row_fwd writes y
+// from ss, the sums of x^2 over the whole rows.  rmsnorm_row_bwd writes
+// dx and dscale (in the dtype; part: [nb, d] fp32 scratch, 1 <= nb <=
+// rows) from ss and dot, the sums of dy * scale * x over the whole rows.
+// Each returns cudaGetLastError() after its launches.
+extern "C" int rmsnorm_row_stat(const void* x, const void* dy,
+                                const void* scale, void* out, int rows,
+                                int d, int dtype, void* stream) {
+  if (rows <= 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (dtype == 0) return launch_row_stat<float>(x, dy, scale, o, rows, d, st);
+  if (dtype == 1)
+    return launch_row_stat<__nv_bfloat16>(x, dy, scale, o, rows, d, st);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int rmsnorm_row_fwd(const void* x, const void* ss,
+                               const void* scale, void* y, int rows, int d,
+                               int d_total, float eps, int dtype,
+                               void* stream) {
+  if (rows <= 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(ss);
+  if (dtype == 0)
+    return launch_row_apply<float>(x, s, scale, y, rows, d, d_total, eps,
+                                   st);
+  if (dtype == 1)
+    return launch_row_apply<__nv_bfloat16>(x, s, scale, y, rows, d,
+                                           d_total, eps, st);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int rmsnorm_row_bwd(const void* x, const void* dy,
+                               const void* scale, const void* ss,
+                               const void* dot, void* dx, void* part,
+                               void* dscale, int rows, int d, int d_total,
+                               int nb, float eps, int dtype, void* stream) {
+  if (rows <= 0 || nb <= 0 || nb > rows) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(ss);
+  const float* t = static_cast<const float*>(dot);
+  float* p = static_cast<float*>(part);
+  if (dtype == 0)
+    return launch_row_bwd<float>(x, dy, scale, s, t, dx, p, dscale, rows, d,
+                                 d_total, nb, eps, st);
+  if (dtype == 1)
+    return launch_row_bwd<__nv_bfloat16>(x, dy, scale, s, t, dx, p, dscale,
+                                         rows, d, d_total, nb, eps, st);
   return cudaErrorInvalidValue;
 }

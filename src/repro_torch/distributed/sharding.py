@@ -21,7 +21,7 @@ the DTensor placements of a spec, one per mesh dim (``Shard(dim)`` or
 A partitioned step holds its state as DTensors: ``place`` turns a tree
 of tensors into DTensors with the rules' checked placements (a leaf
 whose logical axes are None stays a plain tensor that every rank holds
-whole), and the dense, vlm and MoE model code runs on them.  There,
+whole), and the dense, vlm, MoE and hybrid model code runs on them.  There,
 ``constrain`` is GSPMD's ``with_sharding_constraint``: under active
 rules it redistributes a DTensor to its spec's placements (a pending
 partial sum becomes an all-reduce or a reduce-scatter, a sharded dim
@@ -30,9 +30,10 @@ without rules, it returns its input, as the JAX package does without
 a mesh.  ``gather_fsdp`` gathers a weight's batch-axis (FSDP) shards
 right before its product (an MoE layer gathers its expert shards
 there and runs them on local tensors), and ``from_local`` /
-``row_grads`` move a kernel's operands between DTensors and the local
-shards it launches on, a replicated operand's gradient a partial sum
-over the ranks that hold other rows.  The data-parallel trainer of
+``row_grads`` / ``partial_grads`` move a kernel's operands between
+DTensors and the local shards it launches on, a replicated operand's
+gradient a partial sum over the ranks that hold other rows (or, in a
+Mamba2 mixer, other heads).  The data-parallel trainer of
 whole replicas (``--mesh``) keeps plain tensors: each rank runs its
 rows of every microbatch and the trainer sums the gradients over the
 batch axes (``training/loop.py``).  In both forms the MoE layer reads
@@ -218,6 +219,35 @@ def row_grads(x: DTensor) -> Tuple[Any, ...]:
     every mesh dim that shards `x`, whole where `x` is whole."""
     return tuple(Partial() if isinstance(p, Shard) else Replicate()
                  for p in x.placements)
+
+
+def partial_grads(w: DTensor, x: DTensor) -> Tuple[Any, ...]:
+    """The gradient placements of operand `w` used whole on `x`'s local
+    shards: `w`'s own shards kept, a partial sum over every other mesh
+    dim that shards `x` (``row_grads`` for a replicated `w`; a Mamba2
+    mixer's B, C and dt used on a rank's heads)."""
+    return tuple(pw if isinstance(pw, Shard) else
+                 Partial() if isinstance(px, Shard) else Replicate()
+                 for pw, px in zip(w.placements, x.placements))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous, as
+    the kernels' backward are: DTensor views a local gradient by its
+    global layout, and a plain backward's may be a permuted view."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def contiguous_grad(t: torch.Tensor) -> torch.Tensor:
+    """`t`, its gradient made contiguous (``_ContiguousGrad``)."""
+    return _ContiguousGrad.apply(t)
 
 
 def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:

@@ -142,20 +142,6 @@ def _kv_slice(q, k) -> Optional[Tuple[int, int]]:
     return lo, hi
 
 
-class _ContiguousGrad(torch.autograd.Function):
-    """The identity, whose backward makes the gradient contiguous, as
-    the backward kernel's are: DTensor views a local gradient by its
-    global layout, and the plain backward's may be a permuted view."""
-
-    @staticmethod
-    def forward(ctx, t):
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.contiguous()
-
-
 def _placed(q, k, v, causal, window):
     """The kernel on DTensors: this rank's q heads against the kv heads
     they read; the output with q's placements."""
@@ -168,7 +154,7 @@ def _placed(q, k, v, causal, window):
                       else pk for pq, pk in zip(q.placements, k.placements))
         kl = k.to_local(grad_placements=grads)[:, :, sl[0]:sl[1]]
         vl = v.to_local(grad_placements=grads)[:, :, sl[0]:sl[1]]
-    out = _flash_attention(*map(_ContiguousGrad.apply,
+    out = _flash_attention(*map(shd.contiguous_grad,
                                 (q.to_local(), kl, vl)),
                            causal=causal, window=window)
     return shd.from_local(out, q)

@@ -1,5 +1,7 @@
 """Plain PyTorch RMSNorm: the twin of ``repro.models.common.rmsnorm``
-(fp32 statistics, output in x's dtype)."""
+(fp32 statistics, output in x's dtype), and the plain versions of the
+kernels of its rows split over ranks (``row_*_ref``: each rank's
+statistic, reduced by the caller, then its columns normalised)."""
 from __future__ import annotations
 
 import torch
@@ -46,3 +48,36 @@ def add_rmsnorm_bwd_ref(s: torch.Tensor, ds, dy, scale: torch.Tensor,
         return ds, None
     dn, dscale = rmsnorm_bwd_ref(s, scale, dy, eps)
     return (dn if ds is None else ds + dn), dscale
+
+
+def row_stat_ref(x: torch.Tensor, dy=None, scale=None) -> torch.Tensor:
+    """The per-row fp32 statistic of the norm of rows split over ranks,
+    over this rank's columns: sum(x^2), or sum(dy * scale * x) when `dy`
+    is given (the backward's)."""
+    xf = x.float()
+    if dy is None:
+        return xf.square().sum(dim=-1)
+    return (dy.float() * scale.float() * xf).sum(dim=-1)
+
+
+def row_fwd_ref(x: torch.Tensor, ss: torch.Tensor, scale: torch.Tensor,
+                d_total: int, eps: float = 1e-5) -> torch.Tensor:
+    """``rmsnorm_ref`` of this rank's columns of rows d_total wide, from
+    `ss`, the rows' sums of squares over every rank's columns."""
+    r = torch.rsqrt(ss[..., None] / d_total + eps)
+    return (x.float() * r * scale.float()).to(x.dtype)
+
+
+def row_bwd_ref(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                ss: torch.Tensor, dot: torch.Tensor, d_total: int,
+                eps: float = 1e-5):
+    """``rmsnorm_bwd_ref`` on this rank's columns, from the whole rows'
+    sums of squares `ss` and of dy * scale * x `dot`: (dx, dscale), the
+    dscale of this rank's rows (a partial sum over the ranks that hold
+    other rows)."""
+    xf, dyf = x.float(), dy.float()
+    r = torch.rsqrt(ss[..., None] / d_total + eps)
+    c = r * r * dot[..., None] / d_total
+    dx = r * (dyf * scale.float() - xf * c)
+    dscale = (dyf * (xf * r)).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)

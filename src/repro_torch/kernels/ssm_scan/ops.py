@@ -23,6 +23,14 @@ run.  Its scratch (C·Bᵀ tiles, the head groups' partial sums) is one
 fp32 buffer of ``ssd_intra_bwd_workspace`` floats.  On the CPU plain
 autograd runs through ``ssd_intra_ref``.
 
+DTensors (a partitioned Mamba2 mixer, ``models/ssm.py``) launch the
+same kernels on each rank's heads (``_placed``): cum and xdt sharded
+on their head dim over the model axis, B and C whole there, and the
+gradients of B and C partial sums over the ranks that hold other heads
+(``sharding.partial_grads``), which DTensor reduces.  The kernels take
+H as a launch parameter, so a rank's H / model heads need nothing
+else.
+
 Meta tensors (the dry run) take ``ssd_intra_ref`` for their shapes.
 The entry and the backward declare their costs to an active op-cost
 walk (``roofline.op_cost.kernel``); during a walk a CPU or meta call
@@ -37,6 +45,7 @@ from typing import Tuple
 import torch
 
 from repro_torch import obs
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import build
 from repro_torch.kernels.ssm_scan.ref import (ssd_intra_bwd_ref,
                                               ssd_intra_ref)
@@ -108,8 +117,26 @@ def _plain(cum, xdt, Bc, Cc) -> Tuple[torch.Tensor, torch.Tensor]:
     return y.contiguous(), S.contiguous()
 
 
+def _placed(cum, xdt, Bc, Cc) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on DTensors: cum [B,nc,Q,H] and xdt [B,nc,Q,H,P] with
+    their heads sharded alike (or whole), Bc / Cc [B,nc,Q,N] whole over
+    the mesh dims that shard the heads.  It launches on this rank's
+    heads; y_intra comes back with xdt's placements and S [B,nc,H,N,P]
+    sharded on its head dim alike.  Bc's and Cc's gradients are partial
+    sums over the ranks that hold other heads."""
+    grads = shd.partial_grads(Bc, xdt)
+    y, S = _ssd_intra(*map(shd.contiguous_grad, (
+        cum.to_local(), xdt.to_local(), Bc.to_local(grad_placements=grads),
+        Cc.to_local(grad_placements=grads))))
+    s_pl = [shd.Shard(2) if p == shd.Shard(3) else p
+            for p in xdt.placements]
+    return shd.from_local(y, xdt), shd.from_local(S, xdt, s_pl)
+
+
 def _ssd_intra(cum: torch.Tensor, xdt: torch.Tensor, Bc: torch.Tensor,
                Cc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if shd.is_placed(xdt):
+        return _placed(cum, xdt, Bc, Cc)
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (cum, xdt, Bc, Cc))
     with op_cost.kernel("ssd_intra", lambda: cost(*xdt.shape,

@@ -33,7 +33,7 @@ card, and `cfg` in place of the arch's registered config (a reduced
 one, in the tests).
 
 Two forms (``Cell.partitioned``).  The families of PARTITIONED (dense,
-vlm, MoE) on a ``DeviceMesh`` (a real world's, or
+vlm, MoE, hybrid) on a ``DeviceMesh`` (a real world's, or
 ``mesh.fake_world``'s for the 256- and 512-device meshes) are
 partitioned as GSPMD partitions the JAX step: their arguments are
 placed (DTensors: the parameters, the optimizer state and the caches
@@ -41,13 +41,15 @@ by the rules, the batch by ("batch", ...) as
 ``training/loop.place_batch`` lays it out), the step runs the
 partitioned model code (an MoE train cell under ``seq_shard``, its
 layers through the a2a dispatch where it applies, else the global
-sort), and ``walk`` counts one device's share of it with the
-collectives it issues (FSDP gathers, tensor-parallel reductions, the
-a2a's all-to-alls), so ``collectives`` adds none.  The other families
-(hybrid, xlstm, audio), and any cell on a ``MeshShape``, run eagerly on
-tensors each rank holds whole: the rules place the state for the count
-of bytes a device only, ``walk`` counts the whole step and
-``collectives`` adds the all-reduce of the gradients.
+sort; a hybrid train cell under ``act_shard``, its Mamba2 mixers on
+each rank's SSM heads), and ``walk`` counts one device's share of it
+with the collectives it issues (FSDP gathers, tensor-parallel
+reductions, the a2a's all-to-alls, the gated norms' row statistics),
+so ``collectives`` adds none.  The other families (xlstm, audio), and
+any cell on a ``MeshShape``, run eagerly on tensors each rank holds
+whole: the rules place the state for the count of bytes a device
+only, ``walk`` counts the whole step and ``collectives`` adds the
+all-reduce of the gradients.
 """
 from __future__ import annotations
 
@@ -77,7 +79,7 @@ ShapeLike = Union[str, ShapeConfig]
 SEQ_FIT = ("xlstm",)
 FIT_LENGTHS = (128, 192, 256)
 # families whose step is partitioned on a DeviceMesh (DTensors)
-PARTITIONED = ("dense", "vlm", "moe")
+PARTITIONED = ("dense", "vlm", "moe", "hybrid")
 
 
 def partitioned(cfg: ModelConfig, mesh) -> bool:

@@ -15,6 +15,12 @@ go in groups so that the [B,nc,Q,Q,Hg] decay tensor stays under
 ``mamba2_forward`` in 'decode' mode writes the SSM and conv states of
 the cache IN PLACE for the slot ids in `rows` (all when None); the
 other modes return new states, as the JAX function does.
+
+Placed x and weights (DTensors, a partitioned step) run the same
+mixer body through ``_Placed``'s placement steps: each rank runs the
+heads of its ``ssm_inner`` shard, the SSD through the kernel's DTensor
+entry, and the gated norm as the norm of rows split over ``model``
+(``rmsnorm_split``), as GSPMD partitions the JAX mixer.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_split
 from repro_torch.kernels.ssm_scan.ops import ssd_intra
 from repro_torch.kernels.ssm_scan.ref import head_group
 from repro_torch.models import params as P
@@ -117,7 +125,8 @@ def _ssd_head_group(cum, xdt, Bc, Cc, CB, tri, s0):
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
                 init_state: Optional[torch.Tensor] = None,
-                decay_budget: int = 32 * 1024 * 1024):
+                decay_budget: int = 32 * 1024 * 1024,
+                head_placements=None):
     """Chunked state-space-duality scan.
 
     x:  [B, L, H, P]   (conv'd, activated inputs)
@@ -126,6 +135,13 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
     Bm,Cm: [B, L, N]   (single group, broadcast over heads)
     Returns (y [B, L, H, P] fp32, final_state [B, H, N, P] fp32).
     The chunk length Q is the largest divisor of L up to `chunk`.
+
+    Placed (a partitioned mixer): x, dt, A and `init_state` are a
+    rank's local rows and heads, Bm and Cm DTensors whole over the
+    heads' mesh dims, and `head_placements` the placements of a
+    [B, nc, Q, H] tensor of the rank's heads.  The intra-chunk block
+    runs through the SSD kernel's DTensor entry, the inter-chunk scan
+    on the local heads; the results are local.
     """
     Bsz, L, H, Pd = x.shape
     N = Bm.shape[-1]
@@ -137,11 +153,21 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
     a = (dt * A[None, None, :]).reshape(Bsz, nc, Q, H)           # log decay
     cum = torch.cumsum(a, dim=2)                                 # [B,nc,Q,H]
     xdt = (x.float() * dt[..., None]).reshape(Bsz, nc, Q, H, Pd)
-    Bc = Bm.float().reshape(Bsz, nc, Q, N)
-    Cc = Cm.float().reshape(Bsz, nc, Q, N)
+    Bc = Bm.float().reshape(Bm.shape[0], nc, Q, N)
+    Cc = Cm.float().reshape(Cm.shape[0], nc, Q, N)
     s0 = (torch.zeros((Bsz, H, N, Pd), dtype=torch.float32,
                       device=x.device) if init_state is None
           else init_state.float())
+
+    if shd.is_placed(Bm):
+        cum_d, xdt_d = (shd.from_local(t.contiguous(), Bc, head_placements)
+                        for t in (cum, xdt))
+        y_intra, S = ssd_intra(cum_d, xdt_d, Bc.contiguous(),
+                               Cc.contiguous())
+        Cl = Cc.to_local(grad_placements=shd.partial_grads(Cc, xdt_d))
+        y, final_state = _inter_chunk(y_intra.to_local(), S.to_local(),
+                                      cum, Cl, s0)
+        return y.reshape(Bsz, L, H, Pd), final_state
 
     if x.device.type != "cpu" or op_cost.plain_route():
         # the kernel's route: CUDA, meta (the dry run), and the CPU during
@@ -194,50 +220,181 @@ def mamba2_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
             "conv_B": [B,W-1,N], "conv_C": [B,W-1,N]}.  'decode' reads
     it and writes the new states into it in place, for the slot ids in
     `rows` (all when None); 'prefill' and 'train' start from it when
-    given and return new states.
+    given and return new states.  Placed x runs the same body on each
+    rank's heads (``_Placed``); whole x takes ``_Whole``'s identities.
     """
-    B, S, d = x.shape
-    di, H, Pd, N = ssm_dims(cfg)
+    pl = _Placed(rows) if shd.is_placed(x) else _Whole(rows)
+    _, _, Pd, _ = ssm_dims(cfg)
+    z, xi, Bm, Cm, dtr = (pl.mm(x, p[n]) for n in
+                          ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+    heads = pl.head_cut(xi, Pd)
 
-    z = x @ p["w_z"]                                             # [B,S,di]
-    xi = x @ p["w_x"]
-    Bm = x @ p["w_B"]
-    Cm = x @ p["w_C"]
-    dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])      # [B,S,H]
-    A = -torch.exp(p["A_log"])                                   # [H]
+    def on_heads(w):       # a leaf used on the rank's heads
+        return heads(pl.used(w, xi))
 
     cs = cache or {}
-    xi, cx = causal_conv(xi, p["conv_x"], cs.get("conv_x"))
-    Bm, cB = causal_conv(Bm, p["conv_B"], cs.get("conv_B"))
-    Cm, cC = causal_conv(Cm, p["conv_C"], cs.get("conv_C"))
+    xl, cx = causal_conv(pl.local(xi), pl.used(p["conv_x"], xi),
+                         pl.state(cs, "conv_x"))
+    bc, new_bc = [], []
+    for t, name in ((Bm, "conv_B"), (Cm, "conv_C")):
+        y, st = causal_conv(pl.local(t), pl.used(p[name], t),
+                            pl.state(cs, name))
+        bc.append(pl.back(y, t))
+        new_bc.append(st)
+    Bm, Cm = bc
+    dt = F.softplus(on_heads(dtr).float() + on_heads(p["dt_bias"]))
+    A = -torch.exp(on_heads(p["A_log"]))                         # [H]
 
-    xh = xi.reshape(B, S, H, Pd)
+    xh = xl.reshape(*xl.shape[:2], -1, Pd)
+    s0 = pl.local(cs.get("ssm"))
     if mode == "decode":
-        y, ssm_state = ssd_decode_step(cs["ssm"], xh, dt, A, Bm, Cm)
+        y, ssm_state = ssd_decode_step(s0, xh, dt, A, pl.local(Bm),
+                                       pl.local(Cm))
     else:
         y, ssm_state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm.chunk,
-                                   init_state=cs.get("ssm"))
+                                   init_state=s0,
+                                   head_placements=pl.moved(xi, 2, 3))
 
-    y = y + p["D"][None, None, :, None] * xh.float()
-    y = y.reshape(B, S, di).to(x.dtype)
-    y = y * F.silu(z.float()).to(x.dtype)
-    y = rmsnorm(y, p["norm"], cfg.norm_eps)
-    out = y @ p["w_out"]
+    y = y + on_heads(p["D"])[None, None, :, None] * xh.float()
+    y = y.reshape(xl.shape).to(x.dtype)
+    y = y * F.silu(pl.local(z).float()).to(x.dtype)
+    y = pl.norm(pl.back(y, xi), p["norm"], cfg.norm_eps)
+    out = pl.mm(y, p["w_out"])
 
     new_cache = None
     if mode == "decode":
         for name, new in (("ssm", ssm_state), ("conv_x", cx),
-                          ("conv_B", cB), ("conv_C", cC)):
-            if rows is None:
-                cs[name].copy_(new)
-            else:
-                b = rows.to(device=x.device, dtype=torch.long)
-                cs[name][b] = new[b].to(cs[name].dtype)
+                          ("conv_B", new_bc[0]), ("conv_C", new_bc[1])):
+            pl.write(cs, name, new)
         new_cache = cs
     elif mode == "prefill":
-        new_cache = {"ssm": ssm_state, "conv_x": cx, "conv_B": cB,
-                     "conv_C": cC}
+        new_cache = {"ssm": pl.back(ssm_state, xi, pl.moved(xi, 2, 1)),
+                     "conv_x": pl.back(cx, xi),
+                     "conv_B": pl.back(new_bc[0], Bm),
+                     "conv_C": pl.back(new_bc[1], Cm)}
     return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# the mixer's placement steps: whole tensors, or DTensors partitioned
+# ---------------------------------------------------------------------------
+
+class _Whole:
+    """The placement steps of the whole-replica mixer: identities, and
+    the decode states written in place for the slot ids in `rows`."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def mm(self, x, w):
+        return x @ w
+
+    def head_cut(self, xi, Pd):
+        return lambda t: t
+
+    def used(self, w, x):
+        return w
+
+    def local(self, t):
+        return t
+
+    def back(self, t, like, placements=None):
+        return t
+
+    def moved(self, t, src, dst):
+        return None
+
+    def state(self, cs, name):
+        return cs.get(name)
+
+    def norm(self, y, scale, eps):
+        return rmsnorm(y, scale, eps)
+
+    def write(self, cs, name, new):
+        if self.rows is None:
+            cs[name].copy_(new)
+        else:
+            b = self.rows.to(device=new.device, dtype=torch.long)
+            cs[name][b] = new[b].to(cs[name].dtype)
+
+
+class _Placed(_Whole):
+    """The placement steps of the partitioned mixer, as GSPMD partitions
+    the JAX mixer by the rules: placed x [B, S, d] (rows over the batch
+    axes, d whole) and placed weights; the five products through
+    ``gather_fsdp``; z and x's inner channels over ``model``
+    (``ssm_inner``), B, C and dt whole there.  A rank runs its heads
+    (the channels of its shard, whole heads): the conv on its channels
+    with its ``conv_x`` shard, B's and C's convs whole, dt, A, D and
+    dt_bias cut to its heads, the SSD through the kernel's DTensor
+    entry, the gate, and the gated norm of rows split over ``model``
+    (``rmsnorm_split``: a [rows] fp32 all-reduce, the rows never
+    gathered).  Every operand used whole on a rank's heads takes a
+    gradient partial over the ranks of the other heads
+    (``sharding.partial_grads``).  ``w_out``'s product leaves a partial
+    sum over ``model``.
+
+    'decode' writes the new states into the local shards of the placed
+    caches (laid out by the cache rules: SSM states over
+    ``state_heads``, conv states over ``ssm_inner``, B's and C's over
+    N, gathered for the conv); 'prefill' returns them placed so.
+    Per-slot `rows` are not partitioned.  A d_inner shard that cuts a
+    head is refused; where d_inner does not divide ``model`` every rank
+    runs all heads."""
+
+    def __init__(self, rows):
+        if rows is not None:
+            raise NotImplementedError("per-slot writes (rows) are not "
+                                      "partitioned")
+        super().__init__(rows)
+
+    def mm(self, x, w):
+        return x @ shd.gather_fsdp(w)
+
+    def head_cut(self, xi, Pd):
+        dl = xi.to_local().shape[-1]
+        if dl % Pd:
+            raise NotImplementedError(f"a d_inner shard of {dl} channels "
+                                      f"cuts heads of {Pd}")
+        h0, hl = shd.local_offset(xi, 2) // Pd, dl // Pd
+        return lambda t: t[..., h0:h0 + hl]
+
+    def used(self, w, x):
+        """Placed `w`'s local shard, used whole on placed `x`'s local
+        shards: its gradient a partial sum over the mesh dims that shard
+        x and not w."""
+        return w.to_local(grad_placements=shd.partial_grads(w, x))
+
+    def local(self, t):
+        return None if t is None else t.to_local()
+
+    def back(self, t, like, placements=None):
+        return shd.from_local(t, like, placements)
+
+    def moved(self, t, src, dst):
+        """t's placements with Shard(src) moved to Shard(dst)."""
+        return [shd.Shard(dst) if q == shd.Shard(src) else q
+                for q in t.placements]
+
+    def state(self, cs, name):
+        t = cs.get(name)
+        if t is not None and name != "conv_x":    # whole over N
+            t = shd.replicate_dim(t, 2)
+        return self.local(t)
+
+    def norm(self, y, scale, eps):
+        mesh, rules = shd.current_context()
+        dims = shd.mesh_dims(mesh, rules, "ssm_inner")
+        y = (rmsnorm_split(y, scale, eps, dims[0]) if len(dims) == 1
+             else rmsnorm(y, scale, eps))
+        return shd.constrain(y, ("batch", None, "ssm_inner"))
+
+    def write(self, cs, name, new):
+        loc = cs[name].to_local()
+        if name in ("conv_B", "conv_C"):       # the cache's slice of N
+            n0 = shd.local_offset(cs[name], 2)
+            new = new[..., n0:n0 + loc.shape[-1]]
+        loc.copy_(new)
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,

@@ -157,9 +157,19 @@ def _block(x, y, lp, positions, cfg: ModelConfig, kind: str, mode: str,
 def remat_call(run, remat: str, *args):
     """``run(*args)`` under `remat`: 'none' as it is, 'full' recomputed
     in the backward (``torch.utils.checkpoint``, non-reentrant), 'dots'
-    too but keeping the outputs of the plain matrix products."""
+    too but keeping the outputs of the plain matrix products.  The
+    recompute runs under the sharding rules active now: the autograd
+    engine runs a CUDA backward on a thread of its own, which does not
+    see this thread's ``sharding.axis_rules``."""
     if remat == "none":
         return run(*args)
+    ctx = shd.current_context()
+    if ctx is not None:
+        body = run
+
+        def run(*a):
+            with shd.axis_rules(*ctx):
+                return body(*a)
     kw = {} if remat == "full" else {"context_fn": functools.partial(
         ckpt.create_selective_checkpoint_contexts, _save_matmuls)}
     return ckpt.checkpoint(run, *args, use_reentrant=False, **kw)

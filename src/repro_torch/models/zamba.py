@@ -19,6 +19,17 @@ the prefill masks it and returns full-length K/V; a decode cache of
 exactly `window` slots is a ring (written at ``len % window``), any
 other is written linearly with the window applied by the mask, as in
 ``repro.models.attention.cache_update``.
+
+Placed parameters (DTensors) run the partitioned step under
+``sharding.axis_rules``, as GSPMD partitions the JAX one: the inputs
+are placed by ("batch", ...), the embedding is constrained to
+("batch", None, "act_embed") (a train cell's ``act_shard``: the
+residual's d_model over ``model``), every residual add and norm goes
+through ``transformer.add_norm``, the Mamba2 mixers run on each rank's
+SSM heads (``ssm._Placed``), the shared block through the
+placed attention and MLP, the logits are vocab-sharded, and a
+prefill's caches are placed by the cache rules (``_by_cache_rules``);
+decode writes them in their local shards.
 """
 from __future__ import annotations
 
@@ -27,13 +38,15 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention, ssm
 from repro_torch.models import params as P
-from repro_torch.models.common import (add_rmsnorm, embed_lookup,
-                                       padded_vocab, stack_layers)
+from repro_torch.models.common import (embed_lookup, padded_vocab,
+                                       stack_layers)
 from repro_torch.models.mlp import mlp_forward
-from repro_torch.models.transformer import (REMAT, attention_spec,
-                                            remat_call)
+from repro_torch.models.transformer import (REMAT, _placed_inputs,
+                                            _rows_like, add_norm,
+                                            attention_spec, remat_call)
 
 
 def plan(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -83,18 +96,18 @@ def _layer_cache(caches: Optional[Dict[str, Any]], part: str, i: int):
 def _mamba_block(bp: Mapping[str, Any], x, y, cfg, mode, cache, rows):
     """x + y (the branch before, None for the first block), then this
     block's norm and mixer: returns the new residual and its branch."""
-    x, h = add_rmsnorm(x, y, bp["norm"], cfg.norm_eps)
+    x, h = add_norm(x, y, bp["norm"], cfg.norm_eps)
     h, new_cache = ssm.mamba2_forward(bp["mixer"], h, cfg, mode=mode,
                                       cache=cache, rows=rows)
     return x, h, new_cache
 
 
 def _shared_block(sp, x, y, positions, cfg, mode, kv_cache, keep, window):
-    x, h = add_rmsnorm(x, y, sp["norm1"], cfg.norm_eps)
+    x, h = add_norm(x, y, sp["norm1"], cfg.norm_eps)
     h, new_kv = attention.attn_forward(sp["attn"], h, positions, cfg=cfg,
                                        mode=mode, cache=kv_cache, keep=keep,
                                        window=window)
-    x, h = add_rmsnorm(x, h, sp["norm2"], cfg.norm_eps)
+    x, h = add_norm(x, h, sp["norm2"], cfg.norm_eps)
     return x, mlp_forward(sp["mlp"], h), new_kv
 
 
@@ -117,6 +130,17 @@ def _stack(trees, one: Dict[str, torch.Tensor]):
             for k, t1 in one.items()}
 
 
+def _by_cache_rules(caches: Dict[str, Any]) -> Dict[str, Any]:
+    """Placed caches constrained to the cache rules' layout
+    (``api.cache_axes_of``)."""
+    from repro_torch.models.api import cache_axes_of   # api imports us
+
+    def one(tree, axes):
+        return {k: one(v, axes[k]) if isinstance(v, dict)
+                else shd.constrain(v, axes[k]) for k, v in tree.items()}
+    return one(caches, cache_axes_of(caches))
+
+
 def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
                   *, mode: str = "train",
                   caches: Optional[Dict[str, Any]] = None,
@@ -133,9 +157,13 @@ def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     n_groups, g, tail = plan(cfg)
+    placed = shd.is_placed(params.embed)
+    if placed:
+        batch = _placed_inputs(batch, rows)
     tokens = batch["tokens"].to(params.device).long()
     B, S = tokens.shape
-    x = embed_lookup(params.embed, tokens)
+    x = shd.constrain(embed_lookup(params.embed, tokens),
+                      ("batch", None, "act_embed"))
     dev = x.device
     keep = None
     if mode == "decode":
@@ -152,6 +180,8 @@ def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
         positions = torch.arange(S, device=dev).expand(B, S)
     else:
         raise ValueError(f"unknown zamba mode {mode!r}")
+    if placed:
+        positions = _rows_like(positions, x)
 
     # each block's branch y is added to the residual stream by the kernel
     # of the next norm (the next block's, or the final norm)
@@ -182,8 +212,9 @@ def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
         x, y, nc = _mamba_block(bp, x, y, cfg, mode, cache, rows)
         new_tail.append(nc)
 
-    _, x = add_rmsnorm(x, y, params.final_norm, cfg.norm_eps)
-    logits = x @ params.lm_head
+    _, x = add_norm(x, y, params.final_norm, cfg.norm_eps)
+    logits = shd.constrain(x @ shd.gather_fsdp(params.lm_head),
+                           ("batch", None, "vocab"))
 
     new_caches = None
     if mode == "prefill":
@@ -193,10 +224,13 @@ def zamba_forward(params: ZambaLM, batch: Dict[str, Any], cfg: ModelConfig,
         new_caches = {
             "mamba": _stack(new_mamba, one),
             "kv": {k: stack_layers([c[k] for c in new_kv], kv_one, x)
-                   for k in ("k", "v")},
-            "len": (torch.as_tensor(prev, device=dev) + S).to(torch.int32)}
+                   for k in ("k", "v")}}
         if tail:
             new_caches["tail"] = _stack(new_tail, one)
+        if placed:
+            new_caches = _by_cache_rules(new_caches)
+        new_caches["len"] = (torch.as_tensor(prev, device=dev)
+                             + S).to(torch.int32)
     elif mode == "decode":
         new_caches = dict(caches, len=(lens + 1).to(torch.int32))
     aux = torch.zeros((), dtype=torch.float32, device=dev)

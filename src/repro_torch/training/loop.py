@@ -38,8 +38,13 @@ microbatch i is the JAX program's rows [i·mb, (i+1)·mb).  The model
 code issues every collective (the FSDP gathers and their gradients'
 reduce-scatters, the tensor-parallel reductions); the loss over
 vocab-sharded logits takes its row max and sum over ``model``
-(``cross_entropy``).  The gradients come out placed like their
-parameters and summed, so nothing is all-reduced after them: the fp32
+(``cross_entropy``).  A leaf whole over ``model`` but used on each
+rank's heads or columns (a Mamba2 mixer's w_B, w_C, w_dt, conv_B,
+conv_C, A_log, D, dt_bias) takes a gradient declared partial over the
+ranks of the other heads; ``_placed_like`` reduces any gradient left
+partial into its parameter's placements.  The gradients come out
+placed like their parameters and summed, so nothing is all-reduced
+after them: the fp32
 accumulation, the global norm (over every shard, each counted once:
 the same value on every rank) and AdamW run on each rank's shards.
 """
