@@ -180,7 +180,15 @@ of JAX and nothing of the ``repro`` package.  In order:
    shared bytes a block, clusters in flight), its launches a call (the
    kernel nodes of a CUDA graph that captured one call) and every
    instance's ptxas registers and spill bytes (none may spill),
-   and its device ms a call at each path's shape; phi3-mini-3.8b,
+   and its device ms a call at each path's shape; its split form (a
+   context-parallel decode's four stage launches a block around the
+   exchanges of the row max, sum of exponentials, max |pv| and int32
+   P·V sums, ``kv_q8_split``) at that shape in 1, 4 and 16 position
+   blocks with per-slot lens that mask whole blocks, the exchanges done
+   by torch on the card: each stage against its plain stage, the output
+   against the plain version and the one launch (pq steps that differ
+   counted), the stages' launches (their main path), device ms, bounds
+   and ptxas spills; phi3-mini-3.8b,
    qwen2.5-32b, olmoe-1b-7b and the internvl2-76b backbone (24 of 80
    layers) at full width, each fed a 64-token prompt one decode step at
    a time from empty int8 caches and then 8 greedy tokens, every launch
@@ -205,17 +213,20 @@ of JAX and nothing of the ``repro`` package.  In order:
 12. drives the dry-run and roofline layer (``dryrun_phase``, last):
    ``python -m repro_torch.launch.dryrun --all --mesh both`` over every
    (arch x shape x mesh) cell on meta tensors, in separate processes,
-   where no cell may fail (the dense, vlm and MoE cells partitioned on
-   fake worlds of 256 and 512 ranks, walked per device, the MoE cells'
-   a2a dispatch included; the wall printed beside the whole-replica dry
-   run's); then six cells that fit one card, built at full width
-   through ``launch.cells`` in a world of one rank over NCCL
-   (phi3-mini-3.8b prefill [1, 4096] and decode at batch 16 over 4096
-   slots, h2o-danube-1.8b train [2, 4096] in microbatches of 1 with
-   remat full, olmoe-1b-7b decode at batch 16 over 4096 slots and train
-   [2, 4096] at 7 of 16 layers, deepseek-moe-16b prefill [1, 4096]);
-   all partitioned, DTensors on the 1 x 1 mesh with the flash, RMSNorm
-   and MoE dispatch kernels on local shards, each after its whole run,
+   where no cell may fail (the dense, vlm, MoE, hybrid and audio cells
+   partitioned on fake worlds of 256 and 512 ranks, walked per device,
+   the MoE cells' a2a dispatch included; the wall printed beside the
+   whole-replica dry run's); then the cells of ``DRYRUN_CHECKS`` that
+   fit one card, built at full width through ``launch.cells`` in a
+   world of one rank over NCCL (phi3-mini-3.8b prefill [1, 4096] and
+   decode at batch 16 over 4096 slots, on bf16 and on int8 caches,
+   h2o-danube-1.8b train [2, 4096] in microbatches of 1 with remat
+   full, olmoe-1b-7b decode at batch 16 over 4096 slots and train
+   [2, 4096] at 7 of 16 layers, deepseek-moe-16b prefill [1, 4096],
+   zamba2-7b prefill, decode and train at 33 of 81 blocks, whisper-tiny
+   train, prefill and decode); all partitioned, DTensors on the 1 x 1
+   mesh with the flash, RMSNorm, int8 decode, SSD and MoE dispatch
+   kernels on local shards, each after its whole run,
    whose outputs its own must equal bit for bit, else within a
    tolerance with the first differing output named): each step timed
    between CUDA events, walked under
@@ -286,6 +297,7 @@ def _imports():
     from repro_torch.core.simt import machine, power
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_q8 import ops as q8_ops
+    from repro_torch.kernels.decode_q8 import ref as q8_ref
     from repro_torch.kernels.decode_q8.ref import (combine_pv,
                                                    decode_attention_q8_ref)
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -343,7 +355,7 @@ def _imports():
                 faults=faults, kv_pool=kv_pool,
                 get_config=get_config, reduced_config=reduced_config,
                 build=build, fa_ops=fa_ops, attention_ref=attention_ref,
-                q8_ops=q8_ops, combine_pv=combine_pv,
+                q8_ops=q8_ops, q8_ref=q8_ref, combine_pv=combine_pv,
                 decode_attention_q8_ref=decode_attention_q8_ref,
                 quantize_kv=quantize_kv, valid_positions=valid_positions,
                 dispatch_ops=dispatch_ops, moe_dispatch_ref=moe_dispatch_ref,
@@ -368,21 +380,26 @@ def _zero_counts(m) -> None:
     for mod in ("rms_ops", "fa_ops", "dispatch_ops", "ssd_ops"):
         m[mod].bwd_launches = 0
     for by in (m["rms_ops"].launches_by_form, m["fa_ops"].launches_by_route,
-               m["rms_ops"].bwd_launches_by_form, m["rms_ops"].row_launches):
+               m["rms_ops"].bwd_launches_by_form, m["rms_ops"].row_launches,
+               m["q8_ops"].stage_launches):
         for key in by:
             by[key] = 0
 
 
 def _counts(m) -> dict:
     """Launches of each kernel of KERNELS and BWD_KERNELS, of
-    decode_attention_q8 and of the split-row norm's NORM_SPLIT_KERNELS
-    (the RMSNorm wrapper counts its forms apart)."""
+    decode_attention_q8 (its one launch) and its split form's stages,
+    and of the split-row norm's NORM_SPLIT_KERNELS (the RMSNorm wrapper
+    counts its forms apart)."""
     bwd = m["rms_ops"].bwd_launches_by_form
+    stages = m["q8_ops"].stage_launches
     return {**m["rms_ops"].launches_by_form, **m["rms_ops"].row_launches,
+            **stages,
             "flash_attention": m["fa_ops"].launches,
             "moe_dispatch": m["dispatch_ops"].launches,
             "ssd_intra": m["ssd_ops"].launches,
-            "decode_attention_q8": m["q8_ops"].launches,
+            "decode_attention_q8": (m["q8_ops"].launches
+                                    - sum(stages.values())),
             "flash_attention_bwd": m["fa_ops"].bwd_launches,
             "rmsnorm_bwd": bwd["rmsnorm"],
             "add_rmsnorm_bwd": bwd["add_rmsnorm"],
@@ -3347,17 +3364,22 @@ DRYRUN_RUNS = 3         # timed steps of a check cell
 DRYRUN_WHOLE_WALL_S = 57.0
 # the dry run's cells that fit one H100, at full width (and depth, but
 # where cut as the family's training is): name: (arch, kind, seq,
-# batch, microbatch of a train cell, layers or None for all)
+# batch, microbatch of a train cell, layers or None for all, int8
+# decode caches)
 DRYRUN_CHECKS = {
-    "phi3_prefill": (PHI3, "prefill", 4096, 1, None, None),
-    "phi3_decode": (PHI3, "decode", 4096, 16, None, None),
-    "danube_train": (DANUBE, "train", 4096, 2, 1, None),
-    "olmoe_decode": (OLMOE, "decode", 4096, 16, None, None),
-    "olmoe_train": (OLMOE, "train", 4096, 2, 1, MOE_TRAIN[1]),
-    "deepseek_prefill": (DEEPSEEK, "prefill", 4096, 1, None, None),
-    "zamba2_prefill": (ZAMBA, "prefill", 4096, 1, None, None),
-    "zamba2_decode": (ZAMBA, "decode", 4096, 16, None, None),
-    "zamba2_train": (ZAMBA, "train", 4096, 2, 1, HYBRID_TRAIN[1]),
+    "phi3_prefill": (PHI3, "prefill", 4096, 1, None, None, False),
+    "phi3_decode": (PHI3, "decode", 4096, 16, None, None, False),
+    "danube_train": (DANUBE, "train", 4096, 2, 1, None, False),
+    "olmoe_decode": (OLMOE, "decode", 4096, 16, None, None, False),
+    "olmoe_train": (OLMOE, "train", 4096, 2, 1, MOE_TRAIN[1], False),
+    "deepseek_prefill": (DEEPSEEK, "prefill", 4096, 1, None, None, False),
+    "zamba2_prefill": (ZAMBA, "prefill", 4096, 1, None, None, False),
+    "zamba2_decode": (ZAMBA, "decode", 4096, 16, None, None, False),
+    "zamba2_train": (ZAMBA, "train", 4096, 2, 1, HYBRID_TRAIN[1], False),
+    "phi3_decode_q8": (PHI3, "decode", 4096, 16, None, None, True),
+    "whisper_train": (WHISPER, "train", 4096, 2, 1, None, False),
+    "whisper_prefill": (WHISPER, "prefill", 4096, 1, None, None, False),
+    "whisper_decode": (WHISPER, "decode", 4096, 16, None, None, False),
 }
 VS_WHOLE_TOL = 2e-2     # bf16: max |diff| / max |whole|, if not bit-equal
 
@@ -3365,9 +3387,9 @@ VS_WHOLE_TOL = 2e-2     # bf16: max |diff| / max |whole|, if not bit-equal
 def _dryrun_all(m) -> dict:
     """(a) ``python -m repro_torch.launch.dryrun --all --mesh both`` in
     its own processes (every cell on meta, nothing on the card; the
-    dense, vlm, MoE and hybrid cells partitioned on fake worlds of 256
-    and 512 ranks) into a scratch folder under ``build/``; every record
-    read back."""
+    dense, vlm, MoE, hybrid and audio cells partitioned on fake worlds
+    of 256 and 512 ranks) into a scratch folder under ``build/``; every
+    record read back."""
     import os
     out_dir = ROOT / "build" / "chip_smoke_dryrun"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -3481,7 +3503,7 @@ def _check_cell(m, name: str, mesh, whole_out=None) -> tuple:
     Returns (record, the last timed step's outputs)."""
     torch = m["torch"]
     cm = m["cells_mod"]
-    arch, kind, seq, batch, micro, layers = DRYRUN_CHECKS[name]
+    arch, kind, seq, batch, micro, layers, kv_quant = DRYRUN_CHECKS[name]
     shape = m["ShapeConfig"](f"check_{kind}", seq, batch, kind)
     kw = {}
     if layers is not None:
@@ -3489,6 +3511,8 @@ def _check_cell(m, name: str, mesh, whole_out=None) -> tuple:
     if kind == "train":
         kw["tc"] = m["TrainConfig"](microbatch=micro, remat="full",
                                     learning_rate=TRAIN_LR)
+    if kv_quant:
+        kw["kv_quant"] = True
     timed_only = isinstance(mesh, m["mesh_mod"].MeshShape)
     if not timed_only:
         meta = cm.build_cell(arch, shape, mesh, device="meta", **kw)
@@ -3592,6 +3616,8 @@ def _check_cell(m, name: str, mesh, whole_out=None) -> tuple:
             if kind == "train" else [])
         if kind == "decode":
             used.remove("flash_attention")      # decode reads the cache
+        if kv_quant:   # 1 x 1: the cache whole, one launch
+            used.append("decode_attention_q8")
         if cell.cfg.family == "moe":
             used += ["moe_dispatch"] + (["moe_dispatch_bwd"]
                                         if kind == "train" else [])
@@ -3613,8 +3639,8 @@ def dryrun_phase(m) -> dict:
     ``roofline/``):
 
     (a) every (arch x shape x mesh) cell of ``dryrun --all --mesh both``
-        (meta tensors, separate processes; the dense, vlm, MoE and
-        hybrid cells partitioned on fake worlds of 256 and 512 ranks):
+        (meta tensors, separate processes; the dense, vlm, MoE, hybrid
+        and audio cells partitioned on fake worlds of 256 and 512 ranks):
         no cell may fail, and each record says its form;
     (b) the cells of DRYRUN_CHECKS, which fit one H100, at full width
         (and depth, but olmoe's and zamba2's train cells at the 7 of 16
@@ -3638,9 +3664,11 @@ def dryrun_phase(m) -> dict:
         backward; the zamba2 cells (prefill and decode at 81 blocks,
         train at HYBRID_TRAIN's 33) the SSD kernel (not in decode) and
         the split-row norm's kernels for the gated norm, and in train
-        their backwards.  Each check cell is a path: the kernel counts
-        are zeroed before its warm-up and read after its timed
-        steps."""
+        their backwards; phi3's int8 decode (kv_quant: at 1 x 1
+        the cache is whole, so the one-launch int8 kernel) and
+        whisper-tiny's train, prefill and decode (4 + 4 layers, 1500
+        frames).  Each check cell is a path: the kernel counts are
+        zeroed before its warm-up and read after its timed steps."""
     torch = m["torch"]
     _free(torch)
     out = {"all": _dryrun_all(m)}
@@ -4312,10 +4340,243 @@ def kv_q8_reduced(m) -> dict:
     return out
 
 
+# the split form (context-parallel decode): the timing shape's positions
+# in 1, 4 and 16 blocks, as that many model ranks hold them (16: the
+# production meshes' model axis), the exchanges done by torch on one
+# card; per-slot lens for the checks, so that whole blocks are masked
+Q8_SPLIT_BLOCKS = (1, 4, 16)
+Q8_SPLIT_LENS = (32768, 1000, 20001, 32768, 2048, 2049, 31000, 1,
+                 32768, 16384, 5, 32767, 8191, 24576, 100, 32768)
+# a stage's statistic against its plain version's on the same inputs
+# (max |Δ| / max |want|): the max of the scores is exact; the sums of
+# exponentials and max |pv| differ by fp32 rounding (the order of a
+# 32768-term sum, expf against torch's exp)
+Q8_STAGE_TOL = {"decode_q8_scores": 0.0, "decode_q8_exp": 1e-5,
+                "decode_q8_pv": 1e-5}
+
+
+def _q8_blocks(cache, n: int) -> list:
+    """The cache's positions in `n` blocks [(cache, start)], as `n`
+    ranks hold them (each block contiguous)."""
+    S = cache["k"].shape[1]
+    w = S // n
+    return [({k: t[:, i * w:(i + 1) * w].contiguous()
+              for k, t in cache.items()}, i * w) for i in range(n)]
+
+
+def _q8_stage_checks(m, q, block, lens, smax) -> dict:
+    """Each stage kernel on one block, its exchange the identity (the
+    block alone), against its plain version fed the same exchanged
+    statistic: the statistics within Q8_STAGE_TOL, the int32 sums equal
+    to the exact products of the kernel's own pq, and pq at most one
+    step from the plain version's at no more than Q8_MAX_FLIPS.  The pq
+    stage's error is its sums times ps against the plain stage's (over
+    the plain pq, so it shows the flips)."""
+    torch, ops, plain = m["torch"], m["q8_ops"], m["q8_ref"].PLAIN_STAGES
+    cache, start = block
+    st_k, m_k = ops.STAGES.scores(q, cache, lens, None, start, smax)
+    st_p, m_p = plain.scores(q, cache, lens, None, start, smax)
+    out = {}
+
+    def stat(name, got, want):
+        err, rel = _rel_err(torch, got, want, Q8_STAGE_TOL[name],
+                            f"{name} vs plain")
+        out[name] = {"max_abs_err": err, "normalized_err": rel}
+    stat("decode_q8_scores", m_k, m_p)
+    st_k, l_k = ops.STAGES.exp(st_k, m_k)
+    st_p, l_p = plain.exp(st_p, m_k)
+    stat("decode_q8_exp", l_k, l_p)
+    st_k, pm_k = ops.STAGES.pv(st_k, l_k)
+    st_p, pm_p = plain.pv(st_p, l_k)
+    stat("decode_q8_pv", pm_k, pm_p)
+    ps = torch.clamp(pm_k / torch.full_like(pm_k, 127.0), min=1e-20)
+    sums, pq = ops.STAGES.pq(st_k, ps, True)
+    sums_p, pq_p = plain.pq(st_p, ps, True)
+    exact = m["q8_ref"]._int_dot("bkgs,bskd->bkgd", pq, cache["v"])
+    _check(torch.equal(sums, exact), "decode_q8_pq: int32 sums differ from "
+           "the exact products of its pq")
+    apart = (pq.int() - pq_p.int()).abs()
+    flips = int((apart != 0).sum())
+    _check(int(apart.max()) <= 1 and flips <= Q8_MAX_FLIPS * apart.numel(),
+           f"decode_q8_pq: pq {flips} entries apart from the plain "
+           f"version's, up to {int(apart.max())}")
+    got, want = (t.float() * ps[..., None] for t in (sums, sums_p))
+    _check(bool(torch.isfinite(got).all()), "decode_q8_pq: non-finite sums")
+    err = float((got - want).abs().max())
+    out["decode_q8_pq"] = {"max_abs_err": err,
+                           "normalized_err": err / max(
+                               float(want.abs().max()), 1e-30),
+                           "pq_flips": flips,
+                           "pq_entries": apart.numel(),
+                           "v_rows_read": int((pq != 0).any(dim=2).sum())}
+    return out
+
+
+def kv_q8_split(m, q8_ptxas: dict) -> dict:
+    """The split form (``q8_ops.decode_attention_q8_blocks``: four stage
+    launches a block, ``decode_attention_q8_stage``) at Q8_TIMING, bf16
+    q over full int8 caches of random payload and scales:
+
+    (a) each stage kernel against its plain version on a block of
+        Q8_SPLIT_BLOCKS' largest split (one rank's positions) and on the
+        whole cache (``_q8_stage_checks``);
+    (b) the split form in Q8_SPLIT_BLOCKS blocks, per-slot lens
+        Q8_SPLIT_LENS (whole blocks masked), the exchanges a reduction
+        over the blocks: against ``decode_attention_q8_ref`` (pq at most
+        one step apart at no more than Q8_MAX_FLIPS; the output within
+        Q8_TOL of the plain sums over its own pq) and against the
+        one-launch kernel (pq steps that differ, output error, bits);
+        two runs the same bits.  Its main path: the launch counts are
+        zeroed before the three split runs and read after them.  Then
+        the context-parallel entry (``q8_ops.decode_attention_q8(...,
+        group=, start=0, smax=)``) over a world of one rank on NCCL,
+        whose exchanges are functional-collective all-reduces of CUDA
+        tensors: the 1-block split run's bits, each stage once more;
+    (c) at full lens, each split's device ms a call (CUDA graphs, the
+        exchanges included), each stage's device ms a launch under the
+        profiler, the plain stages' device ms on one block, and each
+        stage's bound on one block: the bytes it must move (each input
+        read once, each output written once: the fp32 scores between
+        stages, the v rows whose pq is not 0) at 3.35 TB/s against its
+        products at the int8 peak and the rest at the fp32 rate; the
+        stage instances' ptxas registers and spill bytes."""
+    torch, ops, plain = m["torch"], m["q8_ops"], m["q8_ref"].PLAIN_STAGES
+    B, S, KV, G, D = Q8_TIMING
+    g = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    q, cache, full = _q8_random(torch, g, B, S, KV, G, D)
+    lens = torch.tensor(Q8_SPLIT_LENS, device="cuda")
+    n_max = max(Q8_SPLIT_BLOCKS)
+    blocks = {n: _q8_blocks(cache, n) for n in Q8_SPLIT_BLOCKS}
+    out = {"shape": [B, S, KV, G, D], "lens": list(Q8_SPLIT_LENS),
+           "stage_checks": {
+               "rank_block": _q8_stage_checks(m, q, blocks[n_max][1], lens,
+                                              S),
+               "whole": _q8_stage_checks(m, q, blocks[1][0], lens, S)}}
+    want, _, pq_want, ps = m["decode_attention_q8_ref"](q, cache, lens,
+                                                        debug=True)
+    one, _, pq_one = ops.decode_attention_q8_cuda(q, cache, lens,
+                                                  debug=True)
+    _zero_counts(m)          # the split form's main path
+    runs = {n: ops.decode_attention_q8_blocks(q, blocks[n], lens, smax=S,
+                                              debug=True)
+            for n in Q8_SPLIT_BLOCKS}
+    torch.cuda.synchronize()
+    out["launches"] = dict(ops.stage_launches)
+    _check(out["launches"] == {k: sum(Q8_SPLIT_BLOCKS)
+                               for k in ops.STAGE_NAMES},
+           f"split form launches {out['launches']}")
+    _, started = m["mesh_mod"].init_world("cuda")
+    try:
+        before = dict(ops.stage_launches)
+        cp = ops.decode_attention_q8(q, cache, lens,
+                                     group=torch.distributed.group.WORLD,
+                                     start=0, smax=S)
+        torch.cuda.synchronize()
+        grew = {k: ops.stage_launches[k] - before[k] for k in before}
+        backend = torch.distributed.get_backend()
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+    out["group_entry"] = {"backend": backend, "stage_launches": grew,
+                          "bit_equal_one_block": torch.equal(cp, runs[1][0])}
+    _check(backend == "nccl" and grew == {k: 1 for k in ops.STAGE_NAMES}
+           and out["group_entry"]["bit_equal_one_block"],
+           f"decode_attention_q8(group=) over one NCCL rank: "
+           f"{out['group_entry']}")
+    del cp
+    out["splits"] = {}
+    for n, (got, pq) in runs.items():
+        what = f"split decode_q8 in {n} block(s)"
+        apart = (pq.int() - pq_want.int()).abs()
+        flips = int((apart != 0).sum())
+        _check(int(apart.max()) <= 1
+               and flips <= Q8_MAX_FLIPS * apart.numel(),
+               f"{what}: pq {flips} entries apart, up to {int(apart.max())}")
+        redo = m["combine_pv"](pq, ps, cache["v"]).reshape(got.shape)
+        err, rel = _rel_err(torch, got, redo, Q8_TOL["bfloat16"], what)
+        again = ops.decode_attention_q8_blocks(q, blocks[n], lens, smax=S)
+        _check(torch.equal(got, again), f"{what}: bits differ between runs")
+        out["splits"][n] = {
+            "max_abs_err": err, "normalized_err": rel,
+            "pq_flips_vs_plain": flips,
+            "vs_plain_output": float((got.float() - want.float()).abs().max()
+                                     / want.float().abs().max()),
+            "pq_steps_vs_one_launch": int((pq != pq_one).sum()),
+            "vs_one_launch_output": float(
+                (got.float() - one.float()).abs().max()
+                / one.float().abs().max()),
+            "bit_equal_one_launch": torch.equal(got, one)}
+    del runs, want, pq_want, one, pq_one, blocks
+    _free(torch)
+    # (c) timings at full lens
+    instances = {k: v for k, v in q8_ptxas.items()
+                 if re.match(r"q8_decode_kernel<\d+,0,[0-3]>", k)}
+    _check(all(v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0
+               for v in instances.values()),
+           f"decode_attention_q8 stage spills: {instances}")
+    out["ptxas"] = instances
+    out["timing"] = {}
+    for n in Q8_SPLIT_BLOCKS:
+        parts = _q8_blocks(cache, n)
+        rec = {"block": [B, S // n, KV, G, D]}
+
+        def call():
+            return ops.decode_attention_q8_blocks(q, parts, full, smax=S)
+        rec["call_ms"] = _device_ms(torch, call, reps=10, inner=5)
+        per = _launch_ms(torch, call, "q8_decode_kernel")
+        # one block's work, as a rank holds it
+        c0 = parts[0][0]
+        st, mx = plain.scores(q, c0, full, None, 0, S)
+        st1, l1 = plain.exp(st, mx)
+        st2, pm = plain.pv(st1, l1)
+        ps = torch.clamp(pm / torch.full_like(pm, 127.0), min=1e-20)
+        _, pq = plain.pq(st2, ps, True)
+        v_rows = int((pq != 0).any(dim=2).sum())
+        nsc = B * KV * G * (S // n)
+        stat = 4 * B * KV * G
+        kb = B * (S // n) * KV
+        work = {  # (bytes, int8 products, fp32 operations)
+            "decode_q8_scores": (kb * D + 2 * kb + 2 * B * KV * G * D
+                                 + 4 * nsc + stat, 2.0 * D * nsc, 3.0 * nsc),
+            "decode_q8_exp": (8 * nsc + 2 * stat, 0.0, 2.0 * nsc),
+            "decode_q8_pv": (8 * nsc + 2 * kb + 2 * stat, 0.0, 3.0 * nsc),
+            "decode_q8_pq": (4 * nsc + v_rows * D + stat + stat * D,
+                             2.0 * D * nsc, 2.0 * nsc)}
+        plains = {
+            "decode_q8_scores": lambda: plain.scores(q, c0, full, None, 0, S),
+            "decode_q8_exp": lambda: plain.exp(st, mx),
+            "decode_q8_pv": lambda: plain.pv(st1, l1),
+            "decode_q8_pq": lambda: plain.pq(st2, ps)}
+        for i, name in enumerate(ops.STAGE_NAMES):
+            nbytes, i8, f32 = work[name]
+            t_ops = i8 / INT8_OPS + f32 / FP32_FLOPS
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            key = [k for k in per
+                   if re.search(rf",\s*(false|0|\(bool\)0),\s*{i}>", k)]
+            rec[name] = {
+                "ms": per[key[0]] if key else None,
+                "plain_ms": _device_ms(torch, plains[name], reps=5,
+                                       inner=2),
+                "bytes": nbytes, "int8_ops": i8, "fp32_ops": f32,
+                "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            _check(key, f"{name}: no launch under the profiler: {per}")
+        rec["v_rows_read"], rec["v_rows"] = v_rows, kb
+        out["timing"][n] = rec
+        del parts, st, st1, st2, pq
+        _free(torch)
+    out["one_launch_ms"] = _device_ms(
+        torch, lambda: ops.decode_attention_q8_cuda(q, cache, full))
+    del cache
+    _free(torch)
+    return out
+
+
 def kv_q8_phase(m, q8_ptxas: dict) -> dict:
     """The int8 KV-cache decode path: the kernel against its plain
     version (Q8_CHECKS), its timing (Q8_TIMING and the paths' shapes;
-    `q8_ptxas`: its instances' ptxas usage), the four full-width model
+    `q8_ptxas`: its instances' ptxas usage), its split form
+    (``kv_q8_split``), the four full-width model
     paths (Q8_MODELS, each on an otherwise empty card) and the reduced
     fp32 card-vs-CPU decode."""
     torch, np = m["torch"], m["np"]
@@ -4342,6 +4603,25 @@ def kv_q8_phase(m, q8_ptxas: dict) -> dict:
     print("[kv_q8] device ms a call at the paths' shapes: "
           + json.dumps({a: [v["shape"], v["ms"]]
                         for a, v in t["path_ms"].items()}), flush=True)
+    out["split"] = sp = kv_q8_split(m, q8_ptxas)
+    print(f"[kv_q8] split form {sp['shape']} in {list(Q8_SPLIT_BLOCKS)} "
+          "blocks, vs plain and vs the one launch: " + json.dumps(
+              {n: {k: r[k] for k in (
+                  "normalized_err", "pq_flips_vs_plain", "vs_plain_output",
+                  "pq_steps_vs_one_launch", "vs_one_launch_output",
+                  "bit_equal_one_launch")}
+               for n, r in sp["splits"].items()}), flush=True)
+    stages = m["q8_ops"].STAGE_NAMES
+    print("[kv_q8] split stages by blocks, [device ms a launch, bound ms, "
+          "bound by, plain ms]: " + json.dumps(
+              {n: dict({s: [r[s]["ms"], r[s]["bound_ms"], r[s]["bound_by"],
+                            r[s]["plain_ms"]] for s in stages},
+                       call_ms=r["call_ms"])
+               for n, r in sp["timing"].items()})
+          + f"; one launch {sp['one_launch_ms']:.4f} ms; launches "
+          f"{json.dumps(sp['launches'])}; group entry "
+          f"{json.dumps(sp['group_entry'])}; ptxas {json.dumps(sp['ptxas'])}; "
+          f"stage checks {json.dumps(sp['stage_checks'])}", flush=True)
     rng = np.random.default_rng(SEED + 25)
     out["paths"] = {}
     for arch, layers in Q8_MODELS:
@@ -4386,9 +4666,9 @@ def _kernel_name(mangled: str) -> str:
         return name
     args, s = [], s[1:]
     while s and not s.startswith("E"):
-        hit = re.match(r"L[ib](\d+)E", s)  # int or bool
+        hit = re.match(r"L[ib](n?)(\d+)E", s)  # int or bool; n: negative
         if hit:
-            args.append(hit.group(1))
+            args.append(("-" if hit.group(1) else "") + hit.group(2))
             s = s[hit.end():]
         elif s.startswith("13__nv_bfloat16"):
             args.append("bf16")
@@ -4718,6 +4998,32 @@ def main() -> int:
             t["sdpa_bf16_cache_ms"]})
     _check(all(n > 0 for n in by_path.values()),
            f"decode_attention_q8: a path launched it no time: {by_path}")
+    kernels[-1]["launches_by_path"].update(
+        {p: paths[p]["launches"]["decode_attention_q8"] for p in paths
+         if paths[p]["launches"].get("decode_attention_q8")})
+    kernels[-1]["launches"] = sum(kernels[-1]["launches_by_path"].values())
+    # its split form's four stages: their main path is the split check
+    # at Q8_TIMING (one rank's block of the largest split timed)
+    sp = kv_q8["split"]
+    n_max = max(Q8_SPLIT_BLOCKS)
+    for name in m["q8_ops"].STAGE_NAMES:
+        t = sp["timing"][n_max][name]
+        chk = sp["stage_checks"]["rank_block"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention_q8.cu",
+            "replaces": "src/repro/models/attention.py:396",
+            "launches": sp["launches"][name],
+            "launches_by_path": {"kv_q8_split": sp["launches"][name]},
+            "max_abs_err": chk["max_abs_err"],
+            "shape": sp["timing"][n_max]["block"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "whole_cache": {k: sp["timing"][1][name][k]
+                            for k in ("ms", "plain_ms", "bound_ms")},
+            "split_normalized_err": {
+                n: r["normalized_err"] for n, r in sp["splits"].items()}})
+        _check(sp["launches"][name] > 0, f"{name}: no launch on its path")
     print(f"[done] {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_card(), flush=True)

@@ -11,23 +11,40 @@ quantizes q, forms the int32 scores, the masked softmax, the quantized
 probabilities and the int32 P·V sums itself, in one launch: a
 thread-block cluster a (b, kv), its blocks splitting the positions,
 with the scores in shared memory.  ``plan`` picks the form, the cluster
-size, the positions a block and the shared bytes from the shape; only a cache whose scores do not fit the blocks' shared
-memory takes the scratch form, and only then does the wrapper allocate
-more than the output.  ``launches`` counts wrapper calls that launched
-the kernel.  It takes D in ``HEAD_DIMS`` and up to ``MAX_GROUP`` query
-heads a kv head, and raises on anything else.  Meta tensors (the dry
-run) take the plain version for their shapes; each call declares its
-cost to an active op-cost walk (``roofline.op_cost.kernel``).
+size, the positions a block and the shared bytes from the shape; only
+a cache whose scores do not fit the blocks' shared memory takes the
+scratch form, and only then does the wrapper allocate more than the
+output.  It takes D in ``HEAD_DIMS`` and up to ``MAX_GROUP`` query
+heads a kv head, and raises on anything else.
+
+The split form (``decode_attention_q8(..., group=, start=, smax=)``,
+a context-parallel decode: the cache holds this rank's positions
+[start, start + its length) of a cache of `smax`): the kernel in four
+launches a rank (``STAGE_NAMES``, ``decode_attention_q8_stage`` of the
+same source), with the row max, the sum of exponentials, the max |pv|
+and the int32 P·V sums all-reduced over `group` between them
+(``ref.split_decode``).  ``decode_attention_q8_blocks`` runs the same
+form over several position blocks of one process (the exchange then
+reduces over them too).  The guard on exact int32 sums
+(``MAX_SMAX``) applies to the whole cache's `smax`.
+
+``launches`` counts every launch of the source's kernels (the one
+launch and each stage), ``stage_launches`` the stages' by name.  CUDA
+tensors launch the kernels or raise; CPU and meta tensors (the dry
+run) take the plain versions (``ref.PLAIN_STAGES`` in the split form).
+Each call, and each stage, declares its cost to an active op-cost walk
+(``roofline.op_cost.kernel``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, NamedTuple, Optional, Tuple
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import obs
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_q8 import ref
 from repro_torch.kernels.decode_q8.ref import decode_attention_q8_ref
 from repro_torch.roofline import op_cost
 
@@ -40,6 +57,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = ([_P, _I] + [_P] * 9 + [_I] * 6 + [ctypes.c_float]
              + [_I] * 4 + [_P])
 _OCC_ARGTYPES = [_I] * 6
+_STAGE_ARGTYPES = ([_I, _P, _I] + [_P] * 11 + [_I] * 8 + [ctypes.c_float]
+                   + [_I] * 3 + [_P])
+# the split form's launches, in order (``decode_attention_q8_stage``)
+STAGE_NAMES = ("decode_q8_scores", "decode_q8_exp", "decode_q8_pv",
+               "decode_q8_pq")
 
 # the card's limits (H100): dynamic shared memory a block, and shared
 # memory an SM, of which each resident block also takes 1 KB
@@ -49,6 +71,7 @@ MAX_CLUSTER = 8            # the portable cluster size
 BLOCK_POSITIONS = 512      # a cluster grows by a block for each of these
 
 launches = 0
+stage_launches = {name: 0 for name in STAGE_NAMES}
 
 
 class Plan(NamedTuple):
@@ -77,18 +100,20 @@ def smem_bytes(on_chip: bool, n: int, G: int, D: int) -> int:
     return x + _up(G * (np_ + 16), 16) + _up(y, 16)
 
 
-def plan(B: int, Smax: int, KV: int, G: int, D: int) -> Plan:
+def plan(B: int, Smax: int, KV: int, G: int, D: int, *,
+         scratch: bool = False) -> Plan:
     """A cluster of up to MAX_CLUSTER blocks a (b, kv), a block for each
     BLOCK_POSITIONS positions; the scores in shared memory wherever they
     fit a block (two blocks an SM where they fit so), else the scratch
-    form."""
+    form, which the split form's stages always take (`scratch`: the
+    scores cross device memory between launches)."""
     if Smax > MAX_SMAX:
         raise ValueError(f"decode_attention_q8 kernel takes up to "
                          f"{MAX_SMAX} cache positions, got {Smax}")
     cluster = min(MAX_CLUSTER, -(-Smax // BLOCK_POSITIONS))
     n = -(-Smax // cluster)
     cluster = -(-Smax // n)           # every block has positions
-    for on_chip in (True, False):
+    for on_chip in (False,) if scratch else (True, False):
         smem = smem_bytes(on_chip, n, G, D)
         for per_sm in (2, 1):
             if smem <= min(MAX_SMEM_BLOCK, SMEM_SM // per_sm - SMEM_RESERVED):
@@ -113,8 +138,21 @@ def cost(q: torch.Tensor, cache: Mapping[str, torch.Tensor]
 
 
 def _decode_attention_q8(q: torch.Tensor, cache: Mapping[str, torch.Tensor],
-                         cache_len, *, window: Optional[int] = None
-                         ) -> torch.Tensor:
+                         cache_len, *, window: Optional[int] = None,
+                         group=None, start: int = 0,
+                         smax: Optional[int] = None) -> torch.Tensor:
+    """The module docstring's entry: the one launch, or with `group` the
+    split form over this rank's positions.  Without `group` the cache
+    is the whole one: a `start` or `smax` that says otherwise raises."""
+    if group is None and (start != 0 or smax not in (None,
+                                                     cache["k"].shape[1])):
+        raise ValueError(f"decode_attention_q8: positions [{start}, "
+                         f"{start} + {cache['k'].shape[1]}) of a cache of "
+                         f"{smax} need the group that holds the rest")
+    if group is not None:
+        return decode_attention_q8_blocks(
+            q, [(cache, start)], cache_len, window=window,
+            smax=smax or cache["k"].shape[1], group=group)
     with op_cost.kernel("decode_attention_q8", lambda: cost(q, cache)):
         if q.device.type in ("cpu", "meta"):   # meta: the dry run's shapes
             return decode_attention_q8_ref(q, cache, cache_len,
@@ -219,6 +257,142 @@ def decode_attention_q8_cuda(q: torch.Tensor,
     if debug:
         return out, dbg_s, dbg_pq
     return out
+
+
+# ---------------------------------------------------------------------------
+# the split form: four stages around the exchanges of ref.split_decode
+# ---------------------------------------------------------------------------
+
+def decode_attention_q8_blocks(q: torch.Tensor, blocks: Sequence[ref.Block],
+                               cache_len, *, window: Optional[int] = None,
+                               smax: int, group=None, debug: bool = False):
+    """The split form over this rank's position `blocks` [(cache,
+    start)] of a cache of `smax` positions: the four stages on each
+    block, their parts reduced over the blocks and, with `group`,
+    all-reduced over it between them.  With `debug`, also the blocks'
+    pq, [B,KV,G,their positions]."""
+    if smax > MAX_SMAX:
+        raise ValueError(f"decode_attention_q8 kernel takes up to "
+                         f"{MAX_SMAX} cache positions, got {smax}")
+    for cache, start in blocks:
+        if start < 0 or start + cache["k"].shape[1] > smax:
+            raise ValueError(f"positions [{start}, {start} + "
+                             f"{cache['k'].shape[1]}) outside a cache of "
+                             f"{smax}")
+    lens = torch.as_tensor(cache_len, device=q.device).long()
+    lens = lens.expand(q.shape[0]).contiguous()
+    return ref.split_decode(STAGES, q, blocks, lens, window=window,
+                            smax=smax, exchange=ref.block_exchange(group),
+                            debug=debug)
+
+
+def _stage_cost(stage: int, cache, q_or_stat: torch.Tensor
+                ) -> Tuple[float, float]:
+    """(flops, bytes) of one stage on a block: each input read once and
+    each output written once, the fp32 scores [B,KV,G,Sl] in device
+    memory between stages; the products 2·D operations a query head and
+    position, the softmax steps 2 or 3 an entry."""
+    B, Sl, KV, D = cache["k"].shape
+    G = (q_or_stat.shape[2] // KV if stage == 0 else q_or_stat.shape[2])
+    n, stat = B * KV * G * Sl, 4 * B * KV * G
+    if stage == 0:
+        return 2.0 * D * n, (op_cost.nbytes(q_or_stat, cache["k"],
+                                            cache["k_scale"]) + 4 * n + stat)
+    if stage == 1:
+        return 2.0 * n, 8 * n + 2 * stat
+    if stage == 2:
+        return 3.0 * n, 8 * n + op_cost.nbytes(cache["v_scale"]) + 2 * stat
+    return (2.0 * D * n + 2 * n,
+            4 * n + op_cost.nbytes(cache["v"]) + stat + stat * D)
+
+
+def _on_card(cache) -> bool:
+    return cache["k"].device.type not in ("cpu", "meta")
+
+
+def _stage_scores(q, cache, lens, window, start, smax):
+    with op_cost.kernel(STAGE_NAMES[0], lambda: _stage_cost(0, cache, q)):
+        if not _on_card(cache):
+            return ref.PLAIN_STAGES.scores(q, cache, lens, window, start,
+                                           smax)
+        k, v = cache["k"], cache["v"]
+        _check_inputs(q, k, v, cache["k_scale"], cache["v_scale"], window)
+        B, _, Hq, D = q.shape
+        Sl, KV = k.shape[1], k.shape[2]
+        G = Hq // KV
+        pl = plan(B, Sl, KV, G, D, scratch=True)
+        state = {"q": q.contiguous(), "cache": cache, "lens": lens,
+                 "window": window or 0, "start": start, "smax": smax,
+                 "plan": pl,
+                 "scratch": torch.empty(pl.scratch_bytes // 4,
+                                        dtype=torch.float32,
+                                        device=q.device)}
+        return state, _launch_stage(0, state, None)
+
+
+def _later_stage(i: int, plain):
+    """Stage i (1..3) of a block, fed the exchanged statistic: its
+    kernel on the card, else `plain`."""
+    def run(state, stat, *debug):
+        with op_cost.kernel(STAGE_NAMES[i],
+                            lambda: _stage_cost(i, state["cache"], stat)):
+            if not _on_card(state["cache"]):
+                return plain(state, stat, *debug)
+            out = _launch_stage(i, state, stat, *debug)
+            return out if i == 3 else (state, out)
+    return run
+
+
+STAGES = ref.Stages(_stage_scores,
+                    *(_later_stage(i, f) for i, f in enumerate(
+                        ref.PLAIN_STAGES[1:], start=1)))
+
+
+def _launch_stage(stage: int, state, stat_in: Optional[torch.Tensor],
+                  debug: bool = False):
+    """One launch of ``decode_attention_q8_stage``: stage 0..2 return
+    their [B,KV,G] fp32 part; stage 3 its int32 sums [B,KV,G,D] and,
+    with `debug`, the block's pq."""
+    global launches
+    q, cache, pl = state["q"], state["cache"], state["plan"]
+    B, _, Hq, D = q.shape
+    Sl, KV = cache["k"].shape[1], cache["k"].shape[2]
+    G = Hq // KV
+    if stat_in is not None and (
+            stat_in.dtype != torch.float32 or stat_in.device != q.device
+            or tuple(stat_in.shape) != (B, KV, G)
+            or not stat_in.is_contiguous()):
+        raise ValueError(f"{STAGE_NAMES[stage]}: the exchanged statistic "
+                         f"must be contiguous fp32 {(B, KV, G)} on "
+                         f"{q.device}, got {stat_in.dtype} "
+                         f"{tuple(stat_in.shape)} on {stat_in.device}")
+    dev = q.device
+    stat_out = out = dbg_pq = None
+    if stage < 3:
+        stat_out = torch.empty((B, KV, G), dtype=torch.float32, device=dev)
+    else:
+        out = torch.empty((B, KV, G, D), dtype=torch.int32, device=dev)
+        if debug:
+            dbg_pq = torch.empty((B, KV, G, Sl), dtype=torch.int8,
+                                 device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    fn = build.function("decode_attention_q8", "decode_attention_q8_stage",
+                        _STAGE_ARGTYPES)
+    err = _launch(fn, dev, stage, q.data_ptr(),
+                  int(q.dtype == torch.bfloat16), cache["k"].data_ptr(),
+                  cache["v"].data_ptr(), cache["k_scale"].data_ptr(),
+                  cache["v_scale"].data_ptr(), state["lens"].data_ptr(),
+                  ptr(stat_in), ptr(stat_out), ptr(out),
+                  state["scratch"].data_ptr(), None, ptr(dbg_pq), B, Sl, KV,
+                  G, D, state["start"], state["smax"], state["window"],
+                  1.0 / (D ** 0.5), pl.cluster, pl.block_positions,
+                  pl.smem_bytes)
+    build.check(err, STAGE_NAMES[stage])
+    launches += 1
+    stage_launches[STAGE_NAMES[stage]] += 1
+    return stat_out if stage < 3 else (out, dbg_pq)
 
 
 def active_clusters(pl: Plan, B: int, KV: int, D: int) -> int:

@@ -33,23 +33,25 @@ card, and `cfg` in place of the arch's registered config (a reduced
 one, in the tests).
 
 Two forms (``Cell.partitioned``).  The families of PARTITIONED (dense,
-vlm, MoE, hybrid) on a ``DeviceMesh`` (a real world's, or
+vlm, MoE, hybrid, audio) on a ``DeviceMesh`` (a real world's, or
 ``mesh.fake_world``'s for the 256- and 512-device meshes) are
 partitioned as GSPMD partitions the JAX step: their arguments are
 placed (DTensors: the parameters, the optimizer state and the caches
-by the rules, the batch by ("batch", ...) as
-``training/loop.place_batch`` lays it out), the step runs the
-partitioned model code (an MoE train cell under ``seq_shard``, its
-layers through the a2a dispatch where it applies, else the global
-sort; a hybrid train cell under ``act_shard``, its Mamba2 mixers on
-each rank's SSM heads), and ``walk`` counts one device's share of it
-with the collectives it issues (FSDP gathers, tensor-parallel
-reductions, the a2a's all-to-alls, the gated norms' row statistics),
-so ``collectives`` adds none.  The other families (xlstm, audio), and
-any cell on a ``MeshShape``, run eagerly on tensors each rank holds
-whole: the rules place the state for the count of bytes a device
-only, ``walk`` counts the whole step and ``collectives`` adds the
-all-reduce of the gradients.
+by the rules, an int8 decode cache's fp16 scales with its sequence,
+the batch by ("batch", ...) as ``training/loop.place_batch`` lays it
+out), the step runs the partitioned model code (an MoE train cell
+under ``seq_shard``, its layers through the a2a dispatch where it
+applies, else the global sort; a hybrid train cell under
+``act_shard``, its Mamba2 mixers on each rank's SSM heads; whisper's
+encoder and decoder on the dense family's placed attention and MLP),
+and ``walk`` counts one device's share of it with the collectives it
+issues (FSDP gathers, tensor-parallel reductions, the a2a's
+all-to-alls, the gated norms' and the int8 decode's row statistics),
+so ``collectives`` adds none.  The xlstm family, and any cell on a
+``MeshShape``, run eagerly on tensors each rank holds whole: the
+rules place the state for the count of bytes a device only, ``walk``
+counts the whole step and ``collectives`` adds the all-reduce of the
+gradients.
 """
 from __future__ import annotations
 
@@ -79,7 +81,7 @@ ShapeLike = Union[str, ShapeConfig]
 SEQ_FIT = ("xlstm",)
 FIT_LENGTHS = (128, 192, 256)
 # families whose step is partitioned on a DeviceMesh (DTensors)
-PARTITIONED = ("dense", "vlm", "moe", "hybrid")
+PARTITIONED = ("dense", "vlm", "moe", "hybrid", "audio")
 
 
 def partitioned(cfg: ModelConfig, mesh) -> bool:

@@ -18,8 +18,8 @@ in that many processes.
 
 Two forms, each record's ``partitioned``:
 
-* the dense, vlm, MoE and hybrid families are partitioned: the job
-  builds a fake world of the production mesh's size
+* the dense, vlm, MoE, hybrid and audio families are partitioned: the
+  job builds a fake world of the production mesh's size
   (``mesh.fake_world``: 16 x 16, or 2 x 16 x 16 with ``--mesh multi``)
   in its own process, places the cell on it and walks one device's
   share of the step under ``roofline.op_cost``, with the FSDP gathers,
@@ -27,7 +27,7 @@ Two forms, each record's ``partitioned``:
   the MoE a2a dispatch's all-to-alls and the hybrid gated norms'
   all-reduces of row statistics the step issues (``per_device``:
   FLOPs, bytes and wire bytes by collective kind);
-* the other families run whole replicas: the state is placed on the
+* the xlstm family runs whole replicas: the state is placed on the
   mesh's axes (``mesh.production_mesh_shape``) for its bytes only, the
   whole step is walked once for both meshes, its terms are divided by
   the chips, and the collective term is the port's own all-reduce of
@@ -65,7 +65,8 @@ NOTES_PARTITIONED = (
     "partitioned: one device's share of the step on a fake world of the "
     "mesh's size (DTensor: FSDP over the batch axes, tensor parallelism "
     "over model, context-parallel decode, expert parallelism over model "
-    "through the a2a dispatch, Mamba2 heads over model), with the "
+    "through the a2a dispatch, Mamba2 heads over model; whisper on the "
+    "dense attention and MLP), with the "
     "collectives it issues; DTensor "
     "and GSPMD may pick other collectives",)
 NOTES_WHOLE = (

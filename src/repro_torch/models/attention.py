@@ -37,8 +37,15 @@ kernel wrapper slices them).  Decode reads caches placed by the cache
 rules (``kv_seq`` over ``model``: context-parallel): the new k / v are
 written by the rank that holds their position, and the softmax over a
 sequence-sharded cache takes its row max and sum, and its output, as
-all-reduces over the ranks that hold the positions.  'chunk', per-slot
-``rows`` and int8 caches are not partitioned.
+all-reduces over the ranks that hold the positions.  An int8 cache's
+scales are placed as its sequence; the new k / v are quantized whole
+and written with them, and the int8 kernel's split form exchanges the
+row max, the sum of exponentials, the max |p·v_scale| and the int32
+P·V sums between the ranks (``kernels/decode_q8``).  Cross attention
+(`kv_override`, whisper's) takes the flash kernel on local heads in
+'train' and 'prefill', and in 'decode' the same context-parallel
+softmax over the cross caches, every frame valid.  'chunk' and
+per-slot ``rows`` are not partitioned.
 
 An int8 cache (``init_kv_cache(quantized=True)``: int8 k, v and fp16
 per-(token, head) k_scale, v_scale) is decode-only, as in the JAX
@@ -300,43 +307,58 @@ def _local_rows(t: torch.Tensor, like) -> torch.Tensor:
     return t[b0:b0 + like.to_local().shape[0]]
 
 
-def _write_placed(kc, vc, k_new, v_new, pos) -> None:
+def _write_placed(cache, k_new, v_new, pos) -> None:
     """Write [B,1,KV,D] k / v at global positions `pos` [B,1] into the
     placed caches [B,Smax,KV,D] (sequence sharded or whole), in place:
-    each rank writes the positions its shard holds."""
-    kl, vl = kc.to_local(), vc.to_local()
-    kn = shd.replicate_dim(k_new, 2).to_local()
-    vn = shd.replicate_dim(v_new, 2).to_local()
-    s0, sl = shd.local_offset(kc, 1), kl.shape[1]
+    each rank writes the positions its shard holds.  An int8 cache
+    takes ``quantize_kv`` of the replicated new k and v, payload and
+    fp16 scales [B,Smax,KV] (placed as k's sequence) alike."""
+    kc = cache["k"]
+    new = {"k": shd.replicate_dim(k_new, 2).to_local(),
+           "v": shd.replicate_dim(v_new, 2).to_local()}
+    if "k_scale" in cache:
+        (new["k"], new["k_scale"]), (new["v"], new["v_scale"]) = (
+            quantize_kv(new["k"]), quantize_kv(new["v"]))
+    s0, sl = shd.local_offset(kc, 1), kc.to_local().shape[1]
     pos = _local_rows(pos, kc) - s0
-    if sl == kc.shape[1]:
-        _write(kl, vl, kn, vn, pos, None)
-        return
-    keep = ((pos >= 0) & (pos < sl))[..., None, None]
+    whole = sl == kc.shape[1]
+    keep = (pos >= 0) & (pos < sl)
     pos = torch.clamp(pos, 0, sl - 1)
-    b = torch.arange(kl.shape[0], device=kl.device)[:, None]
-    for cache, new in ((kl, kn), (vl, vn)):
-        cache[b, pos] = torch.where(keep, new.to(cache.dtype), cache[b, pos])
+    b = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    for name, t in new.items():
+        local = cache[name].to_local()
+        t = t.to(local.dtype)
+        if not whole:
+            mask = keep.view(keep.shape + (1,) * (t.dim() - 2))
+            t = torch.where(mask, t, local[b, pos])
+        local[b, pos] = t
 
 
-def _decode_placed(q, kc, vc, lens, window):
-    """Decode attention of placed q [B,1,Hq,D] over placed caches:
-    ``decode_attention`` on local shards, context-parallel (over the
-    mesh dim that shards the sequence) when the sequence is sharded."""
+def _decode_placed(q, cache, lens, window):
+    """Decode attention of placed q [B,1,Hq,D] over placed caches (an
+    int8 cache through ``decode_attention_q8``): the kernel on local
+    shards, context-parallel (over the mesh dim that shards the
+    sequence) when the sequence is sharded."""
     q = shd.replicate_dim(q, 2)
-    kl = kc.to_local()
+    kc = cache["k"]
+    local = {n: t.to_local() for n, t in cache.items()
+             if n in ("k", "v", "k_scale", "v_scale")}
     group = None
-    if kl.shape[1] != kc.shape[1]:
+    if local["k"].shape[1] != kc.shape[1]:
         seq_dims = [i for i, p in enumerate(kc.placements)
                     if isinstance(p, shd.Shard) and p.dim == 1]
         if len(seq_dims) != 1:
             raise NotImplementedError(f"a cache sequence sharded over "
                                       f"mesh dims {seq_dims}")
         group = kc.device_mesh.get_group(seq_dims[0])
-    out = decode_attention(q.to_local(), kl, vc.to_local(),
-                           _local_rows(lens, kc), window=window,
-                           group=group, start=shd.local_offset(kc, 1),
-                           smax=kc.shape[1])
+    kw = dict(window=window, group=group, start=shd.local_offset(kc, 1),
+              smax=kc.shape[1])
+    lens = _local_rows(lens, kc)
+    if "k_scale" in local:
+        out = decode_attention_q8(q.to_local(), local, lens, **kw)
+    else:
+        out = decode_attention(q.to_local(), local["k"], local["v"], lens,
+                               **kw)
     return shd.from_local(out, q)
 
 
@@ -368,12 +390,10 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     hq, kvh, hd = attn_dims(cfg)
     wdw = window if window is not None else cfg.sliding_window
     placed = shd.is_placed(x)
-    if placed and (mode == "chunk" or keep is not None
-                   or kv_override is not None
-                   or (cache is not None and "k_scale" in cache)):
+    if placed and (mode == "chunk" or keep is not None):
         raise NotImplementedError(
-            "the partitioned attention runs train, prefill and decode "
-            "over float caches, without per-slot rows or kv_override")
+            "the partitioned attention runs train, prefill and decode, "
+            "without per-slot rows")
 
     if placed:                  # the sequence whole: heads over model
         x = shd.replicate_dim(x, 1)
@@ -396,14 +416,13 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         q = common.apply_rope(q, positions, cfg.rope_theta)
 
     new_cache = cache
-    if placed and mode == "decode":
+    if placed and mode == "decode" and kv_override is None:
         lens = _lens(cache["len"], B, positions.device)
         ring = wdw is not None and cache["k"].shape[1] == wdw
-        _write_placed(cache["k"], cache["v"], k, v,
+        _write_placed(cache, k, v,
                       _write_positions(lens, 1, cache["k"].shape[1], ring))
-        out = _decode_placed(q, cache["k"], cache["v"], lens + 1, wdw)
-        new_cache = {"k": cache["k"], "v": cache["v"],
-                     "len": cache["len"] + S}
+        out = _decode_placed(q, cache, lens + 1, wdw)
+        new_cache = dict(cache, len=cache["len"] + S)
     elif mode in ("chunk", "decode") and kv_override is None:
         assert cache is not None
         quantized = "k_scale" in cache
@@ -437,7 +456,11 @@ def attn_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         new_cache["len"] = cache["len"] + S
     elif mode == "decode":
         # cross-attention while decoding: every encoder position
-        out = decode_attention(q, k, v, k.shape[1])
+        if placed:
+            full = torch.full((B,), k.shape[1], device=positions.device)
+            out = _decode_placed(q, {"k": k, "v": v}, full, None)
+        else:
+            out = decode_attention(q, k, v, k.shape[1])
     elif mode in ("prefill", "train"):
         out = flash_attention(
             q, k, v, causal=kv_override is None and not bidirectional,

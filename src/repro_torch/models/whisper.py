@@ -21,6 +21,20 @@ each block's residual branch is added by the next norm's kernel.
 'full' recomputes each decoder layer in the backward (the encoder is
 not checkpointed), and the encoder's grads come through the
 cross-attention's K and V projections.
+
+Placed parameters (DTensors) run the partitioned step under
+``sharding.axis_rules``, on the dense family's placed attention and
+MLP: x and the logits constrained as the JAX forward constrains them
+(("batch", None, "act_embed"), ("batch", None, "vocab")), each block's
+output reduced onto the residual's layout at the next norm
+(``transformer.add_norm``), the vocab-parallel embedding and tied head,
+the encoder's non-causal flash and the cross attention on local heads,
+each decoder layer's cross K / V projected through ``gather_fsdp``.  A
+prefill's caches ("k", "v", "xk", "xv") are placed by the cache rules
+(``kv_seq`` over ``model``), so a decode's self and cross attention are
+context-parallel where the positions (or frames) divide that axis;
+1500 frames on a 16-way axis stay whole.  The inputs are placed by
+("batch", ...) when they come plain.
 """
 from __future__ import annotations
 
@@ -29,13 +43,19 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention
 from repro_torch.models import params as P
-from repro_torch.models.common import (add_rmsnorm, embed_lookup,
-                                       padded_vocab, sinusoid_at,
-                                       sinusoidal_positions, stack_layers)
+from repro_torch.models.common import (embed_lookup, padded_vocab,
+                                       sinusoid_at, sinusoidal_positions,
+                                       stack_layers)
 from repro_torch.models.mlp import mlp_forward
-from repro_torch.models.transformer import REMAT, attention_spec, remat_call
+from repro_torch.models.transformer import (REMAT, _placed_inputs,
+                                            _rows_like, add_norm,
+                                            attention_spec, remat_call)
+
+# a prefill's caches, stacked over the decoder layers (``api._cache_rule``)
+CACHE_AXES = (None, "batch", "kv_seq", None, None)
 
 
 def _enc_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -67,31 +87,43 @@ class WhisperLM(P.Model):
         super().__init__(whisper_spec(cfg), cfg, dtype=dtype, device=device)
 
 
+def _plus(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """x [B,S,d] + sinusoids `pos`, [1,S,d] (every row's) or [B,1,d]
+    (each row's own); on a placed x, pos placed whole or as x's rows."""
+    pos = pos.to(x.dtype)
+    if shd.is_placed(x):
+        if pos.shape[0] == 1:
+            pos = shd.from_local(pos, x, [shd.Replicate()]
+                                 * x.device_mesh.ndim)
+        else:
+            pos = _rows_like(pos, x)
+    return x + pos
+
+
 def encode(params: WhisperLM, frames: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """frames [B, Ctx, d] (the stub frontend's output) -> [B, Ctx, d]."""
     B, Ctx, d = frames.shape
-    x = frames + sinusoidal_positions(Ctx, d, frames.device).to(
-        frames.dtype)[None]
+    x = _plus(frames, sinusoidal_positions(Ctx, d, frames.device)[None])
     positions = torch.arange(Ctx, device=x.device).expand(B, Ctx)
     y = None
     for lp in params.enc.layers():
-        x, h = add_rmsnorm(x, y, lp["norm1"], cfg.norm_eps)
+        x, h = add_norm(x, y, lp["norm1"], cfg.norm_eps)
         h, _ = attention.attn_forward(lp["attn"], h, positions, cfg=cfg,
                                       mode="train", bidirectional=True,
                                       use_rope=False)
-        x, h = add_rmsnorm(x, h, lp["norm2"], cfg.norm_eps)
+        x, h = add_norm(x, h, lp["norm2"], cfg.norm_eps)
         y = mlp_forward(lp["mlp"], h)
-    return add_rmsnorm(x, y, params.enc_norm, cfg.norm_eps)[1]
+    return add_norm(x, y, params.enc_norm, cfg.norm_eps)[1]
 
 
 def _cross_kv(lp, enc_out: torch.Tensor, cfg: ModelConfig):
     """One decoder layer's cross-attention K/V from the encoder output."""
-    B, Ctx, _ = enc_out.shape
     _, kvh, hd = attention.attn_dims(cfg)
-    k = (enc_out @ lp["xattn"]["wk"]).reshape(B, Ctx, kvh, hd)
-    v = (enc_out @ lp["xattn"]["wv"]).reshape(B, Ctx, kvh, hd)
-    return k, v
+    k = enc_out @ shd.gather_fsdp(lp["xattn"]["wk"])
+    v = enc_out @ shd.gather_fsdp(lp["xattn"]["wv"])
+    return (attention._split_heads(k, kvh, hd),
+            attention._split_heads(v, kvh, hd))
 
 
 def whisper_forward(params: WhisperLM, batch: Dict[str, Any],
@@ -107,10 +139,13 @@ def whisper_forward(params: WhisperLM, batch: Dict[str, Any],
     package."""
     if remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+    if shd.is_placed(params.embed):
+        batch = _placed_inputs(batch, None)
     tokens = batch["tokens"].to(params.device).long()
     B, S = tokens.shape
     d = cfg.d_model
-    x = embed_lookup(params.embed, tokens)
+    x = shd.constrain(embed_lookup(params.embed, tokens),
+                      ("batch", None, "act_embed"))
     dev = x.device
     lens = None
     if mode == "decode":
@@ -119,11 +154,11 @@ def whisper_forward(params: WhisperLM, batch: Dict[str, Any],
         lens = torch.as_tensor(caches["len"], device=dev).expand(B)
         attention.check_cache_bounds(lens, 1, caches["k"].shape[2])
         positions = lens.reshape(B, 1)
-        x = x + sinusoid_at(lens, d).to(x.dtype)[:, None, :]
+        x = _plus(x, sinusoid_at(lens, d)[:, None, :])
         xk, xv = caches["xk"], caches["xv"]
     elif mode in ("prefill", "train"):
         positions = torch.arange(S, device=dev).expand(B, S)
-        x = x + sinusoidal_positions(S, d, dev).to(x.dtype)[None]
+        x = _plus(x, sinusoidal_positions(S, d, dev)[None])
         enc_out = encode(params, batch["frames"].to(device=dev,
                                                     dtype=x.dtype), cfg)
         kv = [_cross_kv(lp, enc_out, cfg) for lp in params.dec.layers()]
@@ -151,15 +186,17 @@ def whisper_forward(params: WhisperLM, batch: Dict[str, Any],
             new_k.append(nc["k"])
             new_v.append(nc["v"])
 
-    _, x = add_rmsnorm(x, y, params.final_norm, cfg.norm_eps)
-    logits = x @ params.embed.T                 # tied head
+    _, x = add_norm(x, y, params.final_norm, cfg.norm_eps)
+    logits = shd.constrain(x @ shd.gather_fsdp(params.embed.T),  # tied head
+                           ("batch", None, "vocab"))
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     new_caches = None
     if mode == "prefill":
         one = (B, S) + attention.attn_dims(cfg)[1:]
-        new_caches = {"k": stack_layers(new_k, one, x),
-                      "v": stack_layers(new_v, one, x), "xk": xk, "xv": xv,
-                      "len": torch.tensor(S, dtype=torch.int32, device=dev)}
+        new_caches = {n: shd.constrain(t, CACHE_AXES) for n, t in (
+            ("k", stack_layers(new_k, one, x)),
+            ("v", stack_layers(new_v, one, x)), ("xk", xk), ("xv", xv))}
+        new_caches["len"] = torch.tensor(S, dtype=torch.int32, device=dev)
     elif mode == "decode":
         new_caches = dict(caches, len=(lens + 1).to(torch.int32))
     return logits, aux, new_caches
@@ -170,14 +207,14 @@ def _dec_layer(x, y, lp, positions, xk, xv, cfg: ModelConfig, mode: str,
     """One decoder layer: y (the branch before) is added by norm1's
     kernel.  Returns (x, the layer's branch, its new self-attention
     cache)."""
-    x, h = add_rmsnorm(x, y, lp["norm1"], cfg.norm_eps)
+    x, h = add_norm(x, y, lp["norm1"], cfg.norm_eps)
     h, nc = attention.attn_forward(lp["attn"], h, positions, cfg=cfg,
                                    mode=mode, cache=cache, use_rope=False)
-    x, h = add_rmsnorm(x, h, lp["norm_x"], cfg.norm_eps)
+    x, h = add_norm(x, h, lp["norm_x"], cfg.norm_eps)
     h, _ = attention.attn_forward(lp["xattn"], h, positions, cfg=cfg,
                                   mode=mode, kv_override=(xk, xv),
                                   use_rope=False)
-    x, h = add_rmsnorm(x, h, lp["norm2"], cfg.norm_eps)
+    x, h = add_norm(x, h, lp["norm2"], cfg.norm_eps)
     return x, mlp_forward(lp["mlp"], h), nc
 
 

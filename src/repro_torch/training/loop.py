@@ -278,12 +278,17 @@ def _split_batch(batch: Dict[str, Any], n: int) -> Dict[str, Any]:
 
 
 def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """A placed param's grad in its param's placements: DTensor's
-    backward may leave one pending (a bias added to rows sharded over
-    the batch ranks gets a partial sum over them), and the accumulation
+    """A placed param's grad in its param's placements, its local shard
+    contiguous: DTensor's backward may leave one pending (a bias added
+    to rows sharded over the batch ranks gets a partial sum over them)
+    or a transposed shard (whisper's tied head), and the accumulation
     reads local shards."""
-    if shd.is_placed(p) and tuple(g.placements) != tuple(p.placements):
-        return g.redistribute(p.device_mesh, p.placements)
+    if not shd.is_placed(p):
+        return g
+    if tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    if not g.to_local().is_contiguous():
+        g = shd.from_local(g.to_local().contiguous(), g)
     return g
 
 

@@ -909,6 +909,45 @@ def test_decode_q8_kernel_matches_plain(cuda, B, Smax, KV, G, D, lens,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,Smax,KV,G,D,lens,window",
+                         [c for c in Q8_CASES if c[1] % 4 == 0
+                          and c[1] <= 8192])
+@pytest.mark.parametrize("blocks", [1, 2, 4])
+def test_decode_q8_split_form_matches_plain(cuda, B, Smax, KV, G, D, lens,
+                                            window, blocks):
+    """The split form's four stage launches a block over `blocks`
+    position blocks (the exchanges reduced over them on one card): pq
+    within one step of the plain version's at few entries, the output
+    within Q8_TOL of the plain sums over its own pq, the same bits
+    twice; in one block, the one-launch kernel's bits (the same plan,
+    the same sums in the same order)."""
+    g = torch.Generator(device=cuda).manual_seed(Smax + 7 * G + D)
+    q, cache = q8_inputs(g, B, Smax, KV, G, D, "bfloat16", cuda)
+    lens = torch.tensor(lens, device=cuda)
+    n = Smax // blocks
+    parts = [({k: t[:, i * n:(i + 1) * n].contiguous()
+               for k, t in cache.items()}, i * n) for i in range(blocks)]
+    before = dict(q8_ops.stage_launches)
+    got, pq = q8_ops.decode_attention_q8_blocks(
+        q, parts, lens, window=window, smax=Smax, debug=True)
+    assert all(q8_ops.stage_launches[k] - before[k] == blocks
+               for k in q8_ops.STAGE_NAMES)
+    _, _, pq_want, ps = decode_attention_q8_ref(q, cache, lens,
+                                                window=window, debug=True)
+    apart = (pq.int() - pq_want.int()).abs()
+    assert int(apart.max()) <= 1
+    assert int((apart != 0).sum()) <= Q8_MAX_FLIPS * apart.numel()
+    redo = combine_pv(pq, ps, cache["v"]).reshape(got.shape)
+    err = (got.float() - redo).abs().max() / redo.abs().max()
+    assert float(err) <= Q8_TOL["bfloat16"], float(err)
+    assert torch.equal(q8_ops.decode_attention_q8_blocks(
+        q, parts, lens, window=window, smax=Smax), got)
+    if blocks == 1:
+        assert torch.equal(got, q8_ops.decode_attention_q8_cuda(
+            q, cache, lens, window=window))
+
+
+@pytest.mark.gpu
 def test_decode_q8_kernel_raises_on_shapes_it_does_not_take(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, cache = q8_inputs(g, 1, 64, 2, 2, 64, "float32", cuda)
