@@ -213,10 +213,10 @@ of JAX and nothing of the ``repro`` package.  In order:
 12. drives the dry-run and roofline layer (``dryrun_phase``, last):
    ``python -m repro_torch.launch.dryrun --all --mesh both`` over every
    (arch x shape x mesh) cell on meta tensors, in separate processes,
-   where no cell may fail (the dense, vlm, MoE, hybrid and audio cells
-   partitioned on fake worlds of 256 and 512 ranks, walked per device,
-   the MoE cells' a2a dispatch included; the wall printed beside the
-   whole-replica dry run's); then the cells of ``DRYRUN_CHECKS`` that
+   where no cell may fail and every cell is partitioned (on fake worlds
+   of 256 and 512 ranks, walked per device, the MoE cells' a2a dispatch
+   included, the xlstm train and prefill cells through the walk's
+   quadratic fit); then the cells of ``DRYRUN_CHECKS`` that
    fit one card, built at full width through ``launch.cells`` in a
    world of one rank over NCCL (phi3-mini-3.8b prefill [1, 4096] and
    decode at batch 16 over 4096 slots, on bf16 and on int8 caches,
@@ -224,9 +224,11 @@ of JAX and nothing of the ``repro`` package.  In order:
    full, olmoe-1b-7b decode at batch 16 over 4096 slots and train
    [2, 4096] at 7 of 16 layers, deepseek-moe-16b prefill [1, 4096],
    zamba2-7b prefill, decode and train at 33 of 81 blocks, whisper-tiny
-   train, prefill and decode); all partitioned, DTensors on the 1 x 1
-   mesh with the flash, RMSNorm, int8 decode, SSD and MoE dispatch
-   kernels on local shards, each after its whole run,
+   train, prefill and decode, xlstm-125m train [2, 320], prefill
+   [1, 1024] and decode at batch 16 over 4096 tokens); all partitioned,
+   DTensors on the 1 x 1 mesh with the flash, RMSNorm, int8 decode,
+   SSD and MoE dispatch kernels on local shards, each after its whole
+   run,
    whose outputs its own must equal bit for bit, else within a
    tolerance with the first differing output named): each step timed
    between CUDA events, walked under
@@ -3358,10 +3360,6 @@ FIG8_CONFIGS = [(1, 1), (2, 2), (2, 8), (4, 4), (2, 32), (8, 4), (8, 8),
                 (8, 32), (16, 16), (32, 32)]           # benchmarks/fig8_dse.py
 DRYRUN_TIMEOUT = 900    # seconds for the whole dry run (its processes)
 DRYRUN_RUNS = 3         # timed steps of a check cell
-# the dry run's wall on an H100 (8 processes) when every cell was
-# walked as whole replicas, before the dense, vlm and MoE cells were
-# partitioned
-DRYRUN_WHOLE_WALL_S = 57.0
 # the dry run's cells that fit one H100, at full width (and depth, but
 # where cut as the family's training is): name: (arch, kind, seq,
 # batch, microbatch of a train cell, layers or None for all, int8
@@ -3380,16 +3378,21 @@ DRYRUN_CHECKS = {
     "whisper_train": (WHISPER, "train", 4096, 2, 1, None, False),
     "whisper_prefill": (WHISPER, "prefill", 4096, 1, None, None, False),
     "whisper_decode": (WHISPER, "decode", 4096, 16, None, None, False),
+    # 320 tokens: five mLSTM chunks, past the walk's fit lengths, so the
+    # CUDA and meta walks both take the fit; the caches are O(1) in the
+    # decode's length
+    "xlstm_train": (XLSTM, "train", 320, 2, 1, None, False),
+    "xlstm_prefill": (XLSTM, "prefill", 1024, 1, None, None, False),
+    "xlstm_decode": (XLSTM, "decode", 4096, 16, None, None, False),
 }
 VS_WHOLE_TOL = 2e-2     # bf16: max |diff| / max |whole|, if not bit-equal
 
 
 def _dryrun_all(m) -> dict:
     """(a) ``python -m repro_torch.launch.dryrun --all --mesh both`` in
-    its own processes (every cell on meta, nothing on the card; the
-    dense, vlm, MoE, hybrid and audio cells partitioned on fake worlds
-    of 256 and 512 ranks) into a scratch folder under ``build/``; every
-    record read back."""
+    its own processes (every cell on meta, nothing on the card, every
+    cell partitioned on fake worlds of 256 and 512 ranks) into a
+    scratch folder under ``build/``; every record read back."""
     import os
     out_dir = ROOT / "build" / "chip_smoke_dryrun"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -3410,10 +3413,8 @@ def _dryrun_all(m) -> dict:
     errors = [r for r in recs if r["status"] == "error"]
     _check(not errors, f"dryrun errors: {[r.get('error') for r in errors]}")
     ok = [r for r in recs if r["status"] == "ok"]
-    part = m["cells_mod"].PARTITIONED
     wrong = [(r["arch"], r["shape"], r["mesh"]) for r in ok
-             if r["partitioned"] != (m["get_config"](r["arch"]).family
-                                     in part)
+             if not r["partitioned"]
              or not {"flops", "bytes", "wire_bytes", "wire_bytes_by_kind"}
              <= set(r["per_device"])]
     _check(not wrong, f"dryrun records of the wrong form: {wrong}")
@@ -3438,7 +3439,7 @@ def _dryrun_all(m) -> dict:
     return {"ok": len(ok), "skipped": len(skipped), "errors": len(errors),
             "partitioned": sum(r["partitioned"] for r in ok),
             "walk_s_total": sum(walks.values()), "wall_s": wall,
-            "whole_replica_wall_s": DRYRUN_WHOLE_WALL_S, "jobs": jobs,
+            "jobs": jobs,
             "cells": table}
 
 
@@ -3611,11 +3612,11 @@ def _check_cell(m, name: str, mesh, whole_out=None) -> tuple:
            f"{name}: FlopCounterMode {counter_flops} != op_cost's product "
            f"FLOPs {cuda_cost.product_flops}")
     if cell.partitioned:
-        used = ["rmsnorm", "add_rmsnorm", "flash_attention"] + (
-            ["flash_attention_bwd", "rmsnorm_bwd", "add_rmsnorm_bwd"]
-            if kind == "train" else [])
-        if kind == "decode":
-            used.remove("flash_attention")      # decode reads the cache
+        used = ["rmsnorm", "add_rmsnorm"] + (
+            ["rmsnorm_bwd", "add_rmsnorm_bwd"] if kind == "train" else [])
+        if cell.cfg.family != "xlstm":          # attention-free
+            used += (["flash_attention_bwd"] if kind == "train" else []) + (
+                ["flash_attention"] if kind != "decode" else [])
         if kv_quant:   # 1 x 1: the cache whole, one launch
             used.append("decode_attention_q8")
         if cell.cfg.family == "moe":
@@ -3639,9 +3640,9 @@ def dryrun_phase(m) -> dict:
     ``roofline/``):
 
     (a) every (arch x shape x mesh) cell of ``dryrun --all --mesh both``
-        (meta tensors, separate processes; the dense, vlm, MoE, hybrid
-        and audio cells partitioned on fake worlds of 256 and 512 ranks):
-        no cell may fail, and each record says its form;
+        (meta tensors, separate processes; every cell partitioned on
+        fake worlds of 256 and 512 ranks): no cell may fail, and every
+        record must be partitioned;
     (b) the cells of DRYRUN_CHECKS, which fit one H100, at full width
         (and depth, but olmoe's and zamba2's train cells at the 7 of 16
         layers and 33 of 81 blocks their family training runs), in a
@@ -3665,9 +3666,12 @@ def dryrun_phase(m) -> dict:
         train at HYBRID_TRAIN's 33) the SSD kernel (not in decode) and
         the split-row norm's kernels for the gated norm, and in train
         their backwards; phi3's int8 decode (kv_quant: at 1 x 1
-        the cache is whole, so the one-launch int8 kernel) and
+        the cache is whole, so the one-launch int8 kernel),
         whisper-tiny's train, prefill and decode (4 + 4 layers, 1500
-        frames).  Each check cell is a path: the kernel counts are
+        frames), and xlstm-125m's train (320 tokens, so that both walks
+        take the quadratic fit), prefill and decode at 12 of 12 layers,
+        their RMSNorm kernels (and in train their backwards) launched on
+        local shards.  Each check cell is a path: the kernel counts are
         zeroed before its warm-up and read after its timed steps."""
     torch = m["torch"]
     _free(torch)
@@ -3676,9 +3680,7 @@ def dryrun_phase(m) -> dict:
     print(f"[dryrun] ok {dr['ok']} cells ({dr['partitioned']} partitioned), "
           f"skipped {dr['skipped']}, errors {dr['errors']}; walks "
           f"{dr['walk_s_total']:.1f} s in total, {dr['wall_s']:.1f} s wall "
-          f"over {dr['jobs']} processes (all whole replicas: "
-          f"{DRYRUN_WHOLE_WALL_S} s)",
-          flush=True)
+          f"over {dr['jobs']} processes", flush=True)
     mesh_mod = m["mesh_mod"]
     _, started = mesh_mod.init_world("cuda")
     try:

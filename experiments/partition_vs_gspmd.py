@@ -1,13 +1,15 @@
-"""One reduced dense train cell's per-device cost: the port's partitioned
+"""One reduced train cell's per-device cost: the port's partitioned
 walk beside the JAX package's ``hlo_cost`` of the GSPMD-partitioned step.
 
     PYTHONPATH=src python experiments/partition_vs_gspmd.py
     ... --arch h2o-danube-1.8b --layers 2 --seq 256 --batch 8 --microbatch 4
+    ... --arch xlstm-125m --layers 2 --pattern ms
 
 The cell: the reduced config of `--arch` at `--layers` (its registry
-dtype, bf16), a train step of [batch, seq] in microbatches of
-`--microbatch`, remat full, on a (data 2, model 4) mesh by the train
-rules.  JAX: the cell as ``repro.launch.cells.build_train_cell`` builds
+dtype, bf16; for xlstm, its block pattern replaced by `--pattern`, as
+"ms" for an mLSTM and an sLSTM block), a train step of [batch, seq] in
+microbatches of `--microbatch`, remat full, on a (data 2, model 4) mesh
+by the train rules.  JAX: the cell as ``repro.launch.cells.build_train_cell`` builds
 it (state, shardings and step), lowered and compiled on 8 forced host
 devices (``XLA_FLAGS``, set here before JAX is imported) and read by
 ``roofline.hlo_cost.analyze_hlo``: one partition's FLOPs, bytes and
@@ -41,7 +43,16 @@ from jax.sharding import Mesh  # noqa: E402
 DATA, MODEL = 2, 4
 
 
-def jax_cost(arch: str, layers: int, seq: int, batch: int, mb: int) -> dict:
+def _over(layers: int, pattern) -> dict:
+    """The config fields replaced in both packages."""
+    over = {"num_layers": layers}
+    if pattern:
+        over["xlstm_pattern"] = tuple(pattern)
+    return over
+
+
+def jax_cost(arch: str, layers: int, seq: int, batch: int, mb: int,
+             pattern=None) -> dict:
     from repro.configs import TrainConfig, reduced_config
     from repro.configs.base import ShapeConfig
     from repro.distributed import sharding as shd
@@ -49,7 +60,7 @@ def jax_cost(arch: str, layers: int, seq: int, batch: int, mb: int) -> dict:
     from repro.models import api
     from repro.roofline.hlo_cost import analyze_hlo
     from repro.training import loop
-    cfg = reduced_config(arch).replace(num_layers=layers)
+    cfg = reduced_config(arch).replace(**_over(layers, pattern))
     shape = ShapeConfig("check", seq, batch, "train")
     mesh = Mesh(np.array(jax.devices()[:DATA * MODEL]).reshape(DATA, MODEL),
                 ("data", "model"))
@@ -75,12 +86,12 @@ def jax_cost(arch: str, layers: int, seq: int, batch: int, mb: int) -> dict:
             "collectives_by_kind": dict(cost.coll_op_counts)}
 
 
-def port_cost(arch: str, layers: int, seq: int, batch: int, mb: int
-              ) -> dict:
+def port_cost(arch: str, layers: int, seq: int, batch: int, mb: int,
+              pattern=None) -> dict:
     from repro_torch.configs import ShapeConfig, TrainConfig, reduced_config
     from repro_torch.launch import cells
     from repro_torch.launch.mesh import fake_world
-    cfg = reduced_config(arch).replace(num_layers=layers)
+    cfg = reduced_config(arch).replace(**_over(layers, pattern))
     shape = ShapeConfig("check", seq, batch, "train")
     with fake_world((DATA, MODEL), ("data", "model")) as mesh:
         cell = cells.build_train_cell(
@@ -102,11 +113,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--microbatch", type=int, default=4)
+    ap.add_argument("--pattern", default=None,
+                    help="xlstm block kinds, e.g. 'ms'")
     a = ap.parse_args(argv)
-    args = (a.arch, a.layers, a.seq, a.batch, a.microbatch)
+    args = (a.arch, a.layers, a.seq, a.batch, a.microbatch, a.pattern)
     port, gspmd = port_cost(*args), jax_cost(*args)
     print(json.dumps({
-        "cell": {"arch": a.arch, "layers": a.layers, "seq": a.seq,
+        "cell": {"arch": a.arch, "layers": a.layers, "pattern": a.pattern,
+                 "seq": a.seq,
                  "batch": a.batch, "microbatch": a.microbatch,
                  "mesh": {"data": DATA, "model": MODEL}, "remat": "full"},
         "port_per_device": port, "jax_hlo_cost_per_device": gspmd,

@@ -32,29 +32,30 @@ name still works), so a check cell can run at a shape that fits one
 card, and `cfg` in place of the arch's registered config (a reduced
 one, in the tests).
 
-Two forms (``Cell.partitioned``).  The families of PARTITIONED (dense,
-vlm, MoE, hybrid, audio) on a ``DeviceMesh`` (a real world's, or
-``mesh.fake_world``'s for the 256- and 512-device meshes) are
-partitioned as GSPMD partitions the JAX step: their arguments are
-placed (DTensors: the parameters, the optimizer state and the caches
-by the rules, an int8 decode cache's fp16 scales with its sequence,
-the batch by ("batch", ...) as ``training/loop.place_batch`` lays it
-out), the step runs the partitioned model code (an MoE train cell
-under ``seq_shard``, its layers through the a2a dispatch where it
-applies, else the global sort; a hybrid train cell under
-``act_shard``, its Mamba2 mixers on each rank's SSM heads; whisper's
-encoder and decoder on the dense family's placed attention and MLP),
-and ``walk`` counts one device's share of it with the collectives it
+Two forms (``Cell.partitioned``).  A cell on a ``DeviceMesh`` (a real
+world's, or ``mesh.fake_world``'s for the 256- and 512-device meshes)
+is partitioned as GSPMD partitions the JAX step, in every family: its
+arguments are placed (DTensors: the parameters, the optimizer state
+and the caches by the rules, an int8 decode cache's fp16 scales with
+its sequence, the batch by ("batch", ...) as
+``training/loop.place_batch`` lays it out), the step runs the
+partitioned model code (an MoE train cell under ``seq_shard``, its
+layers through the a2a dispatch where it applies, else the global
+sort; a hybrid train cell under ``act_shard``, its Mamba2 mixers on
+each rank's SSM heads; whisper's encoder and decoder on the dense
+family's placed attention and MLP; xlstm's mLSTM projections over
+``model`` and both recurrences on each rank's batch rows), and
+``walk`` counts one device's share of it with the collectives it
 issues (FSDP gathers, tensor-parallel reductions, the a2a's
 all-to-alls, the gated norms' and the int8 decode's row statistics),
-so ``collectives`` adds none.  The xlstm family, and any cell on a
-``MeshShape``, run eagerly on tensors each rank holds whole: the
-rules place the state for the count of bytes a device only, ``walk``
-counts the whole step and ``collectives`` adds the all-reduce of the
-gradients.
+so ``collectives`` adds none.  A cell on a ``MeshShape`` runs eagerly
+on tensors each rank holds whole: the rules place the state for the
+count of bytes a device only, ``walk`` counts the whole step and
+``collectives`` adds the all-reduce of the gradients.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Tuple, Union
@@ -80,14 +81,12 @@ ShapeLike = Union[str, ShapeConfig]
 # chunks of 64 each, so every length takes the same ops
 SEQ_FIT = ("xlstm",)
 FIT_LENGTHS = (128, 192, 256)
-# families whose step is partitioned on a DeviceMesh (DTensors)
-PARTITIONED = ("dense", "vlm", "moe", "hybrid", "audio")
 
 
-def partitioned(cfg: ModelConfig, mesh) -> bool:
-    """True when `cfg`'s cell on `mesh` runs the partitioned step: a
-    family of PARTITIONED on a ``DeviceMesh``."""
-    return cfg.family in PARTITIONED and isinstance(mesh, DeviceMesh)
+def partitioned(mesh) -> bool:
+    """True when a cell on `mesh` runs the partitioned step: on a
+    ``DeviceMesh``."""
+    return isinstance(mesh, DeviceMesh)
 
 
 def _struct(x: Any) -> Any:
@@ -173,30 +172,31 @@ class Cell:
         mesh: the whole (global) step, the same on every mesh.
 
         A family in ``SEQ_FIT`` runs a train or prefill step at three
-        short lengths (``FIT_LENGTHS``) and the cost is the quadratic
-        through them, taken at the cell's length: its sLSTM's loop over
-        tokens would otherwise dispatch millions of ops.  The fit is
-        exact: every op's count is a polynomial of degree two or less in
-        the length (a loop over tokens or chunks of ops whose sizes grow
-        with it at most linearly: the backward of ``x[:, t]`` writes a
-        zero-filled gradient of all of x for each t), so the prefill's is
-        linear and the train step's quadratic
-        (``tests/test_torch_cells.py`` holds the fit to a fourth walk).
-        The outputs are the last walk's (their shapes do not depend on
-        the length)."""
-        if self.partitioned:
-            with shd.axis_rules(self.mesh, self.rules):
+        short lengths (``FIT_LENGTHS``; a placed batch sliced on its
+        sequence dim) and the cost is the quadratic through them, taken
+        at the cell's length: its sLSTM's loop over tokens would
+        otherwise dispatch millions of ops.  The fit is exact: every
+        op's count is a polynomial of degree two or less in the length
+        (a loop over tokens or chunks of ops whose sizes grow with it at
+        most linearly: the backward of ``x[:, t]`` writes a zero-filled
+        gradient of all of x for each t), so the prefill's is linear and
+        the train step's quadratic; a partitioned cell's collectives are
+        outside the loops, so their counts are constant and their bytes
+        linear (``tests/test_torch_cells.py`` holds the fit to a fourth
+        walk).  The outputs are the last walk's (their shapes do not
+        depend on the length)."""
+        with (shd.axis_rules(self.mesh, self.rules) if self.partitioned
+              else contextlib.nullcontext()):
+            S = self.shape.seq_len
+            if (self.cfg.family not in SEQ_FIT
+                    or self.shape.kind == "decode" or S <= FIT_LENGTHS[-1]):
                 return op_cost.walk(self.fn, *self.args, sample_loops=True)
-        S = self.shape.seq_len
-        if (self.cfg.family not in SEQ_FIT or self.shape.kind == "decode"
-                or S <= FIT_LENGTHS[-1]):
-            return op_cost.walk(self.fn, *self.args, sample_loops=True)
-        costs = []
-        for s in FIT_LENGTHS:
-            args = list(self.args)
-            args[-1] = {k: v[:, :s] for k, v in args[-1].items()}
-            cost, out = op_cost.walk(self.fn, *args, sample_loops=True)
-            costs.append(cost)
+            costs = []
+            for s in FIT_LENGTHS:
+                args = list(self.args)
+                args[-1] = {k: v[:, :s] for k, v in args[-1].items()}
+                cost, out = op_cost.walk(self.fn, *args, sample_loops=True)
+                costs.append(cost)
         weights = [math.prod((S - sj) / (si - sj) for sj in FIT_LENGTHS
                              if sj != si) for si in FIT_LENGTHS]
         return op_cost.combine(costs, weights), out
@@ -338,7 +338,7 @@ def build_train_cell(arch: str, shape: ShapeLike, mesh,
 
     state = train_loop.init_train_state(cfg, tc, device=dev)
     batch = _batch(cfg, shape, dev)
-    part = partitioned(cfg, mesh)
+    part = partitioned(mesh)
     if part:
         state = train_loop.place_state(state, mesh, rules)
         batch = train_loop.place_batch(batch, mesh, rules, tc.microbatch)
@@ -379,7 +379,7 @@ def build_prefill_cell(arch: str, shape: ShapeLike, mesh,
 
     params = api.build_params(cfg, device=dev)
     batch = _batch(cfg, shape, dev)
-    part = partitioned(cfg, mesh)
+    part = partitioned(mesh)
     if part:
         params.place(mesh, rules)
         batch = train_loop.place_batch(batch, mesh, rules)
@@ -426,7 +426,7 @@ def build_decode_cell(arch: str, shape: ShapeLike, mesh,
                              kv_quant=kv_quant)
     tokens = _batch(cfg, shape, dev)["tokens"]
     cache_axes = api.cache_logical_axes(cfg, shape, kv_quant=kv_quant)
-    part = partitioned(cfg, mesh)
+    part = partitioned(mesh)
     if part:
         params.place(mesh, rules)
         caches = shd.place(caches, cache_axes, mesh, rules)

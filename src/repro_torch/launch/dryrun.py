@@ -16,22 +16,16 @@ no compiler here, so ``--keep-hlo`` has no counterpart and ``walk_s``
 stands where ``lower_s`` / ``compile_s`` stood.  ``--jobs`` walks cells
 in that many processes.
 
-Two forms, each record's ``partitioned``:
-
-* the dense, vlm, MoE, hybrid and audio families are partitioned: the
-  job builds a fake world of the production mesh's size
-  (``mesh.fake_world``: 16 x 16, or 2 x 16 x 16 with ``--mesh multi``)
-  in its own process, places the cell on it and walks one device's
-  share of the step under ``roofline.op_cost``, with the FSDP gathers,
-  the tensor-parallel reductions, the context-parallel decode softmax,
-  the MoE a2a dispatch's all-to-alls and the hybrid gated norms'
-  all-reduces of row statistics the step issues (``per_device``:
-  FLOPs, bytes and wire bytes by collective kind);
-* the xlstm family runs whole replicas: the state is placed on the
-  mesh's axes (``mesh.production_mesh_shape``) for its bytes only, the
-  whole step is walked once for both meshes, its terms are divided by
-  the chips, and the collective term is the port's own all-reduce of
-  each gradient leaf and of the loss metrics over the batch axes.
+Every cell is partitioned (each record's ``partitioned``): the job
+builds a fake world of the production mesh's size (``mesh.fake_world``:
+16 x 16, or 2 x 16 x 16 with ``--mesh multi``) in its own process,
+places the cell on it and walks one device's share of the step under
+``roofline.op_cost``, with the FSDP gathers, the tensor-parallel
+reductions, the context-parallel decode softmax, the MoE a2a
+dispatch's all-to-alls and the hybrid gated norms' all-reduces of row
+statistics the step issues (``per_device``: FLOPs, bytes and wire
+bytes by collective kind).  The xlstm train and prefill cells are
+walked at three short lengths and fitted (``cells.Cell.walk``).
 
 Temporaries are not counted (no compiler reports them), so
 ``per_device_bytes`` is a lower bound (each record's ``notes``).
@@ -66,15 +60,10 @@ NOTES_PARTITIONED = (
     "mesh's size (DTensor: FSDP over the batch axes, tensor parallelism "
     "over model, context-parallel decode, expert parallelism over model "
     "through the a2a dispatch, Mamba2 heads over model; whisper on the "
-    "dense attention and MLP), with the "
+    "dense attention and MLP; xlstm's mLSTM inner channels over model, "
+    "its recurrences on each rank's batch rows), with the "
     "collectives it issues; DTensor "
     "and GSPMD may pick other collectives",)
-NOTES_WHOLE = (
-    "whole replicas: the collective term counts the port's own step, one "
-    "all-reduce of each gradient leaf and of the loss metrics over the "
-    "batch axes in a train cell, none in a serve cell",
-    "compute and memory terms divide the whole step's count by the chips "
-    "(an ideal partition)")
 
 
 def _tag(arch: str, shape_name: str, mesh_kind: str) -> str:
@@ -84,21 +73,18 @@ def _tag(arch: str, shape_name: str, mesh_kind: str) -> str:
 def run_target(arch: str, shape_name: str, mesh_kinds=MESHES,
                out_dir: Optional[str] = None) -> List[dict]:
     """The records of one (arch, shape) on each mesh of `mesh_kinds`,
-    from one walk; written under `out_dir` when given."""
+    each from its own walk; written under `out_dir` when given."""
     cfg = get_config(arch)
     shape = [s for s in applicable_shapes(cfg) if s.name == shape_name]
     if not shape:
         return [{"arch": arch, "shape": shape_name, "mesh": m,
                  "status": "skipped (inapplicable)"} for m in mesh_kinds]
     shape = shape[0]
-    recs, walked = [], None
+    recs = []
     for mesh_kind in mesh_kinds:
         ms = production_mesh_shape(multi_pod=mesh_kind == "multi")
-        if cfg.family in cells_mod.PARTITIONED:
-            with fake_world(ms.shape, ms.mesh_dim_names) as mesh:
-                rec, _ = _record(arch, cfg, shape, mesh, None)
-        else:          # the whole step's walk serves both meshes
-            rec, walked = _record(arch, cfg, shape, ms, walked)
+        with fake_world(ms.shape, ms.mesh_dim_names) as mesh:
+            rec = _record(arch, cfg, shape, mesh)
         rec["mesh"] = mesh_kind
         recs.append(rec)
         if out_dir:
@@ -106,18 +92,14 @@ def run_target(arch: str, shape_name: str, mesh_kinds=MESHES,
     return recs
 
 
-def _record(arch, cfg, shape, mesh, walked) -> Tuple[dict, tuple]:
-    """(one cell's record on `mesh`, its walk: (cost, outputs, seconds)),
-    the walk made now unless `walked`, the whole step's walk on another
-    mesh, is given."""
+def _record(arch, cfg, shape, mesh) -> dict:
+    """One cell's record on `mesh`, from one walk."""
     n_chips = mesh_chips(mesh)
     cell = cells_mod.build_cell(arch, shape, mesh)
-    if walked is None:
-        t0 = time.time()
-        walked = cell.walk()
-        walked += (time.time() - t0,)
-    walk_s = walked[2]
-    cost = cell.cost(walked[:2])
+    t0 = time.time()
+    walked = cell.walk()
+    walk_s = time.time() - t0
+    cost = cell.cost(walked)
     per_dev = cell.state_bytes_per_device(walked[1])
     roof = analysis.analyze(cost, n_chips=n_chips,
                             model_flops=api.model_flops(cfg, shape),
@@ -152,10 +134,9 @@ def _record(arch, cfg, shape, mesh, walked) -> Tuple[dict, tuple]:
             "op_bytes": roof.op_bytes, "op_counts": roof.op_counts,
             "per_device": roof.per_device,
         },
-        "notes": list(NOTES) + list(
-            NOTES_PARTITIONED if cell.partitioned else NOTES_WHOLE),
+        "notes": list(NOTES) + list(NOTES_PARTITIONED),
     }
-    return rec, walked
+    return rec
 
 
 def _write(out_dir: str, tag: str, rec: dict) -> None:
@@ -214,9 +195,8 @@ def main(argv=None) -> int:
             ap.error("--arch and --shape, or --all")
         targets = [(args.arch, args.shape)]
 
-    jobs = []
+    jobs = []           # one a cell: each mesh's walk is its own
     for arch, shape_name in targets:
-        kinds = []
         for mesh_kind in meshes:
             path = os.path.join(args.out,
                                 _tag(arch, shape_name, mesh_kind) + ".json")
@@ -226,9 +206,7 @@ def main(argv=None) -> int:
                         print(f"[skip] {_tag(arch, shape_name, mesh_kind)}",
                               flush=True)
                         continue
-            kinds.append(mesh_kind)
-        if kinds:
-            jobs.append((arch, shape_name, tuple(kinds), args.out))
+            jobs.append((arch, shape_name, (mesh_kind,), args.out))
 
     failures = 0
     summary: Dict[str, int] = {}

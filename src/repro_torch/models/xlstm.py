@@ -14,6 +14,16 @@ Cache layout (per layer):
   mLSTM: {"C": [B,H,P,P], "n": [B,H,P], "m": [B,H], "conv": [B,W-1,di]}
   sLSTM: {"c": [B,H,Dh], "n": [B,H,Dh], "m": [B,H,Dh], "h": [B,H,Dh]}
 'prefill' and 'decode' return new caches; the inputs are not written.
+
+Placed x and weights (DTensors, a partitioned step) run the same cells
+through ``_Placed``'s placement steps, as GSPMD partitions the JAX
+cells by the rules.  The mLSTM's projections, conv, gate and ``w_out``
+are split over ``model`` (``ssm_inner``), but its recurrence runs all
+heads on every ``model`` rank (a rank's inner channels cut a head:
+xlstm-125m's 384-wide heads on 96 channels a rank), on the rank's
+batch rows as local tensors; the sLSTM's pre-activations are whole
+over ``model`` and its loop over tokens runs on local tensors too.  So
+no collective, and no DTensor dispatch, sits inside either loop.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import params as P
 from repro_torch.models.common import rmsnorm
 from repro_torch.models.ssm import causal_conv
@@ -100,6 +111,39 @@ def _mlstm_cell(carry, q, k, v, i_pre, f_pre):
     return (C_new, n_new, m_new), num / den[..., None]
 
 
+class _CumMax(torch.autograd.Function):
+    """``torch.cummax(x, dim=1)``'s values, with a deterministic
+    backward.  torch's scatter-adds each output's gradient into the
+    position of its max with atomics, whose order varies between runs on
+    CUDA.  The positions sharing a max are a run [j, next run's start),
+    so here the gradient at a run's start j is the difference of two
+    entries of an fp64 running sum of the gradient, and zero elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x):
+        values, idx = torch.cummax(x, dim=1)
+        ctx.save_for_backward(idx)
+        return values
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        S = idx.shape[1]
+        pos = torch.arange(S, device=idx.device).view(
+            (1, S) + (1,) * (idx.dim() - 2))
+        first = idx == pos                      # a run starts here
+        start = torch.where(first, pos, S)
+        # the next run's start after each position (S after the last)
+        after = torch.cat([start[:, 1:], torch.full_like(start[:, :1], S)],
+                          dim=1)
+        nxt = torch.flip(torch.cummin(torch.flip(after, [1]), dim=1).values,
+                         [1])
+        run = torch.cumsum(g.double(), dim=1)
+        run = torch.cat([torch.zeros_like(run[:, :1]), run], dim=1)
+        sums = torch.gather(run, 1, nxt) - run[:, :S]  # g summed over a run
+        return torch.where(first, sums, torch.zeros_like(sums)).to(g.dtype)
+
+
 def _mlstm_chunked(q, k, v, i_pre, f_pre, carry0):
     """Chunkwise-parallel mLSTM, equal to the sequential cell: q, k, v
     [B,S,H,P], i_pre, f_pre [B,S,H] fp32.  The chunk length is the
@@ -114,7 +158,7 @@ def _mlstm_chunked(q, k, v, i_pre, f_pre, carry0):
 
     logf = F.logsigmoid(f_pre)                          # [B,S,H]
     a_cum = torch.cumsum(logf, dim=1)
-    b_cum = a_cum + torch.cummax(i_pre - a_cum, dim=1).values
+    b_cum = a_cum + _CumMax.apply(i_pre - a_cum)
     m = torch.maximum(b_cum, m0[:, None, :] + a_cum)    # [B,S,H]
 
     def ch(t):
@@ -168,28 +212,37 @@ def mlstm_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                   cfg: ModelConfig, *, mode: str,
                   cache: Optional[Dict[str, torch.Tensor]] = None):
     """x [B,S,d] -> (out [B,S,d], new cache or None).  A prompt (S > 1)
-    takes the chunked form, a decode step the sequential cell."""
-    B, S, _ = x.shape
+    takes the chunked form, a decode step the sequential cell.  Placed x
+    runs the same body through ``_Placed`` (module docstring): q, k, v
+    and the gates are the partial sums of the rank's inner channels,
+    reduced whole; the recurrence runs on the rank's rows, all heads;
+    the norm on whole rows, then the gate and ``w_out`` on the rank's
+    channels, whose product is left a partial sum over ``model``."""
+    pl = _Placed() if shd.is_placed(x) else _Whole()
+    S = x.shape[1]
     di, H, Pd = mlstm_dims(cfg)
-    xi = x @ p["w_x"]
-    z = x @ p["w_z"]
+    xi = pl.mm(x, p["w_x"])
+    z = pl.mm(x, p["w_z"])
     cs = cache or {}
-    xc, conv_state = causal_conv(xi, p["conv"], cs.get("conv"))
+    xcl, conv_state = causal_conv(pl.local(xi), pl.used(p["conv"], xi),
+                                  pl.local(cs.get("conv")))
+    xc = pl.back(xcl, xi)
+    qw = pl.whole(xc @ p["wq"])          # [B,S,di], whole over model
+    Bl = pl.local(qw).shape[0]           # the rank's rows
 
     def heads(t):
-        return t.reshape(B, S, H, Pd).float()
-    q = heads(xc @ p["wq"])
-    k = heads(xc @ p["wk"]) / (Pd ** 0.5)
-    v = heads(xi @ p["wv"])
-    i_pre = xc.float() @ p["w_i"] + p["b_i"]            # [B,S,H]
-    f_pre = xc.float() @ p["w_f"] + p["b_f"]
+        return pl.local(t).reshape(Bl, S, H, Pd).float()
+    q = heads(qw)
+    k = heads(pl.whole(xc @ p["wk"])) / (Pd ** 0.5)
+    v = heads(pl.whole(xi @ p["wv"]))
+    i_pre = pl.local(pl.whole(xc.float() @ p["w_i"]) + p["b_i"])  # [B,S,H]
+    f_pre = pl.local(pl.whole(xc.float() @ p["w_f"]) + p["b_f"])
 
     if "C" in cs:
-        carry = (cs["C"], cs["n"], cs["m"])
+        carry = tuple(pl.local(cs[n]) for n in ("C", "n", "m"))
     else:
-        carry = (x.new_zeros((B, H, Pd, Pd), dtype=torch.float32),
-                 x.new_zeros((B, H, Pd), dtype=torch.float32),
-                 x.new_zeros((B, H), dtype=torch.float32))
+        carry = (q.new_zeros((Bl, H, Pd, Pd)), q.new_zeros((Bl, H, Pd)),
+                 q.new_zeros((Bl, H)))
 
     if S > 1:
         h4, carry = _mlstm_chunked(q, k, v, i_pre, f_pre, carry)
@@ -200,15 +253,16 @@ def mlstm_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                                     i_pre[:, t], f_pre[:, t])
             hs.append(ht)
         h4 = torch.stack(hs, dim=1)
-    h = h4.reshape(B, S, di).to(x.dtype)
-    h = rmsnorm(h, p["norm"], cfg.norm_eps)
+    h = pl.back(h4.reshape(Bl, S, di).to(x.dtype), qw)
+    h = pl.channels(rmsnorm(h, p["norm"], cfg.norm_eps), z)
     h = h * F.silu(z.float()).to(x.dtype)
-    out = h @ p["w_out"]
+    out = pl.mm(h, p["w_out"])
 
     new_cache = None
     if mode in ("decode", "prefill"):
-        C, n, m = carry
-        new_cache = {"C": C, "n": n, "m": m, "conv": conv_state}
+        C, n, m = (pl.back(t, qw) for t in carry)
+        new_cache = {"C": C, "n": n, "m": m,
+                     "conv": pl.back(conv_state, xi)}
     return out, new_cache
 
 
@@ -232,25 +286,30 @@ def slstm_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                   cache: Optional[Dict[str, torch.Tensor]] = None):
     """x [B,S,d] -> (out [B,S,d], new cache or None): the sequential
     scan, one step per token (each step's recurrence reads the last
-    step's h)."""
-    B, S, d = x.shape
+    step's h).  Placed x: the pre-activations whole over ``model``, the
+    scan on the rank's rows as local tensors, the norm on whole rows,
+    and ``w_out``'s product with its output over ``model``."""
+    pl = _Placed() if shd.is_placed(x) else _Whole()
+    S, d = x.shape[1:]
     H = cfg.num_heads
     Dh = d // H
+    Bl = pl.local(x).shape[0]            # the rank's rows
 
     def pre(g):
-        y = (x @ p[f"w_{g}"]).float() + p[f"b_{g}"]
-        return y.reshape(B, S, H, Dh)
+        y = pl.local(pl.mm(x, p[f"w_{g}"]).float() + p[f"b_{g}"])
+        return y.reshape(Bl, S, H, Dh)
     xi, xf, xz, xo = (pre(g) for g in ("i", "f", "z", "o"))
+    r = {g: pl.used(p[f"r_{g}"], x) for g in ("i", "f", "z", "o")}
 
     cs = cache or {}
     if "c" in cs:
-        c, n, m, h = cs["c"], cs["n"], cs["m"], cs["h"]
+        c, n, m, h = (pl.local(cs[k]) for k in ("c", "n", "m", "h"))
     else:
-        zero = x.new_zeros((B, H, Dh), dtype=torch.float32)
+        zero = xi.new_zeros((Bl, H, Dh))
         c, n, m, h = zero, zero, zero - 1e30, zero
 
     def rec(g, hprev):
-        return torch.einsum("bhd,hde->bhe", hprev, p[f"r_{g}"])
+        return torch.einsum("bhd,hde->bhe", hprev, r[g])
     hs = []
     for t in range(S):
         it = xi[:, t] + rec("i", h)
@@ -266,13 +325,14 @@ def slstm_forward(p: Mapping[str, torch.Tensor], x: torch.Tensor,
         m = m_new
         h = ot * c / torch.clamp(n, min=1.0)
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    y = rmsnorm(y, p["norm"], cfg.norm_eps)
-    out = y @ p["w_out"]
+    y = torch.stack(hs, dim=1).reshape(Bl, S, d).to(x.dtype)
+    y = rmsnorm(pl.back(y, x), p["norm"], cfg.norm_eps)
+    out = pl.mm(y, p["w_out"])
 
     new_cache = None
     if mode in ("decode", "prefill"):
-        new_cache = {"c": c, "n": n, "m": m, "h": h}
+        new_cache = {k: pl.back(t, x) for k, t in
+                     (("c", c), ("n", n), ("m", m), ("h", h))}
     return out, new_cache
 
 
@@ -283,3 +343,65 @@ def init_slstm_cache(cfg: ModelConfig, batch: int,
                        device=device)
     return {"c": zero, "n": zero.clone(), "m": zero - 1e30,
             "h": zero.clone()}
+
+
+# ---------------------------------------------------------------------------
+# the cells' placement steps: whole tensors, or DTensors partitioned
+# ---------------------------------------------------------------------------
+
+class _Whole:
+    """The placement steps of the whole-replica cells: identities."""
+
+    def mm(self, x, w):
+        return x @ w
+
+    def whole(self, t):
+        return t
+
+    def used(self, w, x):
+        return w
+
+    def local(self, t):
+        return t
+
+    def back(self, t, like):
+        return t
+
+    def channels(self, y, like):
+        return y
+
+
+class _Placed(_Whole):
+    """The placement steps of the partitioned cells, as GSPMD partitions
+    the JAX cells by the rules: placed x [B, S, d] (rows over the batch
+    axes, d whole) and placed weights; the products from d through
+    ``gather_fsdp``; a product over the mLSTM's inner channels (over
+    ``model``) a partial sum that ``whole`` reduces.  The recurrences
+    run on ``local`` shards (the rank's rows, whole over ``model``),
+    and ``back`` places a local result like a DTensor of the same rows.
+    A leaf used whole on the local rows takes a gradient partial over
+    the ranks of the other rows (``sharding.partial_grads``)."""
+
+    def mm(self, x, w):
+        return x @ shd.gather_fsdp(w)
+
+    def whole(self, t):
+        """A pending partial sum reduced, the last dim whole."""
+        return shd.replicate_dim(t, -1)
+
+    def used(self, w, x):
+        """Placed `w`'s local shard, used whole on placed `x`'s local
+        rows: its gradient a partial sum over the mesh dims that shard
+        x and not w."""
+        return w.to_local(grad_placements=shd.partial_grads(w, x))
+
+    def local(self, t):
+        return None if t is None else t.to_local()
+
+    def back(self, t, like):
+        return shd.from_local(t, like)
+
+    def channels(self, y, like):
+        """Whole rows y cut to `like`'s channels (a local split; its
+        backward gathers the gradient whole)."""
+        return y.redistribute(like.device_mesh, like.placements)

@@ -10,6 +10,17 @@ next norm's kernel.  'train' runs with autograd (the cells' backward is
 PyTorch's autograd of their plain code, as the JAX package's is JAX's
 of its ``lax.scan``s) and, as ``repro.models.xlstm_lm`` does,
 recomputes each block in the backward under remat 'full' only.
+
+A placed model (DTensors, ``ParamTree.place``) runs the partitioned
+step under ``sharding.axis_rules``, with the JAX package's constraints:
+the embedding's vocab-parallel partial sum reduced onto the residual's
+layout (("batch", None, "act_embed")), each block's branch reduced (an
+mLSTM's partial sum over ``model``) or gathered (an sLSTM's output
+over ``model``) onto it at the next norm (``transformer.add_norm``),
+the tied head's logits vocab-sharded (("batch", None, "vocab")); the
+cells run partitioned (``xlstm``'s module docstring) and return their
+caches placed by the cache rules.  The inputs are placed by ("batch",
+...) when they come plain.
 """
 from __future__ import annotations
 
@@ -18,10 +29,12 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import params as P
 from repro_torch.models import xlstm
-from repro_torch.models.common import add_rmsnorm, embed_lookup, padded_vocab
-from repro_torch.models.transformer import REMAT, remat_call
+from repro_torch.models.common import embed_lookup, padded_vocab
+from repro_torch.models.transformer import (REMAT, _placed_inputs, add_norm,
+                                            remat_call)
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -68,8 +81,11 @@ def xlstm_lm_forward(params: XlstmLM, batch: Dict[str, Any],
         raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
     if mode == "decode" and caches is None:
         raise ValueError("mode 'decode' needs caches")
+    if shd.is_placed(params.embed):
+        batch = _placed_inputs(batch, None)
     tokens = batch["tokens"].to(params.device).long()
-    x = embed_lookup(params.embed, tokens)
+    x = shd.constrain(embed_lookup(params.embed, tokens),
+                      ("batch", None, "act_embed"))
     new_caches: Dict[str, Any] = {}
     y = None
     for i, kind in enumerate(layer_kinds(cfg)):
@@ -82,12 +98,13 @@ def xlstm_lm_forward(params: XlstmLM, batch: Dict[str, Any],
                               "full" if remat == "full" else "none",
                               x, y, lp, fwd, cfg)
             continue
-        x, h = add_rmsnorm(x, y, lp.norm, cfg.norm_eps)
+        x, h = add_norm(x, y, lp.norm, cfg.norm_eps)
         y, new_caches[name] = fwd(
             lp.cell, h, cfg, mode=mode,
             cache=None if caches is None else caches.get(name))
-    _, x = add_rmsnorm(x, y, params.final_norm, cfg.norm_eps)
-    logits = x @ params.embed.T                 # tied head
+    _, x = add_norm(x, y, params.final_norm, cfg.norm_eps)
+    logits = shd.constrain(x @ shd.gather_fsdp(params.embed).T,  # tied head
+                           ("batch", None, "vocab"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, (new_caches or None)
 
@@ -95,7 +112,7 @@ def xlstm_lm_forward(params: XlstmLM, batch: Dict[str, Any],
 def _train_block(x, y, lp, fwd, cfg: ModelConfig):
     """One block in mode 'train': y (the branch before) is added by the
     norm's kernel.  Returns (x, the block's branch)."""
-    x, h = add_rmsnorm(x, y, lp.norm, cfg.norm_eps)
+    x, h = add_norm(x, y, lp.norm, cfg.norm_eps)
     return x, fwd(lp.cell, h, cfg, mode="train")[0]
 
 

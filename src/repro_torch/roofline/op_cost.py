@@ -25,8 +25,10 @@ Counting, as ``hlo_cost``'s docstring states it:
 * an elementwise or reduce op is numel (of its largest operand or
   result);
 * bytes are the operand plus result bytes of every op that is not a view
-  or plumbing.  A tensor counts the elements its strides reach (a
-  broadcast operand its own size, not the broadcast's).  A gather reads
+  or plumbing (``log_sigmoid``'s scratch buffer, which only the CPU and
+  meta kernels fill, left out).  A tensor counts the elements its
+  strides reach (a broadcast operand its own size, not the
+  broadcast's).  A gather reads
   only what it produces (2 x result bytes, plus the index), a scatter
   only its update (2 x update bytes, plus the index), as ``hlo_cost``
   charges them.  Unlike XLA's copies, which fusion mostly removes and
@@ -112,6 +114,11 @@ MOVES = {"cat", "stack", "sort", "argsort", "topk", "clone", "copy_",
          "full", "zeros_like", "ones_like", "full_like", "new_zeros",
          "new_ones", "new_full", "tril_indices", "triu_indices",
          "embedding_dense_backward", "_embedding_bag"}
+# op -> (position in its results, in its arguments) of a scratch buffer
+# that its CPU and meta kernels fill and its CUDA kernel leaves empty:
+# not counted, so that every device counts alike
+SCRATCH = {"log_sigmoid_forward": (1, None),
+           "log_sigmoid_backward": (None, 2)}
 # c10d op -> (collective, where its operand / result tensors are)
 COLLECTIVES = {
     "allreduce_": ("all-reduce", 0, 0),
@@ -283,6 +290,12 @@ class OpCost(TorchDispatchMode):
         if func.is_view or name in PLUMBING:
             return
         c.op_counts[name] = c.op_counts.get(name, 0.0) + m
+        if name in SCRATCH:
+            res, arg = SCRATCH[name]
+            if res is not None:
+                out = out[:res] + out[res + 1:]
+            if arg is not None:
+                args = args[:arg] + args[arg + 1:]
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
         if name in PRODUCTS or name in OTHER_PRODUCTS:

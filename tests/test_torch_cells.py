@@ -17,6 +17,7 @@
   over the sequence length is exact.
 - ``python -m repro_torch.launch.dryrun`` writes an ``ok`` record.
 """
+import contextlib
 import json
 import math
 import os
@@ -248,25 +249,46 @@ def test_train_cell_counts_one_microbatch_scaled():
         (whole.flops, whole.bytes, whole.op_counts)
 
 
+@pytest.mark.parametrize("placed", [False, True],
+                         ids=["whole", "fake_world"])
 @pytest.mark.parametrize("kind", ["train", "prefill"])
-def test_xlstm_walk_fit_is_exact(kind):
+def test_xlstm_walk_fit_is_exact(kind, placed):
     """The xlstm cells' cost is a quadratic in the sequence length: the
     fit through the walks at 128, 192 and 256 tokens, taken at 320,
-    equals the walk at 320 (each FLOP, byte and op)."""
+    equals the walk at 320 (each FLOP, byte and op), for the whole step
+    (a ``MeshShape``, on the CPU) and the partitioned one (on meta under
+    ``fake_world((2, 4))``, the placed batch sliced on its sequence dim),
+    whose collectives' counts and bytes by kind the fit holds too."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.roofline import op_cost
     cfg = reduced_config("xlstm-125m").replace(
         xlstm_pattern=("m", "s"), num_layers=2)
-    mesh = production_mesh_shape()
-    c = cells.build_cell("xlstm-125m", ShapeConfig("check", 320, 2, kind),
-                         mesh, cfg=cfg, device="cpu")
-    fit = c.walk()[0]
-    whole = op_cost.walk(c.fn, *c.args, sample_loops=True)[0]
+    shape = ShapeConfig("check", 320, 2, kind)
+    if placed:
+        world = mesh_mod.fake_world((2, 4), ("data", "model"),
+                                    device_type="cpu")
+    else:
+        world = contextlib.nullcontext(production_mesh_shape())
+    with world as mesh:
+        c = cells.build_cell("xlstm-125m", shape, mesh, cfg=cfg,
+                             device="meta" if placed else "cpu")
+        assert c.partitioned is placed
+        fit = c.walk()[0]
+        with (shd.axis_rules(mesh, c.rules) if placed
+              else contextlib.nullcontext()):
+            whole = op_cost.walk(c.fn, *c.args, sample_loops=True)[0]
     for f in ("flops", "bytes", "product_flops"):
         assert getattr(fit, f) == pytest.approx(getattr(whole, f),
                                                 rel=1e-12), f
     assert fit.op_counts == pytest.approx(whole.op_counts, rel=1e-12)
     for name, d in whole.declared.items():
         assert fit.declared[name] == pytest.approx(d, rel=1e-12), name
+    assert fit.coll_op_counts == pytest.approx(whole.coll_op_counts,
+                                               rel=1e-12)
+    assert fit.coll_op_bytes == pytest.approx(whole.coll_op_bytes,
+                                              rel=1e-12)
+    assert bool(whole.coll_op_counts) is placed
 
 
 def test_state_bytes_per_device_counts_outputs_not_donated():

@@ -604,17 +604,22 @@ def test_constrain_and_place_outside_a_mesh_are_identities():
     assert shd.replicate_dim(x, -1) is x
 
 
-def test_other_families_keep_whole_replicas_in_the_dry_run(tmp_path):
-    """A family this slice does not partition keeps today's record: the
-    whole step, divided by the chips, ``partitioned`` false."""
+def test_xlstm_dry_run_records_are_partitioned(tmp_path):
+    """The last family to be partitioned: xlstm's decode_32k record is
+    one device's share of the placed step on the 256-rank fake world,
+    not the whole step divided by the chips, with the FSDP gathers and
+    the mLSTM's reductions over ``model`` it issues."""
     from repro_torch.launch import dryrun
     (rec,) = dryrun.run_target("xlstm-125m", "decode_32k", ("single",),
                                str(tmp_path))
-    assert rec["status"] == "ok" and rec["partitioned"] is False
-    assert rec["roofline"]["per_device"] is False
-    assert rec["roofline"]["collective_s"] == 0.0
-    assert rec["per_device"]["flops"] == pytest.approx(
-        rec["cost"]["flops"] / 256, rel=1e-12)
+    assert rec["status"] == "ok" and rec["partitioned"] is True
+    assert rec["roofline"]["per_device"] is True
+    assert rec["per_device"]["flops"] == rec["cost"]["flops"]
+    assert rec["per_device"]["flops"] != pytest.approx(
+        rec["cost"]["flops"] / 256, rel=1e-3)
+    assert rec["roofline"]["collective_s"] > 0.0
+    kinds = rec["per_device"]["collectives_by_kind"]
+    assert kinds["all-gather"] > 0 and kinds["all-reduce"] > 0
 
 
 def test_placed_microbatch_widens_to_the_batch_ranks():
