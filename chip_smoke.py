@@ -4355,6 +4355,21 @@ Q8_SPLIT_LENS = (32768, 1000, 20001, 32768, 2048, 2049, 31000, 1,
 # 32768-term sum, expf against torch's exp)
 Q8_STAGE_TOL = {"decode_q8_scores": 0.0, "decode_q8_exp": 1e-5,
                 "decode_q8_pv": 1e-5}
+# the stages' kernels (``decode_attention_q8_stage`` launches the ring
+# kernels for stages 0 and 3, the cluster kernel's stage instances for 1
+# and 2), by the profiler's names and by ptxas's
+Q8_STAGE_KERNELS = (r"q8_scores_kernel<",
+                    r"q8_decode_kernel<\d+,\s*(false|0|\(bool\)0),\s*1>",
+                    r"q8_decode_kernel<\d+,\s*(false|0|\(bool\)0),\s*2>",
+                    r"q8_pq_kernel<")
+Q8_STAGE_INSTANCES = r"q8_decode_kernel<\d+,0,[12]>|q8_(scores|pq)_kernel<\d+>"
+# device ms a launch of stages 0..3 when stages 0 and 3 ran as the
+# cluster kernel's stage instances: PERF.md's readings from PR 32 (a
+# rank's block [16,2048,8,G 5,128] and the whole [16,32768,...], full
+# lens; H100 80GB HBM3 at 700 W), printed beside this run's for
+# reference and used in no check or result
+Q8_SPLIT_CLUSTER_MS = {16: (0.02959, 0.00966, 0.01114, 0.03862),
+                       1: (0.2659, 0.0669, 0.1101, 0.4209)}
 
 
 def _q8_blocks(cache, n: int) -> list:
@@ -4369,8 +4384,9 @@ def _q8_blocks(cache, n: int) -> list:
 def _q8_stage_checks(m, q, block, lens, smax) -> dict:
     """Each stage kernel on one block, its exchange the identity (the
     block alone), against its plain version fed the same exchanged
-    statistic: the statistics within Q8_STAGE_TOL, the int32 sums equal
-    to the exact products of the kernel's own pq, and pq at most one
+    statistic: the statistics within Q8_STAGE_TOL, the scores bit-equal
+    to the plain stage's, the int32 sums equal to the exact products of
+    the kernel's own pq, and pq at most one
     step from the plain version's at no more than Q8_MAX_FLIPS.  The pq
     stage's error is its sums times ps against the plain stage's (over
     the plain pq, so it shows the flips)."""
@@ -4385,6 +4401,9 @@ def _q8_stage_checks(m, q, block, lens, smax) -> dict:
                             f"{name} vs plain")
         out[name] = {"max_abs_err": err, "normalized_err": rel}
     stat("decode_q8_scores", m_k, m_p)
+    _check(torch.equal(st_k["scratch"].view(st_p["x"].shape), st_p["x"]),
+           "decode_q8_scores: scores differ from the plain stage's")
+    out["decode_q8_scores"]["scores_bit_equal"] = True
     st_k, l_k = ops.STAGES.exp(st_k, m_k)
     st_p, l_p = plain.exp(st_p, m_k)
     stat("decode_q8_exp", l_k, l_p)
@@ -4416,8 +4435,9 @@ def _q8_stage_checks(m, q, block, lens, smax) -> dict:
 
 def kv_q8_split(m, q8_ptxas: dict) -> dict:
     """The split form (``q8_ops.decode_attention_q8_blocks``: four stage
-    launches a block, ``decode_attention_q8_stage``) at Q8_TIMING, bf16
-    q over full int8 caches of random payload and scales:
+    launches a block through ``decode_attention_q8_stage``: the ring
+    kernels for the scores and pq, the cluster kernel for exp and pv) at
+    Q8_TIMING, bf16 q over full int8 caches of random payload and scales:
 
     (a) each stage kernel against its plain version on a block of
         Q8_SPLIT_BLOCKS' largest split (one rank's positions) and on the
@@ -4512,10 +4532,14 @@ def kv_q8_split(m, q8_ptxas: dict) -> dict:
     _free(torch)
     # (c) timings at full lens
     instances = {k: v for k, v in q8_ptxas.items()
-                 if re.match(r"q8_decode_kernel<\d+,0,[0-3]>", k)}
+                 if re.match(Q8_STAGE_INSTANCES, k)}
     _check(all(v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0
                for v in instances.values()),
            f"decode_attention_q8 stage spills: {instances}")
+    _check(not instances or {"q8_scores_kernel<128>", "q8_pq_kernel<128>",
+                             "q8_decode_kernel<128,0,1>",
+                             "q8_decode_kernel<128,0,2>"} <= set(instances),
+           f"decode_attention_q8 stage instances: {sorted(instances)}")
     out["ptxas"] = instances
     out["timing"] = {}
     for n in Q8_SPLIT_BLOCKS:
@@ -4525,7 +4549,7 @@ def kv_q8_split(m, q8_ptxas: dict) -> dict:
         def call():
             return ops.decode_attention_q8_blocks(q, parts, full, smax=S)
         rec["call_ms"] = _device_ms(torch, call, reps=10, inner=5)
-        per = _launch_ms(torch, call, "q8_decode_kernel")
+        per = _launch_ms(torch, call, "q8_")
         # one block's work, as a rank holds it
         c0 = parts[0][0]
         st, mx = plain.scores(q, c0, full, None, 0, S)
@@ -4553,8 +4577,7 @@ def kv_q8_split(m, q8_ptxas: dict) -> dict:
             nbytes, i8, f32 = work[name]
             t_ops = i8 / INT8_OPS + f32 / FP32_FLOPS
             t_bytes = nbytes / HBM_BYTES_PER_S
-            key = [k for k in per
-                   if re.search(rf",\s*(false|0|\(bool\)0),\s*{i}>", k)]
+            key = [k for k in per if re.match(Q8_STAGE_KERNELS[i], k)]
             rec[name] = {
                 "ms": per[key[0]] if key else None,
                 "plain_ms": _device_ms(torch, plains[name], reps=5,
@@ -4624,6 +4647,11 @@ def kv_q8_phase(m, q8_ptxas: dict) -> dict:
           f"{json.dumps(sp['launches'])}; group entry "
           f"{json.dumps(sp['group_entry'])}; ptxas {json.dumps(sp['ptxas'])}; "
           f"stage checks {json.dumps(sp['stage_checks'])}", flush=True)
+    print("[kv_q8] split stages, device ms a launch [this run, the cluster "
+          "design's from PERF.md (PR 32, not this run)]: " + json.dumps(
+              {n: {s: [sp["timing"][n][s]["ms"], was[i]]
+                   for i, s in enumerate(stages)}
+               for n, was in Q8_SPLIT_CLUSTER_MS.items()}), flush=True)
     rng = np.random.default_rng(SEED + 25)
     out["paths"] = {}
     for arch, layers in Q8_MODELS:

@@ -76,30 +76,49 @@
 // the scratch form.  Registers are capped at 128 for two blocks of 256
 // threads an SM.
 //
-// The split form (`decode_attention_q8_stage`): a context-parallel
-// decode holds each slot's positions in blocks, one a rank, of a cache
-// of `smax` positions.  The row's max, its sum of exp(s - m) and its
-// max |pv| are each reduced over every block, and the int32 P·V sums
-// summed, between ranks (ops.py all-reduces them).  So the kernel runs
-// as four launches, each the code between two of the cluster
-// exchanges above (the `kStage` instances; -1 is the one launch):
-//   stage 0  A and the row max: the scores into the scratch form's
-//            buffer [B,KV,G,Sl], the cluster's max to `stat_out`;
+// The split form: a context-parallel decode holds each slot's positions
+// in blocks, one a rank, of a cache of `smax` positions.  The row's max,
+// its sum of exp(s - m) and its max |pv| are each reduced over every
+// block, and the int32 P·V sums summed, between ranks (ops.py
+// all-reduces them).  So it runs as four launches a block, around those
+// exchanges, over a global scratch [B,KV,G,Sl] of fp32 scores:
+//   stage 0  the scores into the scratch, the row max to `stat_out`
+//            (`q8_scores_kernel`);
 //   stage 1  exp(s - m) in place with m from `stat_in`, the cluster's
-//            sum to `stat_out`;
-//   stage 2  pv = (e / l) * vs in place, the cluster's max |pv|;
-//   stage 3  pq with ps from `stat_in`, P·V, and the cluster's int32
-//            sums [B,KV,G,D] to `out`.
-// Within a launch the cluster still reduces over its own blocks, in the
-// same order, so one block a row gives the one launch's bits.  k is
-// read once (stage 0) and v once (stage 3); the scores cross device
-// memory three times more, as the scratch form's do.  Masks take the
-// block's global positions (`start`) and the whole cache's `smax`.
+//            sum to `stat_out` (`q8_decode_kernel<D, false, 1>`: the
+//            cluster kernel's code);
+//   stage 2  pv = (e / l) * vs in place, the cluster's max |pv|
+//            (`q8_decode_kernel<D, false, 2>`);
+//   stage 3  pq with ps from `stat_in`, P·V, the int32 sums [B,KV,G,D]
+//            added into `out` (`q8_pq_kernel`).
+// One C entry, `decode_attention_q8_stage`, launches any of them.
+// Stages 1 and 2 are the cluster code: they add fp32 partial sums, so
+// they keep the cluster plan and its rank order, and one block a row
+// gives the one launch's bits.  Stages 0 and 3 are kernels of their own
+// and need no cluster: a max and int32 sums are exact in any order, so
+// their blocks combine by atomics (a float max on the ordered-int
+// encoding; red.global.add.s32) and their bits do not depend on the
+// grid.  Both are bound by bytes: stage 0 reads k and its scales once
+// and writes the scores (at a rank's [16,2048,8,G 5,128] 39 MB, 0.0118
+// ms at 3.35 TB/s), stage 3 reads the scores and the v rows whose pq is
+// not 0.  They run persistent blocks, two an SM, each walking a
+// contiguous run of work items through a ring of slots in shared
+// memory, several items in flight (below): stage 0's k by the bulk-copy
+// engine, stage 3's scores and v rows by cp.async.  A ring pays here
+// though it did not in the one launch: there the scores took most of a
+// block's shared memory, here they live in the global scratch, so a
+// block has room for several 16 KB items in flight, and one barrier an
+// item is all the ring costs.  k is read once (stage 0) and v once
+// (stage 3); the scores cross device memory three times more, as the
+// scratch form's do.  Masks take the block's global positions (`start`)
+// and the whole cache's `smax`.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"   // mbarriers (the ring kernels' bulk copies)
 
 namespace cg = cooperative_groups;
 
@@ -167,7 +186,9 @@ struct Params {
   const float* stat_in;   // the split form: [B,KV,G], the exchange's
   float* stat_out;        // [B,KV,G], this launch's cluster part
   int q_bf16, Smax, KV, G, window, n;
-  int start, smax;        // the block's first position, the whole cache's
+  int pad[2];             // padding, read by nothing: the layout the
+                          // one launch was tuned on (ptxas gives it 116 /
+                          // 117 registers with it, 120 / 121 without)
   float scale;
 };
 
@@ -289,11 +310,8 @@ __global__ void __launch_bounds__(kThreads, 2) q8_decode_kernel(Params p) {
   }
   const long long len = p.lens[b];
   const size_t pos0 = (size_t)b * p.Smax + t0;   // cache position of j = 0
-  // a position as the masks see it: global in the split form
-  const int g0 = kOne ? t0 : p.start + t0;
-  const int mask_smax = kOne ? p.Smax : p.smax;
 
-  if constexpr (kOne || kStage == 0) {
+  if constexpr (kOne) {
     // ---- A. the query rows, then the scores ------------------------------
     {
       float x[4];
@@ -347,7 +365,7 @@ __global__ void __launch_bounds__(kThreads, 2) q8_decode_kernel(Params p) {
       for (int h = 0; h < 2; ++h) {
         const int j = 16 * mt + gid + 8 * h;
         const bool on = mt < m_tiles && j < nv &&
-                        attended(g0 + j, len, mask_smax, p.window);
+                        attended(t0 + j, len, p.Smax, p.window);
         const size_t row = (pos0 + j) * p.KV + kv;
 #pragma unroll
         for (int i = 0; i < kCh; ++i) {
@@ -360,7 +378,7 @@ __global__ void __launch_bounds__(kThreads, 2) q8_decode_kernel(Params p) {
         t.ks[h] = on ? __ldg(reinterpret_cast<const unsigned short*>(
                            p.k_scale) + row)
                      : (unsigned short)0;
-        t.vs[h] = kOne && mt < m_tiles && j < nv && tig == 0
+        t.vs[h] = mt < m_tiles && j < nv && tig == 0
                       ? __ldg(reinterpret_cast<const unsigned short*>(
                             p.v_scale) + row)
                       : (unsigned short)0;
@@ -380,8 +398,8 @@ __global__ void __launch_bounds__(kThreads, 2) q8_decode_kernel(Params p) {
       for (int h = 0; h < 2; ++h) {
         const int j = 16 * mt + gid + 8 * h;
         if (j >= nv) continue;
-        if (kOne && tig == 0) vss[j] = t.vs[h];   // stage 2 reads its own
-        const bool att = attended(g0 + j, len, mask_smax, p.window);
+        if (tig == 0) vss[j] = t.vs[h];
+        const bool att = attended(t0 + j, len, p.Smax, p.window);
         const float ks = __half2float(__ushort_as_half(t.ks[h]));
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -430,21 +448,14 @@ __global__ void __launch_bounds__(kThreads, 2) q8_decode_kernel(Params p) {
       float m = kNegInf;
       for (int r = 0; r < C; ++r)
         m = fmaxf(m, cluster.map_shared_rank(stat, r)[kMPart * 8 + tid]);
-      if constexpr (kOne)
-        stat[kM * 8 + tid] = m;
-      else if (rank == 0)
-        p.stat_out[(size_t)bk * G + tid] = m;
-    }
-    if constexpr (!kOne) {
-      cluster.sync();   // no block leaves while rank 0 reads its part
-      return;
+      stat[kM * 8 + tid] = m;
     }
     __syncthreads();
   } else {
-    // the split form's later stages: the statistic of the exchange
-    // before this one (m, l or ps), and in stage 2 the v scales
+    // the split form's stages 1 and 2: the statistic of the exchange
+    // before this one (m or l), and in stage 2 the v scales
     if (tid < G)
-      stat[(kStage == 1 ? kM : kStage == 2 ? kL : kPs) * 8 + tid] =
+      stat[(kStage == 1 ? kM : kL) * 8 + tid] =
           p.stat_in[(size_t)bk * G + tid];
     if constexpr (kStage == 2)
       for (int j = tid; j < nv; j += kThreads)
@@ -563,7 +574,7 @@ __global__ void __launch_bounds__(kThreads, 2) q8_decode_kernel(Params p) {
     __syncthreads();
   }
 
-  if constexpr (kOne || kStage == 3) {
+  if constexpr (kOne) {
     // pq in mma order, and the live bits; a warp
     // takes 32 positions, so one ballot gives a group's bits
     {
@@ -674,10 +685,6 @@ __global__ void __launch_bounds__(kThreads, 2) q8_decode_kernel(Params p) {
         for (int r = 0; r < C; ++r)
           total += cluster.map_shared_rank(sums, r)[i];
         const size_t at = (size_t)bk * G * D + i;
-        if constexpr (!kOne) {     // stage 3: the int32 sums, exchanged next
-          static_cast<int*>(p.out)[at] = total;
-          continue;
-        }
         const float o = static_cast<float>(total) * stat[kPs * 8 + i / D];
         if (p.q_bf16)
           static_cast<__nv_bfloat16*>(p.out)[at] = __float2bfloat16(o);
@@ -687,6 +694,643 @@ __global__ void __launch_bounds__(kThreads, 2) q8_decode_kernel(Params p) {
     }
     cluster.sync();   // no block leaves while rank 0 reads its sums
   }
+}
+
+// ---------------------------------------------------------------------------
+// The split form's stages 0 and 3: persistent blocks over a ring
+// ---------------------------------------------------------------------------
+//
+// Both walk work items of ring_tile(D) rows of D bytes, a contiguous
+// run of items a block (the plan's grid: at most one block an item),
+// an item a slot of a ring in shared memory, several in flight.
+//   Stage 0's item is (b, head group, tile): the H = score_heads(KV)
+// heads [H·grp, H·grp + H) of the P = ring_tile(D) / H positions
+// [P·tile, P·tile + P), in the order ((b·groups + grp)·tiles + tile).
+// Its rows are the records' contiguous spans of H·D bytes, copied by
+// the bulk-copy engine (cp.async.bulk): one copy of the item's attended
+// positions where H == KV (whole records), one a position otherwise;
+// the masked positions are not read.  So the grid streams k in address
+// order.  One producer warp issues the copies; eight consumer warps
+// compute; each slot has a full mbarrier (the copies' bytes) and an
+// empty one (the consumers' release), and no block barrier stands
+// between items.  (Rows by cp.async, 16 bytes a thread, ran at 1.2
+// TB/s: the threads stalled at issue, their copies waiting for the SM's
+// own request slots; and with the copies issued between the items'
+// computations, the consumers waited on the issuing warp: see
+// experiments/decode_q8_ring_probe.py and PERF.md.)
+//   Stage 3's item is (b, kv, a tile of ring_tile(D) positions), and
+// the grid a multiple of KV: block i takes kv head i % KV and the
+// i / KV-th of grid / KV contiguous runs of the B·tiles (b, tile)
+// pairs, so a block's (b, kv) changes only where its run crosses a b,
+// and the KV blocks of a run step through the same tiles together.
+// Its loads are cp.async, one block barrier an item.
+
+constexpr int kScoresRing = 6;  // stage 0: k items in the ring
+constexpr int kPqAhead = 3;     // stage 3: v tiles in flight ahead of P·V
+
+__host__ __device__ constexpr int ring_tile(int D) {
+  return D > 64 ? 128 : 256;    // 8 units of 32 positions by 64 columns
+}
+
+// stage 0's heads an item: the largest power of 2 up to min(KV, 8), so
+// that a warp's rows of an item are one head's
+__host__ __device__ constexpr int score_heads(int KV) {
+  return KV >= 8 ? 8 : KV >= 4 ? 4 : KV >= 2 ? 2 : 1;
+}
+
+// Stage 0's shared memory: kScoresRing slots of the item's k rows as
+// the records hold them ([P][H][D]), a 4-byte word of k scales a row,
+// the slot's len and its full and empty mbarriers; then each consumer
+// warp's scores [8][its rows + 4] before they are stored as vectors.
+// Stage 3's: kPqAhead + 2 slots of the fp32 pv [G][T] and the G ps; then
+// kPqAhead + 1 slots of v rows (as k's) and pq [G][T + 16] in mma order;
+// then the block's int32 sums [G][D].
+struct RingLayout {
+  size_t slot, ring, total;     // stage 0: the k ring; stage 3: pv's
+  size_t ks, len, bar;          // stage 0: in a slot
+  size_t vslot, vring, pq;      // stage 3: the v ring, pq in a v slot
+};
+
+__host__ __device__ inline RingLayout ring_layout(int stage, int G, int D) {
+  RingLayout L{};
+  const size_t T = ring_tile(D), row = D + 16;
+  if (stage == 0) {
+    L.ks = T * D;
+    L.len = L.ks + 4 * T;
+    L.bar = L.len + 8;          // full, then empty
+    L.slot = L.bar + 24;
+    L.ring = kScoresRing * L.slot;
+    L.total = L.ring + (size_t)kWarps * kMaxG * (T / kWarps + 4) * 4;
+    return L;
+  }
+  L.slot = 4 * G * T + 32;
+  L.ring = (kPqAhead + 2) * L.slot;
+  L.pq = T * row;
+  L.vslot = L.pq + round16((size_t)G * (T + 16));
+  L.vring = (kPqAhead + 1) * L.vslot;
+  L.total = L.ring + L.vring + round16((size_t)4 * G * D);
+  return L;
+}
+
+struct RingParams {
+  const void* q;
+  const int8_t* k;
+  const int8_t* v;
+  const unsigned char* k_scale;   // fp16 [B,Sl,KV], 4-byte aligned
+  const long long* lens;
+  float* scratch;                 // [B,KV,G,Sl] fp32
+  const float* stat_in;           // stage 3: ps [B,KV,G]
+  float* stat_out;                // stage 0: max s [B,KV,G], from -inf
+  int* out;                       // stage 3: sums [B,KV,G,D], from 0
+  int8_t* dbg_pq;                 // stage 3, may be null: pq [B,KV,G,Sl]
+  int q_bf16, B, Sl, KV, G, window, start, smax;
+  int vec;                        // Sl % 4 == 0: scratch rows 16-byte aligned
+  float scale;
+};
+
+// `bytes` (a multiple of 16) from global to shared memory by the
+// bulk-copy engine, counted on mbarrier `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(hopper::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Loads that stay in program order among the asm statements around
+// them (the compiler may not sink them to their first use), so that
+// they go out ahead of the copies issued after them
+__device__ __forceinline__ uint4 ld_early(const uint4* at) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(at));
+  return v;
+}
+__device__ __forceinline__ long long ld_early(const long long* at) {
+  long long v;
+  asm volatile("ld.global.nc.s64 %0, [%1];" : "=l"(v) : "l"(at));
+  return v;
+}
+
+// the positions `attended` admits, [lo, hi): one interval for every mask
+__device__ __forceinline__ void attended_span(long long len, int Smax,
+                                              int window, long long& lo,
+                                              long long& hi) {
+  if (window > 0 && Smax == window) {
+    lo = 0;
+    hi = min(len, (long long)Smax);
+  } else {
+    lo = window > 0 ? len - window : 0;
+    hi = len;
+  }
+}
+
+// a float max across blocks: ordered as ints where the sign bit is 0,
+// as unsigned (reversed) where it is 1; exact in any order
+__device__ __forceinline__ void atomic_max_float(float* at, float v) {
+  if (__float_as_int(v) >= 0)
+    atomicMax(reinterpret_cast<int*>(at), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned*>(at), __float_as_uint(v));
+}
+
+struct Item {
+  int b, kv, bk, tile;
+};
+
+// the first (b, tile) pair of the block's run, and its length
+__device__ __forceinline__ int item_run(int B, int KV, int tiles,
+                                        int& count) {
+  const long long pairs = (long long)B * tiles, runs = gridDim.x / KV;
+  const long long j = blockIdx.x / KV;
+  const int lo = (int)(pairs * j / runs);
+  count = (int)(pairs * (j + 1) / runs) - lo;
+  return lo;
+}
+
+// stage 0: the first of the block's items, and their count
+__device__ __forceinline__ int item_span(long long items, int& count) {
+  const int lo = (int)(items * blockIdx.x / gridDim.x);
+  count = (int)(items * (blockIdx.x + 1) / gridDim.x) - lo;
+  return lo;
+}
+
+// stage 0's item `it`: its b, the group's first head (kv) and its tile
+__device__ __forceinline__ Item score_item(int it, int groups, int tiles,
+                                          int H) {
+  Item x;
+  x.tile = it % tiles;
+  x.kv = it / tiles % groups * H;
+  x.b = it / tiles / groups;
+  x.bk = -1;
+  return x;
+}
+
+// the block's n-th item, of the run from pair `lo`
+__device__ __forceinline__ Item item_at(int lo, int n, int KV, int tiles) {
+  Item x;
+  x.kv = blockIdx.x % KV;
+  x.tile = (lo + n) % tiles;
+  x.b = (lo + n) / tiles;
+  x.bk = x.b * KV + x.kv;
+  return x;
+}
+
+// Stage 0: the scores of an item's k rows by mma.sync m16n8k32 s8
+// against the G query rows of the rows' head, into the scratch as
+// 16-byte vectors, and each row's max by a float atomic max into
+// stat_out.  Warp kWarps is the producer (the ring's copies); consumer
+// warp w takes 16·(T/128) positions of head w·H/8 of the item, one or
+// two m-tiles; as in the one launch a lane reads the 16-byte chunks
+// tig + 4i of its rows gid and gid + 8 (words 2s and 2s + 1 its A
+// operand of k-step s) and the B operand is the same bytes of q, so the
+// int32 sums are the one launch's.  A consumer keeps its head's query
+// rows quantized in registers and its row maxima while its (b, kv)
+// stays.
+template <int D>
+__global__ void __launch_bounds__(kThreads + 32, 2)
+    q8_scores_kernel(RingParams p) {
+  constexpr int kT = ring_tile(D), kChunks = D / 16;
+  constexpr int kCh = (kChunks + 3) / 4;      // 16-byte chunks a lane, a row
+  constexpr int kStepsK = 2 * kCh;            // k-steps of the mma
+  constexpr int kWp = kT / kWarps;            // a warp's rows of an item
+  constexpr int kSt = kWp + 4;                // its staged scores' stride
+  extern __shared__ __align__(16) unsigned char smem[];
+  const RingLayout L = ring_layout(0, p.G, D);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int G = p.G, KV = p.KV, Sl = p.Sl;
+  const int H = score_heads(KV), P = kT / H;  // heads, positions an item
+  const int hs = H == 8 ? 3 : H == 4 ? 2 : H == 2 ? 1 : 0;   // log2 H
+  const int groups = (KV + H - 1) / H, tiles = (Sl + P - 1) / P;
+  int count;
+  const int lo = item_span((long long)p.B * groups * tiles, count);
+  float* st = reinterpret_cast<float*>(smem + L.ring) + warp * kMaxG * kSt;
+  // the warp's head in the group, and its first position in the item
+  const int hw = warp * kWp / P, jw = warp * kWp - hw * P;
+  auto bar = [&](int u) {
+    return hopper::smem_addr(smem + u * L.slot + L.bar);
+  };
+  auto empty = [&](int u) { return bar(u) + 8; };
+  const bool producer = warp == kWarps;
+  if (tid == kThreads) {       // full: the producer's lane 0 (the bytes
+    for (int u = 0; u < kScoresRing; ++u) {   // due) and its 32 lanes'
+      hopper::mbar_init(bar(u), 1 + 32);      // cp.async; empty: the
+      hopper::mbar_init(empty(u), kWarps);    // consumers
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+
+  // The producer's len of b.  A read of device memory waits behind the
+  // ring's copies, several microseconds at full rate, so the next b's
+  // len is read one b ahead (ld_early: in program order, ahead of the
+  // copies issued after it).
+  int ib = -1;
+  long long ilen = 0, nlen = 0;   // ib's len, and ib + 1's
+  auto len_of = [&](int b) {
+    if (b != ib) {
+      ilen = ib >= 0 && b == ib + 1 ? nlen : ld_early(p.lens + b);
+      ib = b;
+      if (b + 1 < p.B) nlen = ld_early(p.lens + b + 1);
+    }
+    return ilen;
+  };
+  auto issue = [&](int n, int u) {
+    const Item x = score_item(lo + n, groups, tiles, H);
+    const int t0 = x.tile * P, nv = min(P, Sl - t0);
+    // the item's attended positions [jlo, jhi), and its heads
+    long long alo, ahi;
+    attended_span(len_of(x.b), p.smax, p.window, alo, ahi);
+    const long long g0 = (long long)p.start + t0;
+    const int jlo = (int)max(0LL, min((long long)nv, alo - g0));
+    const int jhi = (int)max((long long)jlo, min((long long)nv, ahi - g0));
+    const int nh = min(H, KV - x.kv);
+    unsigned char* slot = smem + u * L.slot;
+    const size_t e0 = ((size_t)x.b * Sl + t0) * KV + x.kv;
+    if (lane == 0)
+      hopper::mbar_expect_tx(bar(u), (uint32_t)((jhi - jlo) * nh * D));
+    __syncwarp();
+    if (nh == KV) {           // whole records: one span
+      if (lane == 0 && jhi > jlo)
+        bulk_load(slot + jlo * H * D, p.k + (e0 + (size_t)jlo * KV) * D,
+                  (uint32_t)((jhi - jlo) * KV * D), bar(u));
+    } else {
+      for (int j = jlo + lane; j < jhi; j += 32)
+        bulk_load(slot + j * H * D, p.k + (e0 + (size_t)j * KV) * D,
+                  (uint32_t)(nh * D), bar(u));
+    }
+    if (lane == 0)
+      hopper::cp_async<8>(hopper::smem_addr(slot + L.len), p.lens + x.b);
+    for (int r = lane; r < kT; r += 32) {   // row r's scale
+      const int j = r >> hs, h = r & (H - 1);
+      const bool on = j >= jlo && j < jhi && h < nh;
+      const size_t e = on ? e0 + (size_t)j * KV + h : 0;
+      hopper::cp_async<4>(hopper::smem_addr(slot + L.ks + 4 * r),
+                          p.k_scale + 2 * (e & ~(size_t)1), on ? 4 : 0);
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                     bar(u))
+                 : "memory");
+  };
+
+  const float ninf = __int_as_float(0xff800000);
+  int cur = -1;               // the (b, kv) of qb and mx
+  uint32_t qb[kStepsK][2];    // its B operand, and its columns' scales
+  float qs_e[2] = {0.f, 0.f};
+  float mx[2] = {ninf, ninf};    // rows 2tig, 2tig + 1
+  auto flush = [&]() {
+    if (cur < 0) return;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], o));
+      if (gid == 0 && 2 * tig + e < G && mx[e] != ninf)
+        atomic_max_float(p.stat_out + (size_t)cur * G + 2 * tig + e, mx[e]);
+      mx[e] = ninf;
+    }
+  };
+  // q's row gid of (b, kv) `bk` as q holds it (fetch_q: this lane's
+  // chunks tig + 4i, 32 bytes each in bf16, 64 in fp32), then quantized
+  // as the one launch does (quant_q: word w of chunk i at qb[2i + w / 2]
+  // [w % 2]).  Once the ring streams, a read of device memory waits
+  // several microseconds behind its copies: so a consumer reads the q of
+  // its next (b, kv) as soon as it has quantized the current one's.
+  uint4 qraw[kCh][4];
+  int qbk = -1;               // the (b, kv) that qraw holds
+  auto fetch_q = [&](int bk) {
+    qbk = bk;
+    const size_t row = ((size_t)bk * G + gid) * D;
+#pragma unroll
+    for (int i = 0; i < kCh; ++i) {
+      const int c = tig + 4 * i;
+      const uint4* src =
+          p.q_bf16 ? reinterpret_cast<const uint4*>(
+                         static_cast<const __nv_bfloat16*>(p.q) + row + 16 * c)
+                   : reinterpret_cast<const uint4*>(
+                         static_cast<const float*>(p.q) + row + 16 * c);
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        qraw[i][h] = gid < G && c < kChunks && (h < 2 || !p.q_bf16)
+                         ? ld_early(src + h)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  // value e (0..15) of chunk i of qraw, read where it is needed
+  auto qval = [&](int i, int e) {
+    if (p.q_bf16) {
+      const uint4& u = qraw[i][e / 8];
+      const int c = (e % 8) / 2;
+      const uint32_t w = c == 0 ? u.x : c == 1 ? u.y : c == 2 ? u.z : u.w;
+      return __uint_as_float(e % 2 ? (w & 0xffff0000u) : (w << 16));
+    }
+    const uint4& v = qraw[i][e / 4];
+    const int c = e % 4;
+    return __uint_as_float(c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w);
+  };
+  auto quant_q = [&]() {
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < kCh; ++i)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(qval(i, e)));
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+    const float qs = fmaxf(amax / 127.f, 1e-8f);
+#pragma unroll
+    for (int i = 0; i < kCh; ++i)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          word |= (uint32_t)(uint8_t)quantize(qval(i, 4 * w + t), qs)
+                  << (8 * t);
+        qb[2 * i + w / 2][w % 2] = word;
+      }
+    const float qh = __half2float(__float2half_rn(qs));
+    qs_e[0] = __shfl_sync(0xffffffffu, qh, 8 * tig);
+    qs_e[1] = __shfl_sync(0xffffffffu, qh, 8 * tig + 4);
+  };
+  // the warp's (b, kv) after that of item x in the run, or -1
+  auto next_bk = [&](const Item& x) {
+    const int it = (x.b * groups + x.kv / H + 1) * tiles;
+    if (it >= lo + count) return -1;
+    const Item y = score_item(it, groups, tiles, H);
+    return y.kv + hw < KV ? y.b * KV + y.kv + hw : -1;
+  };
+
+  auto compute = [&](int n, int u) {
+    const Item x = score_item(lo + n, groups, tiles, H);
+    const int kv = x.kv + hw, t0 = x.tile * P, nv = min(P, Sl - t0);
+    if (kv >= KV || jw >= nv) return;          // warp-uniform
+    const int bk = x.b * KV + kv;
+    if (bk != cur) {
+      flush();
+      cur = bk;
+      if (qbk != bk) fetch_q(bk);
+      quant_q();
+      const int nbk = next_bk(x);
+      if (nbk >= 0) fetch_q(nbk);
+    }
+    const unsigned char* slot = smem + u * L.slot;
+    const long long len = *reinterpret_cast<const long long*>(slot + L.len);
+    const uint32_t* ksw = reinterpret_cast<const uint32_t*>(slot + L.ks);
+    const size_t e0 = ((size_t)x.b * Sl + t0) * KV + kv;
+#pragma unroll
+    for (int mi = 0; mi < kWp / 16; ++mi) {
+      const int j0 = jw + 16 * mi;
+      if (j0 >= nv) break;
+      int4 r[2][kCh];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int4* row = reinterpret_cast<const int4*>(
+            slot + (size_t)((j0 + gid + 8 * h) * H + hw) * D);
+#pragma unroll
+        for (int i = 0; i < kCh; ++i)
+          r[h][i] = tig + 4 * i < kChunks ? row[tig + 4 * i]
+                                          : make_int4(0, 0, 0, 0);
+      }
+      int acc[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int s = 0; s < kStepsK; ++s) {
+        const uint32_t a[4] = {word(r[0][s / 2], 2 * (s % 2)),
+                               word(r[1][s / 2], 2 * (s % 2)),
+                               word(r[0][s / 2], 2 * (s % 2) + 1),
+                               word(r[1][s / 2], 2 * (s % 2) + 1)};
+        mma_s8(acc, a, qb[s][0], qb[s][1]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = j0 + gid + 8 * h;
+        if (j >= nv) continue;
+        const bool att = attended(p.start + t0 + j, len, p.smax, p.window);
+        const uint32_t w = ksw[j * H + hw];
+        const float ks = __half2float(__ushort_as_half(
+            (unsigned short)(((e0 + (size_t)j * KV) & 1) ? w >> 16 : w)));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float s =
+              att ? ((static_cast<float>(acc[2 * h + e]) * qs_e[e]) * ks) *
+                        p.scale
+                  : kNegInf;
+          st[(2 * tig + e) * kSt + 16 * mi + gid + 8 * h] = s;
+          if (2 * tig + e < G) mx[e] = fmaxf(mx[e], s);
+        }
+      }
+    }
+    __syncwarp();
+    // the warp's positions of the item, a g row at a time, as 16-byte
+    // vectors
+    constexpr int kQuads = kWp / 4;
+    for (int i = lane; i < G * kQuads; i += 32) {
+      const int g = i / kQuads, jq = 4 * (i % kQuads), j = jw + jq;
+      if (j >= nv) continue;
+      float* dst = p.scratch + ((size_t)bk * G + g) * Sl + t0 + j;
+      const float* src = st + g * kSt + jq;
+      if (p.vec && j + 4 <= nv) {
+        *reinterpret_cast<float4*>(dst) =
+            *reinterpret_cast<const float4*>(src);
+      } else {
+        for (int y = 0; y < 4 && j + y < nv; ++y) dst[y] = src[y];
+      }
+    }
+    __syncwarp();
+  };
+
+  if (!producer && count > 0) {  // q, ahead of the ring
+    const Item x = score_item(lo, groups, tiles, H);
+    if (x.kv + hw < KV) fetch_q(x.b * KV + x.kv + hw);
+  }
+  __syncthreads();
+  if (producer) {
+    for (int k = 0; k < count; ++k) {
+      const int u = k % kScoresRing;
+      if (k >= kScoresRing)
+        hopper::mbar_wait(empty(u), (k / kScoresRing - 1) & 1);
+      issue(k, u);
+    }
+    hopper::cp_async_wait<0>();
+    return;
+  }
+  for (int k = 0; k < count; ++k) {
+    const int u = k % kScoresRing;
+    hopper::mbar_wait(bar(u), (k / kScoresRing) & 1);
+    compute(k, u);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty(u));
+  }
+  flush();
+}
+
+// Stage 3: pq = clip(rint(pv / ps)) of a tile, computed by the threads
+// that then ask for its v rows, kPqAhead tiles before their P·V: a
+// thread (two a position at T 128) quantizes its position's G rows, and
+// copies the position's v row only if some pq is not 0 (zeros
+// otherwise, as the one launch skips it).  P·V as the one launch's:
+// warp w takes the 32 positions 32·(w / halves) of the tile by the 64
+// columns 64·(w % halves), its int32 sums in registers while the items
+// keep their (b, kv); at a seam the warps add theirs in shared memory
+// and the block adds the sums into `out` (red.global.add.s32: exact, in
+// any order).  pv tiles arrive one ahead of their quantization.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) q8_pq_kernel(RingParams p) {
+  constexpr int kT = ring_tile(D), kRow = D + 16, kChunks = D / 16;
+  constexpr int kHalves = (D + 63) / 64;
+  constexpr int kTpp = kThreads / kT;         // threads a position
+  constexpr int kPqStride = kT + 16;
+  constexpr int kAhead = kPqAhead + 1;        // pv tiles ahead of P·V
+  constexpr int kSRing = kPqAhead + 2, kVRing = kPqAhead + 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const RingLayout L = ring_layout(3, p.G, D);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int G = p.G, KV = p.KV, Sl = p.Sl;
+  const int tiles = (Sl + kT - 1) / kT;
+  int count;
+  const int lo = item_run(p.B, KV, tiles, count);
+  int* sums = reinterpret_cast<int*>(smem + L.ring + L.vring);
+  for (int i = tid; i < G * D; i += kThreads) sums[i] = 0;
+
+  auto issue_pv = [&](int n, int u) {
+    const Item x = item_at(lo, n, KV, tiles);
+    const int bk = x.bk, t0 = x.tile * kT, nv = min(kT, Sl - t0);
+    float* sc = reinterpret_cast<float*>(smem + u * L.slot);
+    if (tid < G)
+      hopper::cp_async<4>(hopper::smem_addr(sc + G * kT + tid),
+                          p.stat_in + (size_t)bk * G + tid);
+    const float* row = p.scratch + (size_t)bk * G * Sl + t0;
+    if (p.vec) {
+      for (int i = tid; i < G * (kT / 4); i += kThreads) {
+        const int g = i / (kT / 4), j = 4 * (i % (kT / 4));
+        const int in = max(0, min(4, nv - j));   // of the 4 positions
+        hopper::cp_async<16>(hopper::smem_addr(sc + g * kT + j),
+                             row + (size_t)g * Sl + (in ? j : 0), 4 * in);
+      }
+    } else {
+      for (int i = tid; i < G * kT; i += kThreads) {
+        const int g = i / kT, j = i % kT;
+        hopper::cp_async<4>(hopper::smem_addr(sc + g * kT + j),
+                            row + (size_t)g * Sl + (j < nv ? j : 0),
+                            j < nv ? 4 : 0);
+      }
+    }
+  };
+
+  auto pq_and_v = [&](int n, int su, int vu) {
+    const Item x = item_at(lo, n, KV, tiles);
+    const int bk = x.bk, t0 = x.tile * kT, nv = min(kT, Sl - t0);
+    const float* sc = reinterpret_cast<const float*>(smem + su * L.slot);
+    unsigned char* vs = smem + L.ring + vu * L.vslot;
+    int8_t* pqs = reinterpret_cast<int8_t*>(vs + L.pq);
+    const int j = tid / kTpp, r = tid % kTpp;
+    const int at = (j & ~31) + mma_order(j & 31);
+    bool any = false;
+    for (int g = 0; g < G; ++g) {
+      int8_t v = 0;
+      if (j < nv) {
+        v = quantize(sc[g * kT + j], sc[G * kT + g]);
+        if (p.dbg_pq != nullptr && r == 0)
+          p.dbg_pq[((size_t)bk * G + g) * Sl + t0 + j] = v;
+      }
+      if (r == 0) pqs[g * kPqStride + at] = v;
+      any |= v != 0;
+    }
+    const int8_t* src = p.v + (((size_t)x.b * Sl + t0 + (any ? j : 0)) * KV +
+                               x.kv) * D;
+#pragma unroll
+    for (int c = r; c < kChunks; c += kTpp)
+      hopper::cp_async<16>(hopper::smem_addr(vs + j * kRow + 16 * c),
+                           src + 16 * c, any ? 16 : 0);
+  };
+
+  const int half = warp % kHalves, grp = warp / kHalves;
+  const int col0 = 64 * half + 8 * gid;
+  int acc[4][4] = {};
+  int cur = -1;
+  auto flush = [&]() {
+    if (cur < 0) return;
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // row gid (+8 for e >= 2) of mma m is column col0 + 2m (+1)
+        const int d = col0 + 2 * m + (e >> 1), g = 2 * tig + (e & 1);
+        if (g < G && d < D && acc[m][e] != 0)
+          atomicAdd(&sums[g * D + d], acc[m][e]);
+        acc[m][e] = 0;
+      }
+    __syncthreads();
+    int* out = p.out + (size_t)cur * G * D;
+    for (int i = tid; i < G * D; i += kThreads) {
+      if (sums[i] != 0)
+        asm volatile("red.global.add.s32 [%0], %1;\n" ::"l"(out + i),
+                     "r"(sums[i]));
+      sums[i] = 0;
+    }
+    __syncthreads();
+  };
+
+  auto pv = [&](int n, int vu) {
+    const Item x = item_at(lo, n, KV, tiles);
+    if (x.bk != cur) {
+      flush();
+      cur = x.bk;
+    }
+    if (32 * grp >= min(kT, Sl - x.tile * kT)) return;   // warp-uniform
+    const unsigned char* vs = smem + L.ring + vu * L.vslot;
+    const int8_t* pg = reinterpret_cast<const int8_t*>(vs + L.pq) +
+                       grp * 32 + 4 * tig + gid * kPqStride;
+    const uint32_t b0 = gid < G ? ld32(reinterpret_cast<const unsigned char*>(
+                                      pg)) : 0u;
+    const uint32_t b1 = gid < G ? ld32(reinterpret_cast<const unsigned char*>(
+                                      pg + 16)) : 0u;
+    if (__all_sync(0xffffffffu, (b0 | b1) == 0u)) return;   // pq all 0
+    uint32_t tr[2][2][4];   // [h][4-column slice][column]: 4 positions
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint2 w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = col0 < D ? *reinterpret_cast<const uint2*>(
+                              vs + (32 * grp + 8 * i + 2 * tig + h) * kRow +
+                              col0)
+                        : make_uint2(0u, 0u);
+      const uint32_t lo4[4] = {w[0].x, w[1].x, w[2].x, w[3].x};
+      const uint32_t hi4[4] = {w[0].y, w[1].y, w[2].y, w[3].y};
+      transpose4(lo4, tr[h][0]);
+      transpose4(hi4, tr[h][1]);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {  // rows gid, gid + 8: columns 2m, 2m + 1
+      const uint32_t a[4] = {tr[0][m / 2][2 * (m % 2)],
+                             tr[0][m / 2][2 * (m % 2) + 1],
+                             tr[1][m / 2][2 * (m % 2)],
+                             tr[1][m / 2][2 * (m % 2) + 1]};
+      mma_s8(acc[m], a, b0, b1);
+    }
+  };
+
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u) {
+    if (u < count) issue_pv(u, u);
+    hopper::cp_async_commit();
+  }
+  for (int k = 0; k < count + kPqAhead; ++k) {
+    // pv of tile k and v of tile k - kPqAhead are in; the slots of the
+    // tiles before them are free
+    hopper::cp_async_wait<kPqAhead - 1>();
+    __syncthreads();
+    if (k + kAhead < count) issue_pv(k + kAhead, (k + kAhead) % kSRing);
+    if (k < count) pq_and_v(k, k % kSRing, k % kVRing);
+    hopper::cp_async_commit();
+    if (k >= kPqAhead) pv(k - kPqAhead, (k - kPqAhead) % kVRing);
+  }
+  flush();
+  hopper::cp_async_wait<0>();
 }
 
 // up to kMaxSmem of dynamic shared memory, and the carveout that gives
@@ -769,6 +1413,34 @@ int occupancy(int D, int cluster, int pairs, int smem) {
   }
 }
 
+// one launch of a ring kernel: `grid` blocks, up to kMaxSmem of
+// dynamic shared memory, the carveout that gives shared memory all it can
+template <void (*kKernel)(RingParams)>
+cudaError_t ring_configured(const RingParams& p, int grid, int smem,
+                            cudaStream_t st, int threads = kThreads) {
+  static bool done = false;
+  if (!done) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kKernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    done = true;
+  }
+  kKernel<<<grid, threads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t ring_launch(bool scores, const RingParams& p, int grid, int smem,
+                        cudaStream_t st) {
+  return scores ? ring_configured<q8_scores_kernel<D>>(p, grid, smem, st,
+                                                      kThreads + 32)
+                : ring_configured<q8_pq_kernel<D>>(p, grid, smem, st);
+}
+
 // the checks both entries share: shapes, the plan's cluster and the
 // shared bytes that must cover its layout
 bool valid_plan(int B, int Smax, int KV, int G, int D, bool on_chip,
@@ -805,8 +1477,6 @@ Params params(const void* q, int q_bf16, const void* k, const void* v,
   p.G = G;
   p.window = window;
   p.n = block_positions;
-  p.start = 0;
-  p.smax = Smax;
   p.scale = scale;
   return p;
 }
@@ -842,41 +1512,98 @@ extern "C" int decode_attention_q8(
                  : dispatch<false, kWhole>(p, B, D, cluster, smem_bytes, st);
 }
 
-// One stage (0..3) of the split form over a block of Sl positions,
-// [start, start + Sl) of a cache of `smax`: the caches, q and lens as
-// above with Sl for Smax; `scratch` B*KV*G*Sl fp32, the same buffer for
-// the four stages of a block (the plan's scratch form).  stat_in
-// [B,KV,G] fp32: the exchanged m (stage 1), l (2) or ps (3); stat_out
-// [B,KV,G] fp32: the cluster's max s (stage 0), sum of e (1) or max
-// |pv| (2); `out` (stage 3) int32 [B,KV,G,D], the block's P·V sums.
-// dbg_s (stage 0) and dbg_pq (stage 3) as above, [B,KV,G,Sl].  One
-// launch; returns its error, or cudaErrorInvalidValue.
+// One stage of the split form over a block of Sl positions, [start,
+// start + Sl) of a cache of `smax`: q, k, v, k_scale, v_scale and lens
+// as above with Sl for Smax (q 16-byte aligned, k_scale 4); `scratch`
+// B*KV*G*Sl fp32, the same buffer for the four stages of a block.
+// Stage 0 (a ring kernel) writes the scores into the scratch and takes
+// the max of each row into stat_out [B,KV,G] fp32, which must hold
+// -inf.  Stages 1 and 2 (the cluster kernel's code between two
+// exchanges) take the exchanged m (1) or l (2) from stat_in [B,KV,G]
+// fp32 and write the cluster's sum of e (1) or max |pv| (2) to
+// stat_out.  Stage 3 (a ring kernel) reads pv from the scratch and ps
+// from stat_in and adds the P·V sums into `out` int32 [B,KV,G,D], which
+// must hold 0, and with dbg_pq (may be null) writes pq [B,KV,G,Sl].
+// The plan: stages 1 and 2 `cluster`, `block_positions` and the dynamic
+// shared bytes as above (ops.py `plan(..., scratch=True)`); stages 0
+// and 3 `grid` persistent blocks, at most one a work item (in stage 3 a
+// multiple of KV), and the dynamic shared bytes, which must cover
+// `ring_layout` (ops.py `stage_plan`).  A stage ignores the arguments it
+// does not read.  One launch; returns its error, or
+// cudaErrorInvalidValue.
 extern "C" int decode_attention_q8_stage(
     int stage, const void* q, int q_bf16, const void* k, const void* v,
     const void* k_scale, const void* v_scale, const void* lens,
     const void* stat_in, void* stat_out, void* out, void* scratch,
-    void* dbg_s, void* dbg_pq, int B, int Sl, int KV, int G, int D,
-    int start, int smax, int window, float scale, int cluster,
-    int block_positions, int smem_bytes, void* stream) {
-  if (stage < 0 || stage > 3 || start < 0 || (long long)start + Sl > smax ||
-      !valid_plan(B, Sl, KV, G, D, false, cluster, block_positions,
-                  smem_bytes) ||
-      scratch == nullptr || (stage > 0) != (stat_in != nullptr) ||
-      (stage < 3) != (stat_out != nullptr) || (stage == 3) != (out != nullptr))
-    return cudaErrorInvalidValue;
-  Params p = params(q, q_bf16, k, v, k_scale, v_scale, lens, out, scratch,
-                    dbg_s, dbg_pq, Sl, KV, G, window, scale,
-                    block_positions);
+    void* dbg_pq, int B, int Sl, int KV, int G, int D, int start, int smax,
+    int window, float scale, int cluster, int block_positions, int grid,
+    int smem_bytes, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stage == 1 || stage == 2) {
+    if (!valid_plan(B, Sl, KV, G, D, false, cluster, block_positions,
+                    smem_bytes) ||
+        scratch == nullptr || stat_in == nullptr || stat_out == nullptr ||
+        lens == nullptr || v_scale == nullptr)
+      return cudaErrorInvalidValue;
+    Params p = params(nullptr, 0, nullptr, nullptr, nullptr, v_scale, lens,
+                      nullptr, scratch, nullptr, nullptr, Sl, KV, G, 0, 0.f,
+                      block_positions);
+    p.stat_in = static_cast<const float*>(stat_in);
+    p.stat_out = static_cast<float*>(stat_out);
+    return stage == 1 ? dispatch<false, 1>(p, B, D, cluster, smem_bytes, st)
+                      : dispatch<false, 2>(p, B, D, cluster, smem_bytes, st);
+  }
+  if (stage != 0 && stage != 3) return cudaErrorInvalidValue;
+  const bool scores = stage == 0;
+  // the items (stage 0: head groups by tiles of T / H positions; stage
+  // 3: heads by tiles of T), and the blocks that may take them
+  const int H = scores ? score_heads(KV) : 1, T = ring_tile(D) / H;
+  const long long items =
+      B > 0 && Sl > 0 && KV > 0
+          ? (long long)B * ((KV + H - 1) / H) * ((Sl + T - 1) / T) : 0;
+  const bool ok =
+      B > 0 && Sl > 0 && KV > 0 && G > 0 && G <= kMaxG && start >= 0 &&
+      (long long)start + Sl <= smax && grid > 0 && grid <= items &&
+      (scores || (grid >= KV && grid % KV == 0)) &&
+      items <= 0x7fffffff && smem_bytes <= kMaxSmem &&
+      ring_layout(stage, G, D).total <= (size_t)smem_bytes &&
+      scratch != nullptr && lens != nullptr &&
+      (scores ? q != nullptr && k != nullptr && k_scale != nullptr &&
+                    stat_out != nullptr &&
+                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(k_scale) % 4 == 0
+              : v != nullptr && stat_in != nullptr && out != nullptr &&
+                    reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(scratch) % 16 == 0);
+  if (!ok) return cudaErrorInvalidValue;
+  RingParams p{};
+  p.q = q;
+  p.k = static_cast<const int8_t*>(k);
+  p.v = static_cast<const int8_t*>(v);
+  p.k_scale = static_cast<const unsigned char*>(k_scale);
+  p.lens = static_cast<const long long*>(lens);
+  p.scratch = static_cast<float*>(scratch);
   p.stat_in = static_cast<const float*>(stat_in);
   p.stat_out = static_cast<float*>(stat_out);
+  p.out = static_cast<int*>(out);
+  p.dbg_pq = static_cast<int8_t*>(dbg_pq);
+  p.q_bf16 = q_bf16;
+  p.B = B;
+  p.Sl = Sl;
+  p.KV = KV;
+  p.G = G;
+  p.window = window;
   p.start = start;
   p.smax = smax;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (stage) {
-    case 0: return dispatch<false, 0>(p, B, D, cluster, smem_bytes, st);
-    case 1: return dispatch<false, 1>(p, B, D, cluster, smem_bytes, st);
-    case 2: return dispatch<false, 2>(p, B, D, cluster, smem_bytes, st);
-    default: return dispatch<false, 3>(p, B, D, cluster, smem_bytes, st);
+  p.vec = Sl % 4 == 0 && reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
+  p.scale = scale;
+  switch (D) {
+    case 32: return ring_launch<32>(scores, p, grid, smem_bytes, st);
+    case 80: return ring_launch<80>(scores, p, grid, smem_bytes, st);
+    case 96: return ring_launch<96>(scores, p, grid, smem_bytes, st);
+    case 128: return ring_launch<128>(scores, p, grid, smem_bytes, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 

@@ -1,7 +1,9 @@
 // Hopper building blocks shared by the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA loads
-// through 4-D tensor maps, wgmma shared-memory descriptors and the
-// bf16 wgmma shapes they use, and the tensor-map encoder.  sm_90a only
+// (flash_attention.cu, flash_attention_bwd.cu; decode_attention_q8.cu
+// takes the mbarriers for its bulk copies, and it and the SSD kernels
+// through tf32x3.cuh the cp.async copies): mbarriers, cp.async copies,
+// TMA loads through 4-D tensor maps, wgmma shared-memory descriptors and
+// the bf16 wgmma shapes they use, and the tensor-map encoder.  sm_90a only
 // (wgmma and setmaxnreg).  Each including source is its own library, so
 // everything here has internal linkage.
 #pragma once
@@ -47,6 +49,36 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// N (4, 8 or 16) bytes from global memory to shared address `dst`, of
+// which the first `src_bytes` are read and the rest zero-filled (0: no
+// read).  16-byte copies bypass L1 (.cg), smaller ones cannot (.ca).
+// Like every asm here they clobber memory, so no shared-memory access
+// moves across a copy, a commit or a wait.
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int src_bytes = N) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16");
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst),
+                 "l"(src), "n"(N), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// waits until at most N of this thread's committed copy groups are
+// pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // one box of a 4-D tensor map (dims D, heads, seq, batch) into shared

@@ -142,15 +142,16 @@ __device__ __forceinline__ void copy_tile(float* dst, int pitch,
     for (int i = tid; i < kTile * per_row; i += nthr) {
       const int r = i >> sh, c = (i & (per_row - 1)) * 4;
       const bool ok = r < rows && c < valid_cols;
-      cp16(smem_addr(dst + r * pitch + c), ok ? src + r * stride + c : src,
-           ok);
+      hopper::cp_async<16>(smem_addr(dst + r * pitch + c),
+                           ok ? src + r * stride + c : src, ok ? 16 : 0);
     }
     return;
   }
   for (int i = tid; i < kTile * per_row; i += nthr) {
     const int r = i / per_row, c = (i - r * per_row) * 4;
     const bool ok = r < rows && c < valid_cols;
-    cp16(smem_addr(dst + r * pitch + c), ok ? src + r * stride + c : src, ok);
+    hopper::cp_async<16>(smem_addr(dst + r * pitch + c),
+                         ok ? src + r * stride + c : src, ok ? 16 : 0);
   }
 }
 
@@ -230,7 +231,7 @@ __device__ __forceinline__ void load_x(const Args& a, const Smem& m, Step st,
 __device__ __forceinline__ void begin_y(const Args& a, const Smem& m,
                                         Step st, int nq, int npb, int bc,
                                         int gt) {
-  cp_wait_all();
+  hopper::cp_async_wait<0>();
   __syncthreads();
   const int per_row = m.np8 / 4;  // 16-byte chunks of a B row
   const bool pow2 = (per_row & (per_row - 1)) == 0;
@@ -255,7 +256,7 @@ __device__ __forceinline__ void begin_y(const Args& a, const Smem& m,
   bar_arrive(kBarB, 256);
   const Step nx = next_step(st, nq);
   if (nx.pb < npb) load_bc(a, m, nx, bc, gt, 128);
-  cp_commit();
+  hopper::cp_async_commit();
 }
 
 // xdt^T planes: row = head-dim column p, K = key, keys of each 8-step in
@@ -265,7 +266,7 @@ __device__ __forceinline__ void begin_y(const Args& a, const Smem& m,
 __device__ __forceinline__ void begin_s(const Args& a, const Smem& m,
                                         Step st, int nq, int npb, int bc,
                                         int h, int gt) {
-  cp_wait_all();
+  hopper::cp_async_wait<0>();
   __syncthreads();
   constexpr int xp = kPB;  // raw xdt row pitch
 #pragma unroll 4
@@ -288,7 +289,7 @@ __device__ __forceinline__ void begin_s(const Args& a, const Smem& m,
   bar_arrive(kBarX, 256);
   const Step nx = next_step(st, nq);
   if (nx.pb < npb) load_x(a, m, nx, bc, h, gt, 128);
-  cp_commit();
+  hopper::cp_async_commit();
   bar_sync(kBarB, 256);  // B planes written
 }
 
@@ -507,7 +508,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_intra_kernel(Args a) {
       tid < Q ? __ldg(a.cum + ((size_t)bc * Q + tid) * a.H + h) : 0.f;
   load_bc(a, m, Step{0, 0, 0, 0}, bc, tid, kThreads);
   load_x(a, m, Step{0, 0, 0, 0}, bc, h, tid, kThreads);
-  cp_commit();
+  hopper::cp_async_commit();
   // zero the B planes' state columns past N, which no split writes but
   // zero steps read
   if (m.np8 < 32 * b_boxes(a.N))

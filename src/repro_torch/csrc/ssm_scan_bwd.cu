@@ -389,8 +389,8 @@ __device__ __forceinline__ void issue_dy(float* dst, const Args& a, int bc,
   for (int i = threadIdx.x; i < kTile * cpr; i += kThreads) {
     const int r = i / cpr, ch = i % cpr;
     const bool ok = r < rows && 4 * ch < a.P;
-    cp16(smem_addr(dst + r * 64 * NP + ((ch ^ dsw(r)) << 2)),
-         ok ? src + r * stride + 4 * ch : a.dy, ok);
+    hopper::cp_async<16>(smem_addr(dst + r * 64 * NP + ((ch ^ dsw(r)) << 2)),
+                         ok ? src + r * stride + 4 * ch : a.dy, ok ? 16 : 0);
   }
 }
 
@@ -467,7 +467,7 @@ ssd_bwd_keys_kernel(const Args a) {
   const float* gt = a.g + (size_t)bc * npairs * kFrag;
 
   issue_dy<NP>(ring, a, bc, h0, kt);
-  cp_commit();
+  hopper::cp_async_commit();
   int step = 0;
   for (int h = h0; h < h1; ++h) {
     const bool first = h == h0;
@@ -586,7 +586,7 @@ ssd_bwd_keys_kernel(const Args a) {
     for (int j = 0; j < 16; ++j) cs[j] = 0.f;
     for (int qt = kt; qt < nq; ++qt, ++step) {
       const float* dyt = ring + (step & 1) * RING;
-      cp_wait_all();
+      hopper::cp_async_wait<0>();
       __syncthreads();  // this tile landed; the step before is done
       {
         int nh = h, nqt = qt + 1;
@@ -596,7 +596,7 @@ ssd_bwd_keys_kernel(const Args a) {
         }
         if (nh < h1)
           issue_dy<NP>(ring + ((step + 1) & 1) * RING, a, bc, nh, nqt);
-        cp_commit();
+        hopper::cp_async_commit();
       }
       if (qt == kt && h + 1 < h1) {  // the next head's xdt and dS into L2
         const int lines = (P + 31) / 32;  // 128-byte lines a row

@@ -1,9 +1,9 @@
 // fp32 products on Hopper's tensor cores in 3xTF32, shared by the SSD
-// kernels (ssm_scan.cu, ssm_scan_bwd.cu): cp.async copies, the split of
-// an fp32 value into tf32 hi and lo, K-major operand planes in the
-// 128-byte swizzle, and wgmma m64n64k8 tf32 with A from registers.
-// sm_90a only.  Each including source is its own library, so everything
-// here has internal linkage.
+// kernels (ssm_scan.cu, ssm_scan_bwd.cu; their cp.async copies are
+// hopper.cuh's, included here): the split of an fp32 value into tf32
+// hi and lo, K-major operand planes in the 128-byte swizzle, and wgmma
+// m64n64k8 tf32 with A from registers.  sm_90a only.  Each including
+// source is its own library, so everything here has internal linkage.
 //
 // A plane holds an operand K-major: 64 rows (the wgmma's N), K split
 // into boxes of 32 tf32 (128 bytes a row, 8 KB a box), 16-byte chunks
@@ -14,28 +14,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"   // cp.async
+
 namespace {
 
 constexpr int kBox = 64 * 128;  // 64 rows x 128 bytes (32 tf32 of K)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global into shared memory, or 16 zero bytes where
-// !valid (nothing is read then)
-__device__ __forceinline__ void cp16(uint32_t dst, const float* src,
-                                     bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 // x rounded to tf32, to nearest with ties away (cvt.rna for finite x)

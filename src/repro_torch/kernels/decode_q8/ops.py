@@ -19,13 +19,17 @@ heads a kv head, and raises on anything else.
 
 The split form (``decode_attention_q8(..., group=, start=, smax=)``,
 a context-parallel decode: the cache holds this rank's positions
-[start, start + its length) of a cache of `smax`): the kernel in four
-launches a rank (``STAGE_NAMES``, ``decode_attention_q8_stage`` of the
-same source), with the row max, the sum of exponentials, the max |pv|
-and the int32 P·V sums all-reduced over `group` between them
-(``ref.split_decode``).  ``decode_attention_q8_blocks`` runs the same
-form over several position blocks of one process (the exchange then
-reduces over them too).  The guard on exact int32 sums
+[start, start + its length) of a cache of `smax`): four launches a
+rank (``STAGE_NAMES``) of the same source, with the row max, the sum of
+exponentials, the max |pv| and the int32 P·V sums all-reduced over
+`group` between them (``ref.split_decode``).  Stages 1 and 2 run the
+one launch's code on its cluster plan (``plan(..., scratch=True)``);
+stages 0 and 3 (the scores and row max; pq and P·V), whose reductions
+are exact in any order, run kernels of their own on persistent blocks
+(``stage_plan``: a ring of tiles in shared memory, two blocks an SM).
+``decode_attention_q8_blocks`` runs the same form over several
+position blocks of one process (the exchange then reduces over them
+too).  The guard on exact int32 sums
 (``MAX_SMAX``) applies to the whole cache's `smax`.
 
 ``launches`` counts every launch of the source's kernels (the one
@@ -57,8 +61,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = ([_P, _I] + [_P] * 9 + [_I] * 6 + [ctypes.c_float]
              + [_I] * 4 + [_P])
 _OCC_ARGTYPES = [_I] * 6
-_STAGE_ARGTYPES = ([_I, _P, _I] + [_P] * 11 + [_I] * 8 + [ctypes.c_float]
-                   + [_I] * 3 + [_P])
+_STAGE_ARGTYPES = ([_I, _P, _I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float]
+                   + [_I] * 4 + [_P])
 # the split form's launches, in order (``decode_attention_q8_stage``)
 STAGE_NAMES = ("decode_q8_scores", "decode_q8_exp", "decode_q8_pv",
                "decode_q8_pq")
@@ -69,6 +73,14 @@ MAX_SMEM_BLOCK = 232_448
 SMEM_SM, SMEM_RESERVED = 233_472, 1_024
 MAX_CLUSTER = 8            # the portable cluster size
 BLOCK_POSITIONS = 512      # a cluster grows by a block for each of these
+SMS = 132                  # the H100 SXM's SMs (``stage_plan``'s default)
+# the ring kernels (stages 0 and 3): k items in stage 0's ring, v tiles
+# in flight ahead of stage 3's P·V (csrc's kScoresRing, kPqAhead); their
+# blocks (8 warps that compute, and stage 0's producer warp) are held
+# to registers that let two fit an SM (csrc's __launch_bounds__)
+SCORES_RING, PQ_AHEAD = 6, 3
+RING_WARPS = 8
+RING_BLOCKS_PER_SM = 2
 
 launches = 0
 stage_launches = {name: 0 for name in STAGE_NAMES}
@@ -121,6 +133,97 @@ def plan(B: int, Smax: int, KV: int, G: int, D: int, *,
                             0 if on_chip else 4 * B * KV * G * Smax)
     raise ValueError(f"decode_attention_q8: no plan fits "
                      f"{(B, Smax, KV, G, D)}")
+
+
+class RingPlan(NamedTuple):
+    """One ring kernel's launch on a block of Sl positions: work items
+    of ``tile`` positions by ``heads`` kv heads, ``tiles`` of them along
+    Sl, ``items`` in all, taken by ``grid`` persistent blocks
+    (``stage_items``), each with ``smem`` dynamic shared bytes."""
+    tile: int
+    heads: int
+    tiles: int
+    items: int
+    grid: int
+    smem: int
+
+
+class StagePlan(NamedTuple):
+    """How the split form's stages 0 (``scores``) and 3 (``pq``), the
+    ring kernels, run on a block of a cache of ``kv`` heads;
+    ``blocks_per_sm`` the occupancy both stages' shared memory allows."""
+    scores: RingPlan
+    pq: RingPlan
+    kv: int
+    blocks_per_sm: int
+
+
+def ring_tile(D: int) -> int:
+    """Rows of D bytes a work item: 8 units of 32 rows by 64 columns."""
+    return 128 if D > 64 else 256
+
+
+def score_heads(KV: int) -> int:
+    """Stage 0's kv heads an item: the largest power of 2 up to
+    min(KV, 8), so that each warp's rows of an item are one head's."""
+    return next(h for h in (8, 4, 2, 1) if h <= KV)
+
+
+def ring_smem(stage: int, G: int, D: int) -> int:
+    """Dynamic shared memory of a ring kernel's block: the kernel's
+    ``ring_layout``."""
+    T, row = ring_tile(D), D + 16
+    if stage == 0:    # k rows, scales, len, mbarrier; the warps' scores
+        return (SCORES_RING * (T * D + 4 * T + 32)
+                + RING_WARPS * MAX_GROUP * (T // RING_WARPS + 4) * 4)
+    return ((PQ_AHEAD + 2) * (4 * G * T + 32)
+            + (PQ_AHEAD + 1) * (T * row + _up(G * (T + 16), 16))
+            + _up(4 * G * D, 16))
+
+
+def stage_plan(B: int, Sl: int, KV: int, G: int, D: int, *,
+               sms: int = SMS) -> StagePlan:
+    """The ring kernels' plan on a block of Sl positions: two blocks an
+    SM where both stages' shared memory fits so (one otherwise), on
+    `sms` SMs, and no more blocks than work items.  Stage 0's items are
+    ``score_heads(KV)`` heads by ring_tile(D) / heads positions (the
+    records' spans in address order); stage 3's one head by
+    ring_tile(D) positions, on a multiple of KV blocks (a block keeps
+    one kv head; KV of them read the same tiles)."""
+    if D not in HEAD_DIMS or not 0 < G <= MAX_GROUP or min(B, Sl, KV) < 1:
+        raise ValueError(f"decode_attention_q8 stages: no plan for "
+                         f"{(B, Sl, KV, G, D)}")
+    smem = (ring_smem(0, G, D), ring_smem(3, G, D))
+    per_sm = next(n for n in (RING_BLOCKS_PER_SM, 1)
+                  if n * (max(smem) + SMEM_RESERVED) <= SMEM_SM)
+    most = per_sm * sms
+    H, T = score_heads(KV), ring_tile(D)
+    tiles = -(-Sl // (T // H))
+    items = B * -(-KV // H) * tiles
+    scores = RingPlan(T // H, H, tiles, items, min(items, most), smem[0])
+    tiles = -(-Sl // T)
+    items = B * KV * tiles
+    pq = RingPlan(T, 1, tiles, items, max(KV, min(items, most) // KV * KV),
+                  smem[1])
+    return StagePlan(scores, pq, KV, per_sm)
+
+
+def stage_items(pl: StagePlan, stage: int, block: int) -> list:
+    """The items block `block` of stage `stage`'s grid takes, in order
+    (the kernels' ``item_span`` / ``score_item`` and ``item_run`` /
+    ``item_at``), each as (b, kv, tile): the heads [kv, kv + heads) of
+    the positions [tile·tile_size, (tile + 1)·tile_size)."""
+    rp = pl.scores if stage == 0 else pl.pq
+    if stage == 0:
+        groups = -(-pl.kv // rp.heads)
+        lo, hi = (rp.items * i // rp.grid for i in (block, block + 1))
+        return [(it // rp.tiles // groups,
+                 it // rp.tiles % groups * rp.heads, it % rp.tiles)
+                for it in range(lo, hi)]
+    KV, runs = pl.kv, rp.grid // pl.kv
+    pairs, j = rp.items // KV, block // KV
+    return [(r // rp.tiles, block % KV, r % rp.tiles)
+            for r in range(pairs * j // runs, pairs * (j + 1) // runs)]
 
 
 def cost(q: torch.Tensor, cache: Mapping[str, torch.Tensor]
@@ -321,9 +424,13 @@ def _stage_scores(q, cache, lens, window, start, smax):
         Sl, KV = k.shape[1], k.shape[2]
         G = Hq // KV
         pl = plan(B, Sl, KV, G, D, scratch=True)
-        state = {"q": q.contiguous(), "cache": cache, "lens": lens,
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        q = q.contiguous()
+        if q.data_ptr() % 16:     # a view: realigned for 16-byte copies
+            q = q.clone()
+        state = {"q": q, "cache": cache, "lens": lens,
                  "window": window or 0, "start": start, "smax": smax,
-                 "plan": pl,
+                 "plan": pl, "ring": stage_plan(B, Sl, KV, G, D, sms=sms),
                  "scratch": torch.empty(pl.scratch_bytes // 4,
                                         dtype=torch.float32,
                                         device=q.device)}
@@ -350,11 +457,12 @@ STAGES = ref.Stages(_stage_scores,
 
 def _launch_stage(stage: int, state, stat_in: Optional[torch.Tensor],
                   debug: bool = False):
-    """One launch of ``decode_attention_q8_stage``: stage 0..2 return
-    their [B,KV,G] fp32 part; stage 3 its int32 sums [B,KV,G,D] and,
-    with `debug`, the block's pq."""
+    """One launch of ``decode_attention_q8_stage``: stages 0 and 3 run
+    the ring kernels (``stage_plan``), 1 and 2 the cluster kernel
+    (``plan``).  Stages 0..2 return their [B,KV,G] fp32 part; stage 3
+    its int32 sums [B,KV,G,D] and, with `debug`, the block's pq."""
     global launches
-    q, cache, pl = state["q"], state["cache"], state["plan"]
+    q, cache = state["q"], state["cache"]
     B, _, Hq, D = q.shape
     Sl, KV = cache["k"].shape[1], cache["k"].shape[2]
     G = Hq // KV
@@ -368,27 +476,40 @@ def _launch_stage(stage: int, state, stat_in: Optional[torch.Tensor],
                          f"{tuple(stat_in.shape)} on {stat_in.device}")
     dev = q.device
     stat_out = out = dbg_pq = None
-    if stage < 3:
+    if stage == 0:        # the blocks take their max into it
+        stat_out = torch.full((B, KV, G), float("-inf"), dtype=torch.float32,
+                              device=dev)
+    elif stage < 3:
         stat_out = torch.empty((B, KV, G), dtype=torch.float32, device=dev)
-    else:
-        out = torch.empty((B, KV, G, D), dtype=torch.int32, device=dev)
+    else:                 # the blocks add their sums into it
+        out = torch.zeros((B, KV, G, D), dtype=torch.int32, device=dev)
         if debug:
             dbg_pq = torch.empty((B, KV, G, Sl), dtype=torch.int8,
                                  device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
+    k_scale = cache["k_scale"]
+    cluster = block_positions = grid = 0
+    if stage in (0, 3):
+        rp = state["ring"].scores if stage == 0 else state["ring"].pq
+        grid, smem = rp.grid, rp.smem
+        if k_scale.data_ptr() % 4:    # a view at an odd fp16: realigned
+            k_scale = k_scale.clone()
+    else:
+        pl = state["plan"]
+        cluster, block_positions = pl.cluster, pl.block_positions
+        smem = pl.smem_bytes
     fn = build.function("decode_attention_q8", "decode_attention_q8_stage",
                         _STAGE_ARGTYPES)
     err = _launch(fn, dev, stage, q.data_ptr(),
                   int(q.dtype == torch.bfloat16), cache["k"].data_ptr(),
-                  cache["v"].data_ptr(), cache["k_scale"].data_ptr(),
+                  cache["v"].data_ptr(), k_scale.data_ptr(),
                   cache["v_scale"].data_ptr(), state["lens"].data_ptr(),
                   ptr(stat_in), ptr(stat_out), ptr(out),
-                  state["scratch"].data_ptr(), None, ptr(dbg_pq), B, Sl, KV,
-                  G, D, state["start"], state["smax"], state["window"],
-                  1.0 / (D ** 0.5), pl.cluster, pl.block_positions,
-                  pl.smem_bytes)
+                  state["scratch"].data_ptr(), ptr(dbg_pq), B, Sl, KV, G, D,
+                  state["start"], state["smax"], state["window"],
+                  1.0 / (D ** 0.5), cluster, block_positions, grid, smem)
     build.check(err, STAGE_NAMES[stage])
     launches += 1
     stage_launches[STAGE_NAMES[stage]] += 1

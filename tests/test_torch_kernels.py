@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.decode_q8 import ops as q8_ops  # noqa: E402
+from repro_torch.kernels.decode_q8 import ref as q8_ref  # noqa: E402
 from repro_torch.kernels.decode_q8.ref import (  # noqa: E402
     combine_pv, decode_attention_q8_ref)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -945,6 +946,78 @@ def test_decode_q8_split_form_matches_plain(cuda, B, Smax, KV, G, D, lens,
     if blocks == 1:
         assert torch.equal(got, q8_ops.decode_attention_q8_cuda(
             q, cache, lens, window=window))
+
+
+# the ring kernels (split stages 0 and 3) on one block: B, Sl, KV, G,
+# D, lens, window, the block's start in a cache of smax: ragged last
+# tiles, rows not 16-byte aligned (Sl % 4), D 32's 256-position tiles,
+# a window, a block past its start, and head counts that stage 0 takes
+# in groups (a copy a position), the last one short (KV 12, 5)
+Q8_RING_CASES = [
+    (2, 300, 4, 5, 128, [300, 211], None, 0, 300),
+    (2, 257, 2, 3, 80, [257, 9], None, 0, 257),
+    (1, 1000, 8, 8, 96, [1000], None, 0, 1000),
+    (2, 600, 4, 2, 32, [600, 333], None, 0, 600),
+    (2, 512, 8, 4, 80, [900, 1024], 700, 512, 1024),
+    (3, 2048, 8, 5, 128, [4096, 3000, 2100], None, 2048, 4096),
+    (2, 300, 12, 2, 96, [300, 150], None, 0, 300),
+    (1, 520, 5, 3, 32, [520], 64, 0, 520),
+    (1, 256, 16, 1, 128, [200], None, 0, 256),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sl,KV,G,D,lens,window,start,smax",
+                         Q8_RING_CASES)
+def test_decode_q8_ring_stages_match_plain(cuda, B, Sl, KV, G, D, lens,
+                                           window, start, smax):
+    """Stage 0's scores and row max bit-equal to the plain stage's;
+    stage 3's pq bit-equal to clip(rint(pv / ps)) by torch from the
+    same scratch and ps, its sums the exact products of that pq."""
+    g = torch.Generator(device=cuda).manual_seed(Sl + 7 * G + D)
+    q, cache = q8_inputs(g, B, Sl, KV, G, D, "bfloat16", cuda)
+    lens = torch.tensor(lens, device=cuda)
+    before = dict(q8_ops.stage_launches)
+    st, m = q8_ops.STAGES.scores(q, cache, lens, window, start, smax)
+    st_p, m_p = q8_ref.PLAIN_STAGES.scores(q, cache, lens, window, start,
+                                           smax)
+    assert torch.equal(m, m_p)
+    assert torch.equal(st["scratch"].view(B, KV, G, Sl), st_p["x"])
+    st, l = q8_ops.STAGES.exp(st, m)
+    st, pm = q8_ops.STAGES.pv(st, l)
+    ps = torch.clamp(pm / torch.full_like(pm, 127.0), min=1e-20)
+    pv = st["scratch"].view(B, KV, G, Sl).clone()
+    sums, pq = q8_ops.STAGES.pq(st, ps, True)
+    want = torch.clamp(torch.round(pv / ps[..., None]), -127, 127)
+    assert torch.equal(pq, want.to(torch.int8))
+    assert torch.equal(sums, q8_ref._int_dot("bkgs,bskd->bkgd", pq,
+                                             cache["v"]))
+    assert {k: q8_ops.stage_launches[k] - before[k]
+            for k in q8_ops.STAGE_NAMES} == {k: 1 for k in
+                                              q8_ops.STAGE_NAMES}
+
+
+@pytest.mark.gpu
+def test_decode_q8_ring_stages_on_a_wholly_masked_block(cuda):
+    """A block past every slot's length: stage 0's max is NEG_INF, and
+    fed the other block's statistics its P·V sums are all 0."""
+    B, S, KV, G, D = 2, 512, 4, 5, 128
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, cache = q8_inputs(g, B, S, KV, G, D, "bfloat16", cuda)
+    lens = torch.tensor([100, 256], device=cuda)
+    parts = [({k: t[:, i * 256:(i + 1) * 256].contiguous()
+               for k, t in cache.items()}, i * 256) for i in range(2)]
+    (st0, m0), (st1, m1) = (q8_ops.STAGES.scores(q, c, lens, None, s0, S)
+                            for c, s0 in parts)
+    assert bool((m1 == q8_ref.NEG_INF).all())
+    m = torch.maximum(m0, m1)
+    (st0, l0), (st1, l1) = (q8_ops.STAGES.exp(st, m) for st in (st0, st1))
+    assert bool((l1 == 0).all())
+    l = l0 + l1
+    (st0, p0), (st1, p1) = (q8_ops.STAGES.pv(st, l) for st in (st0, st1))
+    ps = torch.clamp(torch.maximum(p0, p1) / 127.0, min=1e-20)
+    sums, pq = q8_ops.STAGES.pq(st1, ps, True)
+    assert not bool(pq.any()) and not bool(sums.any())
 
 
 @pytest.mark.gpu

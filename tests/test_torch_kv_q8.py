@@ -262,6 +262,67 @@ def test_plan_takes_the_scratch_form_where_scores_do_not_fit(shape):
     _check_plan(pl, B, Smax, KV, G, D)
 
 
+def _stage_shapes():
+    """(B, Sl, KV, G, D) of the split form's blocks the card runs:
+    chip_smoke.py's kv_q8 checks, its timing shape in 1, 4 and 16
+    blocks, every head dim the kernel takes at G 1..8, and head counts
+    that fill no whole group of stage 0's items."""
+    smoke = _module("_q8_chip_smoke", ROOT / "chip_smoke.py")
+    shapes = {tuple(c[:5]) for c in smoke.Q8_CHECKS.values()}
+    B, S, KV, G, D = smoke.Q8_TIMING
+    shapes |= {(B, S // n, KV, G, D) for n in (1, 4, 16)}
+    shapes |= {(2, 300, 4, g, d) for d in q8_ops.HEAD_DIMS
+               for g in range(1, q8_ops.MAX_GROUP + 1)}
+    shapes |= {(2, 300, kv, 2, d) for kv in (1, 2, 3, 5, 12, 32)
+               for d in (32, 96)}
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("B,Sl,KV,G,D", _stage_shapes())
+def test_stage_plan_covers_every_position_once(B, Sl, KV, G, D):
+    """The ring kernels' plan: stage 0's items whole k m-tiles, stage
+    3's whole v groups, each stage's blocks (at most one an item, as
+    many as the occupancy allows) taking every position of every (b,
+    kv) once, stage 0's block a contiguous run of items, stage 3's
+    block one kv head; shared memory within a block's and, at the
+    plan's occupancy, an SM's."""
+    pl = q8_ops.stage_plan(B, Sl, KV, G, D)
+    most = pl.blocks_per_sm * q8_ops.SMS
+    for stage, rp in ((0, pl.scores), (3, pl.pq)):
+        assert rp.heads * rp.tile == q8_ops.ring_tile(D)
+        assert rp.tile % (16 if stage == 0 else 32) == 0
+        assert (rp.tiles - 1) * rp.tile < Sl <= rp.tiles * rp.tile
+        assert rp.items == B * -(-KV // rp.heads) * rp.tiles
+        assert 0 < rp.grid <= min(rp.items, most)
+        runs = [q8_ops.stage_items(pl, stage, i) for i in range(rp.grid)]
+        assert all(len(r) > 0 for r in runs)
+        seen = np.zeros((B, KV, rp.tiles * rp.tile), dtype=np.int64)
+        for r in runs:
+            for b, kv, t in r:
+                seen[b, kv:kv + rp.heads, t * rp.tile:(t + 1) * rp.tile] += 1
+        assert (seen == 1).all()        # the last tile's tail too
+        assert rp.smem == q8_ops.ring_smem(stage, G, D) \
+            <= q8_ops.MAX_SMEM_BLOCK
+    assert pl.scores.heads == min(8, 1 << (KV.bit_length() - 1))
+    assert pl.scores.grid == min(pl.scores.items, most)
+    flat = [it for i in range(pl.scores.grid)
+            for it in q8_ops.stage_items(pl, 0, i)]
+    assert flat == sorted(flat)          # contiguous runs, in order
+    assert pl.pq.grid % KV == 0
+    assert min(pl.pq.items, most) - KV < pl.pq.grid
+    assert all(len({kv for _, kv, _ in q8_ops.stage_items(pl, 3, i)}) == 1
+               for i in range(pl.pq.grid))
+    assert pl.blocks_per_sm * (max(pl.scores.smem, pl.pq.smem)
+                               + q8_ops.SMEM_RESERVED) <= q8_ops.SMEM_SM
+    assert pl.blocks_per_sm == 2     # every shape here fits two an SM
+
+
+def test_stage_plan_refuses_shapes_the_kernels_do_not_take():
+    for shape in [(1, 64, 2, 2, 64), (1, 64, 1, 9, 32), (1, 0, 1, 1, 32)]:
+        with pytest.raises(ValueError, match="no plan"):
+            q8_ops.stage_plan(*shape)
+
+
 def test_plan_and_wrapper_refuse_caches_past_max_smax():
     with pytest.raises(ValueError, match="cache positions"):
         q8_ops.plan(1, q8_ops.MAX_SMAX + 1, 1, 1, 32)
